@@ -1,0 +1,98 @@
+"""DETR detector with RoI head, the GPV visual stream (counterpart of
+`gpv_tpu/models/detr.py`).
+
+Reference `exp/gpv/models/detr.py` + `detr_roi_head.py`: ResNet-50 C5 ->
+1x1 `input_proj` to 256 -> DETR transformer -> query states; class head
+(num_classes + 1 logits) and 3-layer sigmoid cxcywh box MLP; RoI head:
+aligned 7x7 RoI-align on C5 at the detached predicted boxes, mean-pooled,
+parameter-free LayerNorm (eps 1e-5), concatenated with the query states to
+the 2304-d `detr_hs`. Parameter names follow the reference
+(`backbone.0.body.*`, `input_proj`, `query_embed`, `class_embed`,
+`bbox_embed.layers.{i}`). Only the sine position embedding and the RoI
+head's released setting (7x7, sampling grid capped at 8) are ported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.detr_transformer import DetrTransformer
+from ..nn.layers import MLP
+from ..nn.resnet import ResNet
+from ..ops.posenc import sine_position_embedding_2d
+from ..ops.roi_align import roi_align_mean_pooled
+
+
+class _Body(nn.Module):
+    """Holds the trunk as `body`, so its names read `backbone.0.body.*`."""
+
+    def __init__(self, body: ResNet):
+        super().__init__()
+        self.body = body
+
+
+class DETR(nn.Module):
+    def __init__(self, num_queries: int = 100, num_classes: int = 1,
+                 hidden_dim: int = 256, nheads: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048,
+                 backbone_layers: tuple = (3, 4, 6, 3),
+                 dilation: bool = False, pre_norm: bool = False):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.backbone = nn.ModuleList(
+            [_Body(ResNet(backbone_layers, dilate_c5=dilation))])
+        self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
+        self.query_embed = nn.Embedding(num_queries, hidden_dim)
+        self.transformer = DetrTransformer(
+            hidden_dim, nheads, num_encoder_layers, num_decoder_layers,
+            dim_feedforward, pre_norm)
+        self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
+        self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
+
+    @property
+    def trunk(self) -> ResNet:
+        return self.backbone[0].body
+
+    def forward(self, images: torch.Tensor,
+                image_valid: Optional[torch.Tensor] = None) -> dict:
+        """images: (B, H, W, 3) normalised; image_valid: (B, H, W) bool.
+
+        Returns {pred_relevance_logits (B,Q,K+1), pred_boxes (B,Q,4),
+        detr_hs (B,Q,2048+D)}.
+        """
+        B, H, W, _ = images.shape
+        dtype = self.input_proj.weight.dtype
+        # NHWC -> NCHW view: the memory stays channels-last for cuDNN
+        feats = self.trunk(images.to(dtype).permute(0, 3, 1, 2))
+        h, w = feats.shape[-2:]
+        if image_valid is None:
+            feat_valid = torch.ones(B, h, w, dtype=torch.bool,
+                                    device=images.device)
+        else:
+            # nearest downsample of the validity mask (reference
+            # backbone.py:77), index arithmetic in fp32 as in the JAX package
+            ys = (torch.arange(h, device=images.device, dtype=torch.float32)
+                  * (H / h)).long()
+            xs = (torch.arange(w, device=images.device, dtype=torch.float32)
+                  * (W / w)).long()
+            feat_valid = image_valid[:, ys][:, :, xs]
+        pos = sine_position_embedding_2d(feat_valid, self.hidden_dim // 2)
+
+        src = self.input_proj(feats).flatten(2).transpose(1, 2)  # (B,hw,D)
+        pos = pos.reshape(B, h * w, self.hidden_dim).to(dtype)
+        key_valid = (None if image_valid is None
+                     else feat_valid.reshape(B, h * w).contiguous())
+        hs, _ = self.transformer(src, pos, self.query_embed.weight,
+                                 key_valid)
+        out = {"pred_relevance_logits": self.class_embed(hs),
+               "pred_boxes": self.bbox_embed(hs).sigmoid()}
+        # no gradient into the box coordinates (torchvision's roi_align has
+        # none for the rois, detr_roi_head.py:45-55)
+        roi = roi_align_mean_pooled(feats, out["pred_boxes"].detach())
+        roi = F.layer_norm(roi.to(dtype), roi.shape[-1:], eps=1e-5)
+        out["detr_hs"] = torch.cat([roi, hs], dim=-1)
+        return out
