@@ -8,16 +8,20 @@ Run from the root of a checkout. Phases, each printing one JSON line:
   build    nvcc builds every kernel source of gpv_tpu_torch/csrc (sm_90a);
   kernels  K1 (fused_attention) and K2 (fused_biattention) against their
            plain PyTorch versions at every main-path shape, fp32 (TF32 off)
-           and bf16, timed beside the plain version and SDPA;
+           and bf16, timed beside the plain version and SDPA: `ms` over 30
+           back-to-back calls (host cost included) and `device_ms`, one
+           launch's device time from a CUDA-graph replay of 30 launches;
   slice    GPVEngine.predict at the released width (B=20 uint8 480x640,
            12-token queries, bf16, BN folded, seeded random weights), with
            the kernels' launch counts read around that one call;
-  profile  torch.profiler over one more predict: device time by kernel
-           and the device's idle share;
+  profile  torch.profiler over one more predict: device time by kernel,
+           the port's kernels (prefix gpv_attn_) by variant, and the
+           device's idle share;
   e2e      the same weights in fp32 on the card (kernels) and on the CPU
            (plain versions), on 2 images: boxes, relevance, first-step
            logits, greedy tokens.
-Then one `kernels` line for both kernels, and last
+Then one `kernels` line (each kernel of the path: launches in the
+measured predict, and per-predict ms, device ms, bound), and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 that line; without a CUDA device, or without the package beside this file,
 it exits non-zero at once. `--report` also writes every phase's record to
@@ -49,6 +53,7 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """ms per call of `reps` back-to-back calls: host cost included."""
     import torch
     for _ in range(warmup):
         fn()
@@ -60,6 +65,65 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 30):
+    """(ms, method): one call's device time. The `reps` calls are captured
+    in a CUDA graph after a warm-up outside capture, and a replay is timed
+    with events, so the host's cost of each call drops out. Where capture
+    refuses a call, torch.profiler's device time for `reps` calls is used
+    instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError:
+        return _profiled_device_ms(fn, reps), "profiler"
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return min(times), "cuda_graph"
+
+
+def _device_events(prof):
+    """(device ms, count, name) of each device-side kernel or copy."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        rows.append((dev_us / 1e3, e.count, e.key))
+    return rows
+
+
+def _profiled_device_ms(fn, reps: int) -> float:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _device_events(prof)) / reps
 
 
 # ---------------------------------------------------------------- phases
@@ -82,14 +146,37 @@ def phase_device() -> dict:
     return rec
 
 
+def _sass_mma(lib: Path) -> dict:
+    """Tensor-core instructions (HMMA, and wgmma's HGMMA) per kernel in the
+    built library, read with cuobjdump -sass; {} without cuobjdump."""
+    from gpv_tpu_torch.ops import _cuda
+    tool = Path(_cuda.nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ", 1)[1].strip()
+            counts[name] = 0
+        elif name and ("HMMA" in ln or "HGMMA" in ln):
+            counts[name] += 1
+    return counts
+
+
 def phase_build() -> dict:
     from gpv_tpu_torch.ops import _cuda
     seconds = _cuda.build_all()
     ptxas = [ln.strip() for name in _cuda.SOURCES
              for ln in _cuda.build_log(name).splitlines()
              if "Used" in ln or "spill" in ln]
+    mma = {name: _sass_mma(_cuda._target(name)) for name in _cuda.SOURCES}
+    tile = mma["attention_tile"]
+    if tile and not all(tile.values()):
+        fail(f"a tile kernel issues no tensor-core instruction: {tile}")
     return {"phase": "build", "sources": list(_cuda.SOURCES),
-            "seconds": seconds, "ptxas": ptxas}
+            "seconds": seconds, "ptxas": ptxas, "sass_mma_per_kernel": mma}
 
 
 def k1_cases(steps: int):
@@ -136,6 +223,18 @@ def _bound(bytes_moved: float, flops: float, dtype: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _timings(calls: dict) -> dict:
+    """`<prefix>ms` (host-inclusive) and `<prefix>device_ms` of each call,
+    and how the device times were taken."""
+    out, methods = {}, set()
+    for prefix, fn in calls.items():
+        out[f"{prefix}ms"] = time_ms(fn)
+        out[f"{prefix}device_ms"], method = device_ms(fn)
+        methods.add(method)
+    out["device_ms_method"] = "+".join(sorted(methods))
+    return out
+
+
 def phase_kernels() -> dict:
     import torch
     import torch.nn.functional as F
@@ -163,16 +262,15 @@ def phase_kernels() -> dict:
                          f"{TOL[dname]} x {scale}")
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 sdpa_mask = None if kv is None else kv[:, None, None, :]
-                rec = {"case": name, "dtype": dname, "max_abs_err": err,
-                       "tol": TOL[dname] * scale,
-                       "ms": time_ms(lambda: A.fused_attention(
-                           q, k, v, kv, causal)),
-                       "plain_ms": time_ms(lambda: A.attend_plain(
-                           q, k, v, kv, causal)),
-                       "library_ms": time_ms(
-                           lambda: F.scaled_dot_product_attention(
-                               qt, kt, vt, attn_mask=sdpa_mask,
-                               is_causal=causal))}
+                calls = {
+                    "": lambda: A.fused_attention(q, k, v, kv, causal),
+                    "plain_": lambda: A.attend_plain(q, k, v, kv, causal),
+                    "library_": lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal)}
+                rec = {"case": name, "dtype": dname,
+                       "variant": A._plan(dtype, tq, tk, dh).variant,
+                       "max_abs_err": err, "tol": TOL[dname] * scale,
+                       **_timings(calls)}
                 nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                     * q.element_size() + (0 if kv is None else kv.numel())
                 rec.update(_bound(nbytes, 4.0 * b * h * tq * tk * dh, dname))
@@ -205,14 +303,16 @@ def phase_kernels() -> dict:
                                                    attn_mask=m1)
                     F.scaled_dot_product_attention(tr[0], tr[4], tr[5],
                                                    attn_mask=m2)
+                calls = {
+                    "": lambda: A.fused_biattention(*xs, v1, v2),
+                    "plain_": lambda: A.biattend_plain(*xs, v1, v2),
+                    "sdpa_two_calls_": sdpa_pair}
                 rec = {"case": f"masks_{int(has1)}{int(has2)}",
-                       "dtype": dname, "max_abs_err": err, "tol": tol,
-                       "ms": time_ms(lambda: A.fused_biattention(
-                           *xs, v1, v2)),
-                       "plain_ms": time_ms(lambda: A.biattend_plain(
-                           *xs, v1, v2)),
-                       "library_ms": None,
-                       "sdpa_two_calls_ms": time_ms(sdpa_pair)}
+                       "dtype": dname,
+                       "variant": A._plan(dtype, t2, t1, dh,
+                                          both=True).variant,
+                       "max_abs_err": err, "tol": tol, "library_ms": None,
+                       "library_device_ms": None, **_timings(calls)}
                 # six inputs read once; ctx1, ctx2 written (shapes of q2, q1)
                 nbytes = (sum(x.numel() for x in xs) + xs[0].numel()
                           + xs[3].numel()) * xs[0].element_size() \
@@ -240,9 +340,20 @@ def build_model(seed: int = 0):
     return init_random(GPV(vocab_size=VOCAB), seed)
 
 
+# the port's kernels by the name each __global__ function has in a trace,
+# most specific first: (variant key, name fragment)
+PORT_KERNELS = (("K2 tile", "gpv_attn_tile_bi_kernel"),
+                ("K1 tile", "gpv_attn_tile_kernel"),
+                ("K1 decode", "gpv_attn_decode_kernel"),
+                ("fp32", "gpv_attn_fp32"))
+
+
 def phase_profile(eng, images, queries) -> dict:
-    """torch.profiler over one predict: device time by kernel, and the
-    share of the call's wall time in which the card ran no kernel."""
+    """torch.profiler over one predict: device time by kernel, the port's
+    kernels by variant, and the share of the call's wall time in which the
+    card ran no kernel. Fails unless K1's Tq >= 2 calls (30) ran on the
+    tile kernel, its decode-step calls (6 a step) on the decode kernel and
+    K2's 3 on the tile kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,31 +364,32 @@ def phase_profile(eng, images, queries) -> dict:
         eng.predict(images, queries)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    from torch.autograd import DeviceType
-    rows = []  # device-side events only: kernels and copies
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = sorted(_device_events(prof), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    groups = (("port_attention_kernels", ("attention_kernel",)),
+    groups = (("port_attention_kernels", ("gpv_attn_",)),
               ("conv", ("conv", "cudnn", "fprop", "implicit")),
               ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
               ("memcpy", ("memcpy",)))
     by_group = {g: 0.0 for g, _ in groups}
     by_group["other"] = 0.0
-    for ms, _, name in rows:
+    port = {key: {"launches": 0, "device_ms": 0.0} for key, _ in PORT_KERNELS}
+    for ms, n, name in rows:
         low = name.lower()
         group = next((g for g, words in groups
                       if any(w in low for w in words)), "other")
         by_group[group] += ms
+        key = next((k for k, frag in PORT_KERNELS if frag in name), None)
+        if key is not None:
+            port[key]["launches"] += n
+            port[key]["device_ms"] += ms
+    steps = eng.last_decode_steps
+    want = {"K2 tile": 3, "K1 tile": 30, "K1 decode": 6 * steps, "fp32": 0}
+    got = {k: v["launches"] for k, v in port.items()}
+    if got != want:
+        fail(f"profiled kernel launches {got} != expected {want}")
     return {"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "ms_by_group": by_group,
+            "ms_by_group": by_group, "port_kernels": port,
             "top_kernels": [{"ms": ms, "count": n, "name": name[:90]}
                             for ms, n, name in rows[:15]]}
 
@@ -304,19 +416,25 @@ def phase_slice(model):
     eng.predict(images, queries)          # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
 
-    fused_attention.launches = fused_biattention.launches = 0
+    wrappers = (fused_attention, fused_biattention)
+    for w in wrappers:
+        w.launches = 0
+        w.variant_launches = dict.fromkeys(w.variant_launches, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = eng.predict(images, queries)
     torch.cuda.synchronize()
     call_s = time.perf_counter() - t0
-    launches = {"fused_attention": fused_attention.launches,
-                "fused_biattention": fused_biattention.launches}
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_variant = {w.__name__: dict(w.variant_launches) for w in wrappers}
     steps = eng.last_decode_steps
     want = {"fused_attention": 30 + 6 * steps, "fused_biattention": 3}
-    if launches != want:
-        fail(f"launch counts {launches} != expected {want} "
-             f"({steps} decode steps)")
+    want_variant = {"fused_attention": {"tile": 30, "decode": 6 * steps,
+                                        "fp32": 0},
+                    "fused_biattention": {"tile": 3, "fp32": 0}}
+    if launches != want or by_variant != want_variant:
+        fail(f"launch counts {launches} {by_variant} != expected {want} "
+             f"{want_variant} ({steps} decode steps)")
 
     if len(results) != B:
         fail(f"{len(results)} results for {B} images")
@@ -341,7 +459,8 @@ def phase_slice(model):
     dt = time.perf_counter() - t0
     rec = {"phase": "slice", "batch": B, "image_hw": [IMG_H, IMG_W],
            "dtype": "bfloat16", "decode_steps": steps,
-           "launches": launches, "engine_setup_s": setup_s,
+           "launches": launches, "launches_by_variant": by_variant,
+           "engine_setup_s": setup_s,
            "measured_call_s": call_s,
            "images_per_s": B * n_iter / dt,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -397,10 +516,11 @@ def phase_e2e(model) -> dict:
 
 
 def kernels_line(kern: dict, sl: dict) -> dict:
-    """One entry per kernel, for one predict of the slice run: each main-path
-    bf16 shape's numbers times its launches in that run, summed."""
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-            "ops_ms")
+    """One entry per kernel of the path, for one predict of the slice run:
+    each main-path bf16 shape's numbers times its launches in that run,
+    summed over the shapes that kernel serves."""
+    keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
 
     def per_predict(recs, counts):
         tot = {k: 0.0 for k in keys}
@@ -409,35 +529,35 @@ def kernels_line(kern: dict, sl: dict) -> dict:
                 tot[k] += counts.get(r["case"], 0) * (r[k] or 0.0)
         tot["bound_by"] = ("bytes" if tot.pop("bytes_ms") >= tot.pop("ops_ms")
                            else "operations")
+        tot["max_abs_err"] = max(r["max_abs_err"] for r in recs)
         return tot
 
     steps = sl["decode_steps"]
     counts = {c[0]: c[-1] for c in k1_cases(steps)}
-    bf16 = lambda recs: [r for r in recs  # noqa: E731
-                         if r["dtype"] == "bfloat16"]
-    k2 = per_predict(bf16(kern["K2"]), {"masks_10": 3})
-    k2["library_ms"] = None  # no single PyTorch call does both directions
-    k2["sdpa_two_calls_ms"] = 3 * next(
-        r["sdpa_two_calls_ms"] for r in bf16(kern["K2"])
-        if r["case"] == "masks_10")
-
-    def errs(recs):
-        return {"max_abs_err": max(r["max_abs_err"] for r in recs),
-                "max_abs_err_fp32": max(r["max_abs_err"] for r in recs
-                                        if r["dtype"] == "float32")}
+    bf16 = [r for r in kern["K1"] if r["dtype"] == "bfloat16"]
+    k2_bf16 = [r for r in kern["K2"] if r["dtype"] == "bfloat16"]
+    k2 = per_predict(k2_bf16, {"masks_10": 3})
+    k2["library_ms"] = k2["library_device_ms"] = None  # no single call
+    main = next(r for r in k2_bf16 if r["case"] == "masks_10")
+    k2["sdpa_two_calls_ms"] = 3 * main["sdpa_two_calls_ms"]
+    k2["sdpa_two_calls_device_ms"] = 3 * main["sdpa_two_calls_device_ms"]
     per = f"one predict: B={B}, bf16, {steps} decode steps"
-    return {"kernels": [
-        {"name": "fused_attention", "route": "cuda",
-         "source": "gpv_tpu_torch/csrc/attention.cu",
-         "replaces": "gpv_tpu/ops/attention.py:55",
-         "launches": sl["launches"]["fused_attention"],
-         **errs(kern["K1"]), **per_predict(bf16(kern["K1"]), counts),
-         "per": per},
-        {"name": "fused_biattention", "route": "cuda",
-         "source": "gpv_tpu_torch/csrc/attention.cu",
-         "replaces": "gpv_tpu/ops/attention.py:147",
-         "launches": sl["launches"]["fused_biattention"],
-         **errs(kern["K2"]), **k2, "per": per}]}
+    variants = sl["launches_by_variant"]
+    line = []
+    for variant, source in (("tile", "attention_tile.cu"),
+                            ("decode", "attention_decode.cu")):
+        recs = [r for r in bf16 if r["variant"] == variant]
+        line.append({"name": f"fused_attention[{variant}]", "route": "cuda",
+                     "source": f"gpv_tpu_torch/csrc/{source}",
+                     "replaces": "gpv_tpu/ops/attention.py:55",
+                     "launches": variants["fused_attention"][variant],
+                     **per_predict(recs, counts), "per": per})
+    line.append({"name": "fused_biattention[tile]", "route": "cuda",
+                 "source": "gpv_tpu_torch/csrc/attention_tile.cu",
+                 "replaces": "gpv_tpu/ops/attention.py:147",
+                 "launches": variants["fused_biattention"]["tile"],
+                 **k2, "per": per})
+    return {"kernels": line}
 
 
 def main() -> None:

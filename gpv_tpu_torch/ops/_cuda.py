@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("attention",)  # csrc/<name>.cu -> lib<name>_<hash>.so
+# csrc/<name>.cu -> lib<name>_<hash>.so
+SOURCES = ("attention", "attention_tile", "attention_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,20 +4,27 @@ PyTorch versions.
 K1 `fused_attention` replaces the Pallas kernel
 `gpv_tpu/ops/attention.py:fused_attention` (cell `_attend_cell`, masks from
 `attention_mask`); K2 `fused_biattention` replaces
-`gpv_tpu/ops/attention.py:fused_biattention` (`_make_biattn_kernel`). Both
-kernels live in `gpv_tpu_torch/csrc/attention.cu`.
+`gpv_tpu/ops/attention.py:fused_biattention` (`_make_biattn_kernel`). Each
+call goes to one of three kernels, chosen by `_plan` from its dtype and
+shape:
+- `tile` (`csrc/attention_tile.cu`): bf16 with two or more query rows, and
+  both directions of K2 in one launch. Tensor-core products (mma.sync
+  m16n8k16) over K/V tiles streamed through shared memory, FlashAttention-2
+  style.
+- `decode` (`csrc/attention_decode.cu`): bf16 with one query row, the text
+  decoder's step. One block per (batch, head) whose warps split the keys.
+- `fp32` (`csrc/attention.cu`): every fp32 call, the card's parity path
+  (full fp32 on the CUDA cores).
 
 What bounds them on the H100: at every main-path shape (Tk <= 300,
 Dh <= 96) the work is far below the card's ~295 operations per byte, so
 the least time is set by the bytes of q, k, v and the output; an unfused
 attention also moves the (B, H, Tq, Tk) fp32 score matrix through device
 memory several times. The kernels keep scores and softmax statistics
-on-chip (online softmax over key tiles streamed through shared memory),
-so device memory sees q, k, v and out once per query tile. Their products
-run on the CUDA cores in fp32, which is what keeps them above that bound.
+on-chip, so device memory sees q, k, v and out once per query block.
 
 Device policy: a CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises. Masks are passed as (B, Tk) key validity plus a
+a kernel or raises. Masks are passed as (B, Tk) key validity plus a
 `causal` flag and applied as additive -1e9, as the TPU kernels do; nothing
 materialises a (B, Tq, Tk) mask. Both kernels are forward-only, like the
 TPU originals.
@@ -25,15 +32,16 @@ TPU originals.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _cuda
 
 NEG = -1e9
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
+ALIGN = 16  # bytes: the kernels copy 16-byte chunks
 
 
 def _mask(key_valid: Optional[torch.Tensor], causal: bool, Tq: int,
@@ -74,14 +82,88 @@ def biattend_plain(q1, k1, v1, q2, k2, v2, valid1=None, valid2=None):
             attend_plain(q1, k2, v2, valid2))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _cuda.load("attention")
-    if lib.gpv_fused_attention.argtypes is None:
-        lib.gpv_fused_attention.argtypes = [_P] * 5 + [_I] * 7 + [_P]
-        lib.gpv_fused_attention.restype = _I
-        lib.gpv_fused_biattention.argtypes = [_P] * 10 + [_I] * 6 + [_P]
-        lib.gpv_fused_biattention.restype = _I
+class Plan(NamedTuple):
+    """How one call runs: the kernel, warps per block, keys per shared-
+    memory tile and the block's dynamic shared memory in bytes."""
+    variant: str  # "tile", "decode" or "fp32"
+    warps: int
+    key_tile: int
+    smem_bytes: int
+
+
+def _row_bytes(d: int) -> int:
+    """Bytes of one shared-memory row of d bf16 values: 16-byte chunks,
+    an odd number of them (`row_chunks` in csrc/attention_common.cuh)."""
+    return ((d // 8) | 1) * 16
+
+
+def _plan(dtype, Tq: int, Tk: int, Dh: int, both: bool = False) -> Plan:
+    """The kernel and launch shape for one call (`both`: a K2 call, whose
+    Tq is the longer stream). Mirrors the byte counts of the CUDA sources
+    (`tile_smem_bytes`, `decode_smem_bytes`), which refuse a launch given
+    less."""
+    if dtype == torch.float32:  # csrc/attention.cu: static shared memory
+        return Plan("fp32", 4, 32, 0)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"dtype {dtype} not supported "
+                        f"(one of {sorted(map(str, _DTYPES))})")
+    if Dh % 8 or not 0 < Dh <= 128:
+        raise ValueError(f"bf16 head dim {Dh}: the kernels take multiples "
+                         "of 8 up to 128")
+    if Tq == 1 and not both:  # a warp scores one key a lane
+        keys = 32
+        warps = min(4, -(-Tk // keys))
+        part = -(-(4 * warps * (Dh + 2)) // 16) * 16  # (max, sum, acc)
+        return Plan("decode", warps, keys,  # q in fp32, then K and V rows
+                    4 * 128 + part + warps * 2 * keys * _row_bytes(Dh))
+    keys, warps = 64, min(4, -(-Tq // 16))  # a warp owns 16 query rows
+    row = _row_bytes(-(-Dh // 16) * 16)
+    return Plan("tile", warps, keys,  # key mask, Q rows, K and V x 2 stages
+                2 * keys * 4 + 16 * warps * row + 2 * 2 * keys * row)
+
+
+_SIGNATURES = {  # source -> {function: argtypes}; each returns cudaError_t
+    "attention": {"gpv_attn_fp32": [_P] * 5 + [_I] * 6 + [_P],
+                  "gpv_attn_fp32_bi": [_P] * 10 + [_I] * 5 + [_P]},
+    "attention_tile": {"gpv_attn_tile_init": [],
+                       "gpv_attn_tile": [_P] * 5 + [_I] * 8 + [_P],
+                       "gpv_attn_tile_bi": [_P] * 10 + [_I] * 7 + [_P]},
+    "attention_decode": {"gpv_attn_decode_init": [],
+                         "gpv_attn_decode": [_P] * 5 + [_I] * 7 + [_P]},
+}
+_ready: dict = {}
+
+
+def _lib(source: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<source>.cu, its functions typed and its
+    `*_init` (the kernels' shared-memory limits) run once."""
+    lib = _ready.get(source)
+    if lib is None:
+        lib = _cuda.load(source)
+        for fn, argtypes in _SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+            if fn.endswith("_init"):
+                _raise_on(fn, getattr(lib, fn)())
+        _ready[source] = lib
     return lib
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name} kernel: cudaError_t {err}")
+
+
+def _aligned(name: str, tensors: dict) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary (the
+    kernels copy 16-byte chunks). A pure check of the tensors."""
+    for key, t in tensors.items():
+        off = t.data_ptr() % ALIGN
+        if off:
+            raise ValueError(f"{name}: {key} starts {off} bytes past a "
+                             f"{ALIGN}-byte boundary; the kernels need "
+                             "aligned tensors (a view into another "
+                             "tensor's storage may not be)")
 
 
 def _check(name: str, device, dtype, tensors: dict, shapes: dict,
@@ -137,19 +219,32 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            {"key_valid": (key_valid, (B, Tk))})
     if causal and Tq != Tk:
         raise ValueError("fused_attention: causal needs Tq == Tk")
+    plan = _plan(q.dtype, Tq, Tk, Dh)
     out = torch.empty_like(q)
+    _aligned("fused_attention", {"q": q, "k": k, "v": v, "out": out})
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_valid),
+            out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().gpv_fused_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_valid),
-        out.data_ptr(), B, Tq, Tk, H, Dh, int(causal), _DTYPES[q.dtype],
-        stream)
-    if err:
-        raise RuntimeError(f"fused_attention kernel: cudaError_t {err}")
+    if plan.variant == "fp32":
+        err = _lib("attention").gpv_attn_fp32(
+            *ptrs, B, Tq, Tk, H, Dh, int(causal), stream)
+    elif plan.variant == "tile":
+        err = _lib("attention_tile").gpv_attn_tile(
+            *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.warps,
+            plan.smem_bytes, stream)
+    else:
+        err = _lib("attention_decode").gpv_attn_decode(
+            *ptrs, B, Tk, H, Dh, int(causal), plan.warps, plan.smem_bytes,
+            stream)
+    _raise_on(f"fused_attention ({plan.variant})", err)
     fused_attention.launches += 1
+    fused_attention.variant_launches[plan.variant] += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.variant_launches = dict.fromkeys(("tile", "decode", "fp32"),
+                                                 0)
 
 
 def fused_biattention(q1, k1, v1, q2, k2, v2,
@@ -169,18 +264,27 @@ def fused_biattention(q1, k1, v1, q2, k2, v2,
            {"q1": q1, "k1": k1, "v1": v1, "q2": q2, "k2": k2, "v2": v2},
            {"q1": s1, "k1": s1, "v1": s1, "q2": s2, "k2": s2, "v2": s2},
            {"valid1": (valid1, (B, T1)), "valid2": (valid2, (B, T2))})
+    plan = _plan(q1.dtype, max(T1, T2), min(T1, T2), Dh, both=True)
     ctx1 = torch.empty_like(q2)
     ctx2 = torch.empty_like(q1)
+    _aligned("fused_biattention",
+             {"q1": q1, "k1": k1, "v1": v1, "q2": q2, "k2": k2, "v2": v2,
+              "ctx1": ctx1, "ctx2": ctx2})
+    ptrs = (q1.data_ptr(), k1.data_ptr(), v1.data_ptr(), q2.data_ptr(),
+            k2.data_ptr(), v2.data_ptr(), _ptr(valid1), _ptr(valid2),
+            ctx1.data_ptr(), ctx2.data_ptr())
     stream = torch.cuda.current_stream(q1.device).cuda_stream
-    err = _lib().gpv_fused_biattention(
-        q1.data_ptr(), k1.data_ptr(), v1.data_ptr(), q2.data_ptr(),
-        k2.data_ptr(), v2.data_ptr(), _ptr(valid1), _ptr(valid2),
-        ctx1.data_ptr(), ctx2.data_ptr(), B, T1, T2, H, Dh,
-        _DTYPES[q1.dtype], stream)
-    if err:
-        raise RuntimeError(f"fused_biattention kernel: cudaError_t {err}")
+    if plan.variant == "fp32":
+        err = _lib("attention").gpv_attn_fp32_bi(*ptrs, B, T1, T2, H, Dh,
+                                                 stream)
+    else:
+        err = _lib("attention_tile").gpv_attn_tile_bi(
+            *ptrs, B, T1, T2, H, Dh, plan.warps, plan.smem_bytes, stream)
+    _raise_on(f"fused_biattention ({plan.variant})", err)
     fused_biattention.launches += 1
+    fused_biattention.variant_launches[plan.variant] += 1
     return ctx1, ctx2
 
 
 fused_biattention.launches = 0
+fused_biattention.variant_launches = dict.fromkeys(("tile", "fp32"), 0)
