@@ -3,29 +3,49 @@
 
     python3 chip_smoke.py [--report PATH]
 
-Run from the root of a checkout. Phases, each printing one JSON line:
-  device   the card, and its name and power limit as nvidia-smi gives them;
-  build    nvcc builds every kernel source of gpv_tpu_torch/csrc (sm_90a);
-  kernels  K1 (fused_attention) and K2 (fused_biattention) against their
-           plain PyTorch versions at every main-path shape, fp32 (TF32 off)
-           and bf16, timed beside the plain version and SDPA: `ms` over 30
-           back-to-back calls (host cost included) and `device_ms`, one
-           launch's device time from a CUDA-graph replay of 30 launches;
-  slice    GPVEngine.predict at the released width (B=20 uint8 480x640,
-           12-token queries, bf16, BN folded, seeded random weights), with
-           the kernels' launch counts read around that one call;
-  profile  torch.profiler over one more predict: device time by kernel,
-           the port's kernels (prefix gpv_attn_) by variant, and the
-           device's idle share;
-  e2e      the same weights in fp32 on the card (kernels) and on the CPU
-           (plain versions), on 2 images: boxes, relevance, first-step
-           logits, greedy tokens.
-Then one `kernels` line (each kernel of the path: launches in the
-measured predict, and per-predict ms, device ms, bound), and last
-`{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
-that line; without a CUDA device, or without the package beside this file,
-it exits non-zero at once. `--report` also writes every phase's record to
-PATH as JSON.
+Run from the root of a checkout. Every engine is built through the
+config entry point (`infer.build.build_engine` over
+`configs/exp/gpv_inference.yaml`: ckpt=null, so seeded random weights at
+the released widths, and a generated 10000-word answer vocabulary).
+Phases, each printing one JSON line:
+  device     the card, and its name and power limit as nvidia-smi gives
+             them;
+  build      nvcc builds every kernel source of gpv_tpu_torch/csrc
+             (sm_90a);
+  kernels    K1 (fused_attention) and K2 (fused_biattention) against their
+             plain PyTorch versions at every shape of the paths below, fp32
+             (TF32 off) and bf16, timed beside the plain version and SDPA:
+             `ms` over 30 back-to-back calls (host cost included) and
+             `device_ms`, one launch's device time from a CUDA-graph replay
+             of 30 launches;
+  slice      GPVEngine.predict (B=20 uint8 480x640, 12-token queries, bf16,
+             BN folded), with the kernels' launch counts read around one
+             call;
+  profile    torch.profiler over one more predict: device time by kernel,
+             the port's kernels (prefix gpv_attn_) by variant, and the
+             device's idle share;
+  beam       GPVEngine.predict_beam, K=5 on the same batch, launch counts
+             per kernel variant around one call, images/s;
+  profile_beam  the same profile over one more predict_beam;
+  e2e        the same weights in fp32 on the card (kernels) and on the CPU
+             (plain versions), on 2 images: boxes, relevance, first-step
+             logits, greedy tokens, and beam search with K=3 (sequences
+             equal, log-probs);
+  serve      GPVServer over the bf16 engine (buckets 1/8/20, 2 workers):
+             1000 requests from 40 closed-loop clients mixing greedy, beam
+             K=3 and the classification mask; every request resolved, the
+             kernels' launches by variant against the batches the server
+             ran, latency;
+  vocab_embed  embed_vocab over the 10000 words with BERT-base in bf16
+             (launch counts), and fp32 card against CPU on 64 words.
+Then one `kernels` line (each kernel of the paths: launches and per-call
+ms, device ms, bound in the measured predict, and the same for
+predict_beam, embed_vocab and the whole serve run under `paths`), and
+last `{"ok": true,
+"device": {...}}`. Any failed phase exits non-zero before that line;
+without a CUDA device, or without the package beside this file, it exits
+non-zero at once. `--report` also writes every phase's record to PATH as
+JSON.
 """
 from __future__ import annotations
 
@@ -33,14 +53,24 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from collections import Counter
 from pathlib import Path
+from typing import NamedTuple, Optional
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}  # dense tensor core
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max(1, |plain| max)
 B, IMG_H, IMG_W, QUERY_TOKENS, VOCAB = 20, 480, 640, 12, 10000
+BEAM, E2E_BEAM = 5, 3
+EMBED_BATCH = 256  # words a batch in embed_vocab
+SERVE_BUCKETS, SERVE_BEAM = (1, 8, B), 3
+SERVE_CLIENTS, SERVE_REQUESTS = 40, 25  # requests per client
 
 
 def emit(record: dict) -> None:
@@ -179,35 +209,109 @@ def phase_build() -> dict:
             "seconds": seconds, "ptxas": ptxas, "sass_mma_per_kernel": mma}
 
 
-def k1_cases(steps: int):
-    """(name, B, Tq, Tk, H, Dh, mask, causal, launches per predict)."""
-    return [
-        ("detr_encoder_self", B, 300, 300, 8, 32, None, False, 6),
-        ("detr_decoder_self", B, 100, 100, 8, 32, None, False, 6),
-        ("detr_decoder_cross", B, 100, 300, 8, 32, None, False, 6),
-        ("bert_self", B, 20, 20, 12, 64, "query", False, 12),
-        ("decode_step_self", B, 1, 20, 8, 96, "cache", False, 3 * steps),
-        ("decode_step_cross", B, 1, 120, 8, 96, "memory", False, 3 * steps),
-        ("teacher_forced_causal", B, 20, 20, 8, 96, None, True, 0),
-    ]
+class Case(NamedTuple):
+    """One attention shape of a path. K1: Tq query rows against Tk keys
+    with key validity `mask` (a kind of `_valid`). K2 (name `masks_*`):
+    the vision stream's Tq=100 rows against the text stream's Tk=20."""
+    name: str
+    b: int
+    tq: int
+    tk: int
+    h: int
+    dh: int
+    mask: Optional[str]
+    causal: bool = False
+
+    @property
+    def k2(self) -> bool:
+        return self.name.startswith("masks_")
+
+    @property
+    def variant(self) -> str:
+        """The kernel a bf16 call takes: K2 and Tq >= 2 the tile kernel,
+        Tq = 1 the decode kernel."""
+        return "tile" if self.k2 or self.tq > 1 else "decode"
 
 
-def _valid(kind, Tk, device, g):
-    """(B, Tk) key validity of the main path's kind, or random (at least
+def path_launches(path: str, steps: int, batch: int = B, beam: int = BEAM,
+                  words: int = VOCAB) -> Counter:
+    """{Case: launches} in one call of `path` on `batch` samples:
+    "predict" (greedy, `steps` decode steps), "predict_beam" (`beam`
+    beams, `steps` steps) or "embed_vocab" (`words` words in batches of
+    EMBED_BATCH). The gates, the profiles and the kernels line all count
+    from here."""
+    if path == "embed_vocab":
+        full, tail = divmod(words, EMBED_BATCH)
+        out = Counter({Case("vocab_embed_bert", EMBED_BATCH, 16, 16, 12, 64,
+                            "random"): 12 * full})
+        if tail:
+            out[Case(f"vocab_embed_bert_b{tail}", tail, 16, 16, 12, 64,
+                     "random")] = 12
+        return out
+    s = "" if batch == B else f"_b{batch}"
+    out = Counter({
+        Case("detr_encoder_self" + s, batch, 300, 300, 8, 32, None): 6,
+        Case("detr_decoder_self" + s, batch, 100, 100, 8, 32, None): 6,
+        Case("detr_decoder_cross" + s, batch, 100, 300, 8, 32, None): 6,
+        Case("bert_self" + s, batch, 20, 20, 12, 64, "query"): 12,
+        # K2: query-masked text, unmasked vision
+        Case("masks_10" + s, batch, 100, 20, 16, 48, "query"): 3})
+    if path == "predict":
+        step, rows, tq = "decode_step", batch, 1
+    else:  # B·K beam rows on the cache; a sample's K beams as K query rows
+        step = "beam_step" if beam == BEAM else f"beam{beam}_step"
+        rows, tq = batch * beam, beam
+    out[Case(f"{step}_self{s}", rows, 1, 20, 8, 96, "cache")] = 3 * steps
+    out[Case(f"{step}_cross{s}", batch, tq, 120, 8, 96, "memory")] = \
+        3 * steps
+    return out
+
+
+def path_cases() -> list:
+    """Every shape of every call this script makes, once each: predict
+    and predict_beam at B, embed_vocab, and both paths at each serving
+    bucket; then the teacher-forced causal shape (training's, on no path
+    here)."""
+    calls = [path_launches("predict", 0), path_launches("predict_beam", 0),
+             path_launches("embed_vocab", 0)]
+    for b in SERVE_BUCKETS:
+        calls += [path_launches("predict", 0, b),
+                  path_launches("predict_beam", 0, b, SERVE_BEAM)]
+    return list(dict.fromkeys(c for counts in calls for c in counts)) + [
+        Case("teacher_forced_causal", B, 20, 20, 8, 96, None, True)]
+
+
+def k1_cases() -> list:
+    return [c for c in path_cases() if not c.k2]
+
+
+def by_variant(counts: Counter) -> dict:
+    """{Case: launches} -> launches by wrapper and kernel variant, in the
+    form the wrappers count them (bf16 calls: fp32 never)."""
+    out = {"fused_attention": {"tile": 0, "decode": 0, "fp32": 0},
+           "fused_biattention": {"tile": 0, "fp32": 0}}
+    for c, n in counts.items():
+        out["fused_biattention" if c.k2 else "fused_attention"][c.variant] \
+            += n
+    return out
+
+
+def _valid(kind, b, Tk, device, g):
+    """(b, Tk) key validity of the main path's kind, or random (at least
     the first key valid) for any other kind."""
     import torch
     if kind is None:
         return None
     if kind == "query":   # 12 real tokens of the padded 20
         return (torch.arange(Tk, device=device) < QUERY_TOKENS).expand(
-            B, Tk).contiguous()
+            b, Tk).contiguous()
     if kind == "cache":   # decode position t = 9 of the 20-slot cache
         return (torch.arange(Tk, device=device) <= 9).expand(
-            B, Tk).contiguous()
+            b, Tk).contiguous()
     if kind == "memory":  # 100 vision slots + 12 of 20 query slots
         idx = torch.arange(Tk, device=device)
-        return (idx < 100 + QUERY_TOKENS).expand(B, Tk).contiguous()
-    v = torch.rand(B, Tk, device=device, generator=g) > 0.3
+        return (idx < 100 + QUERY_TOKENS).expand(b, Tk).contiguous()
+    v = torch.rand(b, Tk, device=device, generator=g) > 0.3
     v[:, 0] = True
     return v
 
@@ -235,6 +339,16 @@ def _timings(calls: dict) -> dict:
     return out
 
 
+def _k2_runs():
+    """(K2 case, text masked, vision masked) for each K2 run."""
+    for c in path_cases():
+        if c.k2:
+            combos = (((True, False), (False, False), (True, True),
+                       (False, True)) if c.b == B else ((True, False),))
+            for has1, has2 in combos:
+                yield c, has1, has2
+
+
 def phase_kernels() -> dict:
     import torch
     import torch.nn.functional as F
@@ -248,10 +362,11 @@ def phase_kernels() -> dict:
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            for name, b, tq, tk, h, dh, mk, causal, _ in k1_cases(0):
+            for c in k1_cases():
+                name, b, tq, tk, h, dh, mk, causal = c
                 q, k, v = (torch.randn(b, t, h, dh, device=dev, generator=g)
                            .to(dtype) for t in (tq, tk, tk))
-                kv = _valid(mk, tk, dev, g)
+                kv = _valid(mk, b, tk, dev, g)
                 got = A.fused_attention(q, k, v, kv, causal)
                 ref = A.attend_plain(q, k, v, kv, causal)
                 torch.cuda.synchronize()
@@ -268,6 +383,7 @@ def phase_kernels() -> dict:
                     "library_": lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal)}
                 rec = {"case": name, "dtype": dname,
+                       "shape": [b, tq, tk, h, dh],
                        "variant": A._plan(dtype, tq, tk, dh).variant,
                        "max_abs_err": err, "tol": TOL[dname] * scale,
                        **_timings(calls)}
@@ -275,14 +391,15 @@ def phase_kernels() -> dict:
                     * q.element_size() + (0 if kv is None else kv.numel())
                 rec.update(_bound(nbytes, 4.0 * b * h * tq * tk * dh, dname))
                 k1.append(rec)
-            # K2: text T1=20 (12 valid) x vision T2=100, 16 heads, Dh 48
-            t1, t2, h, dh = 20, 100, 16, 48
-            xs = [torch.randn(B, t, h, dh, device=dev, generator=g).to(dtype)
-                  for t in (t1, t1, t1, t2, t2, t2)]
-            for has1, has2 in ((True, False), (False, False), (True, True),
-                               (False, True)):
-                v1 = _valid("query", t1, dev, g) if has1 else None
-                v2 = _valid("random", t2, dev, g) if has2 else None
+            # K2: text T1=20 (12 valid) x vision T2=100, 16 heads, Dh 48;
+            # at B every mask combination, at a serving bucket the path's
+            for c, has1, has2 in _k2_runs():
+                b, t2, t1, h, dh = c.b, c.tq, c.tk, c.h, c.dh
+                xs = [torch.randn(b, t, h, dh, device=dev,
+                                  generator=g).to(dtype)
+                      for t in (t1, t1, t1, t2, t2, t2)]
+                v1 = _valid("query", b, t1, dev, g) if has1 else None
+                v2 = _valid("random", b, t2, dev, g) if has2 else None
                 got = A.fused_biattention(*xs, v1, v2)
                 ref = A.biattend_plain(*xs, v1, v2)
                 torch.cuda.synchronize()
@@ -307,8 +424,9 @@ def phase_kernels() -> dict:
                     "": lambda: A.fused_biattention(*xs, v1, v2),
                     "plain_": lambda: A.biattend_plain(*xs, v1, v2),
                     "sdpa_two_calls_": sdpa_pair}
-                rec = {"case": f"masks_{int(has1)}{int(has2)}",
-                       "dtype": dname,
+                rec = {"case": f"masks_{int(has1)}{int(has2)}"
+                       + c.name[len("masks_10"):], "dtype": dname,
+                       "shape": [b, t2, t1, h, dh],
                        "variant": A._plan(dtype, t2, t1, dh,
                                           both=True).variant,
                        "max_abs_err": err, "tol": tol, "library_ms": None,
@@ -317,7 +435,7 @@ def phase_kernels() -> dict:
                 nbytes = (sum(x.numel() for x in xs) + xs[0].numel()
                           + xs[3].numel()) * xs[0].element_size() \
                     + sum(0 if m is None else m.numel() for m in (v1, v2))
-                rec.update(_bound(nbytes, 2 * 4.0 * B * h * t1 * t2 * dh,
+                rec.update(_bound(nbytes, 2 * 4.0 * b * h * t1 * t2 * dh,
                                   dname))
                 k2.append(rec)
     return {"phase": "kernels", "K1": k1, "K2": k2}
@@ -334,12 +452,6 @@ def _queries(n: int, rng):
     return out
 
 
-def build_model(seed: int = 0):
-    from gpv_tpu_torch.models.gpv import GPV
-    from gpv_tpu_torch.weights import init_random
-    return init_random(GPV(vocab_size=VOCAB), seed)
-
-
 # the port's kernels by the name each __global__ function has in a trace,
 # most specific first: (variant key, name fragment)
 PORT_KERNELS = (("K2 tile", "gpv_attn_tile_bi_kernel"),
@@ -348,12 +460,11 @@ PORT_KERNELS = (("K2 tile", "gpv_attn_tile_bi_kernel"),
                 ("fp32", "gpv_attn_fp32"))
 
 
-def phase_profile(eng, images, queries) -> dict:
-    """torch.profiler over one predict: device time by kernel, the port's
-    kernels by variant, and the share of the call's wall time in which the
-    card ran no kernel. Fails unless K1's Tq >= 2 calls (30) ran on the
-    tile kernel, its decode-step calls (6 a step) on the decode kernel and
-    K2's 3 on the tile kernel."""
+def phase_profile(phase: str, call, counts: Counter) -> dict:
+    """torch.profiler over one `call()` (a predict or predict_beam): device
+    time by kernel, the port's kernels by variant, and the share of the
+    call's wall time in which the card ran no kernel. Fails unless each
+    port kernel launched as often as `counts` ({Case: launches}) says."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -361,7 +472,7 @@ def phase_profile(eng, images, queries) -> dict:
     with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.predict(images, queries)
+        call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = sorted(_device_events(prof), reverse=True)
@@ -382,63 +493,64 @@ def phase_profile(eng, images, queries) -> dict:
         if key is not None:
             port[key]["launches"] += n
             port[key]["device_ms"] += ms
-    steps = eng.last_decode_steps
-    want = {"K2 tile": 3, "K1 tile": 30, "K1 decode": 6 * steps, "fp32": 0}
     got = {k: v["launches"] for k, v in port.items()}
+    v = by_variant(counts)
+    want = {"K2 tile": v["fused_biattention"]["tile"],
+            "K1 tile": v["fused_attention"]["tile"],
+            "K1 decode": v["fused_attention"]["decode"], "fp32": 0}
     if got != want:
-        fail(f"profiled kernel launches {got} != expected {want}")
-    return {"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        fail(f"{phase}: profiled kernel launches {got} != expected {want}")
+    return {"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "ms_by_group": by_group, "port_kernels": port,
             "top_kernels": [{"ms": ms, "count": n, "name": name[:90]}
                             for ms, n, name in rows[:15]]}
 
 
-def phase_slice(model):
-    import numpy as np
-    import torch
-    from gpv_tpu_torch.engine import GPVEngine
+def _reset_counts():
     from gpv_tpu_torch.ops.attention import fused_attention, fused_biattention
-    from gpv_tpu_torch.text.vocab import AnswerVocab
-    from gpv_tpu_torch.text.wordpiece import WordPieceTokenizer
-
-    t0 = time.perf_counter()
-    eng = GPVEngine(model, AnswerVocab.debug(size=VOCAB),
-                    WordPieceTokenizer.debug(), device="cuda",
-                    dtype=torch.bfloat16)
-    setup_s = time.perf_counter() - t0
-    rng = np.random.RandomState(0)
-    images = rng.randint(0, 256, (B, IMG_H, IMG_W, 3)).astype(np.uint8)
-    queries = _queries(B, rng)
-    _, qvalid = eng.tokenizer.batch_encode(queries, eng.max_query_len)
-    if qvalid.shape != (B, 20) or not (qvalid.sum(1) == QUERY_TOKENS).all():
-        fail(f"queries are not {QUERY_TOKENS} tokens: {qvalid.sum(1)}")
-    eng.predict(images, queries)          # warm-up (cuDNN plans, allocator)
-    torch.cuda.synchronize()
-
-    wrappers = (fused_attention, fused_biattention)
-    for w in wrappers:
+    for w in (fused_attention, fused_biattention):
         w.launches = 0
         w.variant_launches = dict.fromkeys(w.variant_launches, 0)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results = eng.predict(images, queries)
-    torch.cuda.synchronize()
-    call_s = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
-    by_variant = {w.__name__: dict(w.variant_launches) for w in wrappers}
-    steps = eng.last_decode_steps
-    want = {"fused_attention": 30 + 6 * steps, "fused_biattention": 3}
-    want_variant = {"fused_attention": {"tile": 30, "decode": 6 * steps,
-                                        "fp32": 0},
-                    "fused_biattention": {"tile": 3, "fp32": 0}}
-    if launches != want or by_variant != want_variant:
-        fail(f"launch counts {launches} {by_variant} != expected {want} "
-             f"{want_variant} ({steps} decode steps)")
 
-    if len(results) != B:
-        fail(f"{len(results)} results for {B} images")
-    for r in results:
+
+def _read_counts():
+    """({wrapper: launches}, {wrapper: {variant: launches}})."""
+    from gpv_tpu_torch.ops.attention import fused_attention, fused_biattention
+    wrappers = (fused_attention, fused_biattention)
+    return ({w.__name__: w.launches for w in wrappers},
+            {w.__name__: dict(w.variant_launches) for w in wrappers})
+
+
+def _check_counts(phase: str, got: dict, counts: Counter) -> None:
+    """Fails unless the wrappers' counts by variant (`_read_counts`) are
+    what `counts` ({Case: launches}) gives."""
+    want = by_variant(counts)
+    if got != want:
+        fail(f"{phase}: launches by variant {got} != expected {want}")
+
+
+def write_vocab(directory: Path) -> Path:
+    """A generated VOCAB-word answer vocabulary (`vocab.json`)."""
+    from gpv_tpu_torch.text.vocab import AnswerVocab
+    path = directory / "vocab.json"
+    path.write_text(json.dumps(AnswerVocab.debug(size=VOCAB).words))
+    return path
+
+
+def make_engine(vocab_path: Path, dtype: str, device: str):
+    """The engine of `configs/exp/gpv_inference.yaml` at the released
+    widths, seeded random weights (ckpt=null), through the entry point."""
+    from gpv_tpu_torch.infer.build import build_engine
+    from gpv_tpu_torch.utils.config import load_config
+    return build_engine(load_config(
+        ROOT / "configs", "exp/gpv_inference",
+        ["ckpt=null", f"tpu.dtype={dtype}", f"model.vocab={vocab_path}",
+         f"device={device}"]))
+
+
+def _check_boxes(rows) -> None:
+    for r in rows:
         boxes, rel = r["boxes"], r["relevance"]
         if boxes.shape != (100, 4) or rel.shape != (100,):
             fail(f"shapes boxes {boxes.shape} relevance {rel.shape}")
@@ -447,47 +559,125 @@ def phase_slice(model):
             fail("boxes not finite in [0, 1]")
         if not (np.isfinite(rel).all() and (np.diff(rel) <= 0).all()):
             fail("relevance not finite and sorted descending")
-        if not isinstance(r["answer"], str):
-            fail("answer is not a string")
 
-    n_iter = 5
+
+def _batch(seed: int, n: int):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 256, (n, IMG_H, IMG_W, 3)).astype(np.uint8),
+            _queries(n, rng))
+
+
+def _images_per_s(fn, n_iter: int) -> float:
+    import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_iter):
-        eng.predict(images, queries)
+        fn()
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    return B * n_iter / (time.perf_counter() - t0)
+
+
+def phase_slice(eng, setup_s: float):
+    import torch
+
+    images, queries = _batch(0, B)
+    _, qvalid = eng.tokenizer.batch_encode(queries, eng.max_query_len)
+    if qvalid.shape != (B, 20) or not (qvalid.sum(1) == QUERY_TOKENS).all():
+        fail(f"queries are not {QUERY_TOKENS} tokens: {qvalid.sum(1)}")
+    eng.predict(images, queries)          # warm-up (cuDNN plans, allocator)
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = eng.predict(images, queries)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches, by_variant = _read_counts()
+    steps = eng.last_decode_steps
+    counts = path_launches("predict", steps)
+    _check_counts("slice", by_variant, counts)
+    if len(results) != B:
+        fail(f"{len(results)} results for {B} images")
+    _check_boxes(results)
+    if not all(isinstance(r["answer"], str) for r in results):
+        fail("answer is not a string")
     rec = {"phase": "slice", "batch": B, "image_hw": [IMG_H, IMG_W],
            "dtype": "bfloat16", "decode_steps": steps,
            "launches": launches, "launches_by_variant": by_variant,
            "engine_setup_s": setup_s,
            "measured_call_s": call_s,
-           "images_per_s": B * n_iter / dt,
+           "images_per_s": _images_per_s(
+               lambda: eng.predict(images, queries), 5),
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "answers": [r["answer"] for r in results[:3]]}
-    return rec, phase_profile(eng, images, queries)
+    return rec, counts, phase_profile(
+        "profile", lambda: eng.predict(images, queries), counts)
 
 
-def phase_e2e(model) -> dict:
-    import numpy as np
+def phase_beam(eng):
+    """predict_beam, K=BEAM, on the slice's batch: per step the cache
+    attention runs on the decode kernel at B·K rows, the cross-attention
+    on the tile kernel with the K beams as query rows. Returns its record
+    and a profile of one more call."""
     import torch
+
+    images, queries = _batch(0, B)
+    eng.predict_beam(images, queries, beam_size=BEAM)   # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = eng.predict_beam(images, queries, beam_size=BEAM)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches, by_variant = _read_counts()
+    steps = eng.last_decode_steps
+    counts = path_launches("predict_beam", steps)
+    _check_counts("beam", by_variant, counts)
+    if len(results) != B:
+        fail(f"beam: {len(results)} results for {B} images")
+    _check_boxes(results)
+    for r in results:
+        p = np.asarray(r["answer_probs"])
+        if len(r["answers"]) != BEAM or p.shape != (BEAM,):
+            fail(f"beam: {len(r['answers'])} answers, probs {p.shape}")
+        # exp of fp32 log-probs, as gpv_tpu takes it: a random model's
+        # 19-step log-prob can lie below fp32's range and give 0
+        if not (np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()
+                and (np.diff(p) <= 0).all()):
+            fail(f"beam: answer_probs not finite, in [0, 1], "
+                 f"non-increasing: {p}")
+    rec = {"phase": "beam", "batch": B, "beam_size": BEAM,
+           "dtype": "bfloat16", "decode_steps": steps,
+           "launches": launches, "launches_by_variant": by_variant,
+           "measured_call_s": call_s,
+           "images_per_s": _images_per_s(
+               lambda: eng.predict_beam(images, queries, beam_size=BEAM), 3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "answers": results[0]["answers"],
+           "answer_probs": results[0]["answer_probs"]}
+    return rec, counts, phase_profile(
+        "profile_beam",
+        lambda: eng.predict_beam(images, queries, beam_size=BEAM), counts)
+
+
+def phase_e2e(vocab_path: Path) -> dict:
+    import torch
+    from gpv_tpu_torch.decode.beam import beam_decode
     from gpv_tpu_torch.decode.greedy import greedy_decode
-    from gpv_tpu_torch.engine import GPVEngine
     from gpv_tpu_torch.ops.image import normalize_image
-    from gpv_tpu_torch.text.vocab import AnswerVocab
-    from gpv_tpu_torch.text.wordpiece import WordPieceTokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(1)
     images = rng.randint(0, 256, (2, IMG_H, IMG_W, 3)).astype(np.uint8)
-    tok = WordPieceTokenizer.debug()
-    ids, valid = tok.batch_encode(_queries(2, rng), 20)
+    queries = _queries(2, rng)
     outs = {}
     for device in ("cuda", "cpu"):
-        eng = GPVEngine(model, AnswerVocab.debug(size=VOCAB), tok,
-                        device=device, dtype=torch.float32)
+        eng = make_engine(vocab_path, "float32", device)
         dev = eng.device
+        ids, valid = eng.tokenizer.batch_encode(queries, 20)
         with torch.inference_mode():
             x = normalize_image(torch.from_numpy(images).to(dev).float()
                                 / 255.0)
@@ -496,33 +686,194 @@ def phase_e2e(model) -> dict:
                 torch.from_numpy(valid).to(dev))
             tokens, logits, _ = greedy_decode(
                 eng.model, memory, mem_valid, eng.vocab.cls_id)
+            seqs, logp = beam_decode(eng.model, memory, mem_valid,
+                                     eng.vocab.cls_id, E2E_BEAM)
         outs[device] = {
             "boxes": out["pred_boxes"].float().cpu(),
             "relevance": out["pred_relevance_logits"].float().softmax(-1)
             [..., 0].cpu(),
-            "logits0": logits[:, 0].cpu(), "tokens": tokens.cpu()}
+            "logits0": logits[:, 0].cpu(), "tokens": tokens.cpu(),
+            "beam_log_prob": logp.cpu(), "beam_seqs": seqs.cpu()}
         del eng
     c, p = outs["cuda"], outs["cpu"]
-    rec = {"phase": "e2e", "images": 2, "dtype": "float32"}
+    rec = {"phase": "e2e", "images": 2, "dtype": "float32",
+           "beam_size": E2E_BEAM}
     for key, tol in (("boxes", 1e-3), ("relevance", 1e-3),
-                     ("logits0", 2e-3)):
+                     ("logits0", 2e-3), ("beam_log_prob", 2e-3)):
         err = (c[key] - p[key]).abs().max().item()
         rec[f"{key}_max_abs_err"], rec[f"{key}_tol"] = err, tol
         if not err <= tol:
             fail(f"e2e {key}: max abs err {err} > {tol}")
     rec["greedy_token_agreement"] = (c["tokens"] == p["tokens"]).float() \
         .mean().item()
+    if not torch.equal(c["beam_seqs"], p["beam_seqs"]):
+        fail(f"e2e beam sequences differ, card {c['beam_seqs'].tolist()} "
+             f"cpu {p['beam_seqs'].tolist()}")
+    rec["beam_seqs_equal"] = True
     return rec
 
 
-def kernels_line(kern: dict, sl: dict) -> dict:
-    """One entry per kernel of the path, for one predict of the slice run:
-    each main-path bf16 shape's numbers times its launches in that run,
-    summed over the shapes that kernel serves."""
+class _Recorder:
+    """The engine as GPVServer sees it, logging each call the server
+    makes: (path, rows, beams, decode steps)."""
+
+    def __init__(self, eng):
+        self.eng, self.vocab, self.calls = eng, eng.vocab, []
+        self._lock = threading.Lock()
+
+    def _log(self, path, rows, beam):
+        with self._lock:
+            self.calls.append((path, rows, beam, self.eng.last_decode_steps))
+
+    def predict(self, images, queries, vocab_mask=None):
+        out = self.eng.predict(images, queries, vocab_mask)
+        self._log("predict", len(queries), None)
+        return out
+
+    def predict_beam(self, images, queries, beam_size=5, vocab_mask=None):
+        out = self.eng.predict_beam(images, queries, beam_size=beam_size,
+                                    vocab_mask=vocab_mask)
+        self._log("predict_beam", len(queries), beam_size)
+        return out
+
+
+def phase_serve(eng, checked: set):
+    """GPVServer over the bf16 engine: SERVE_CLIENTS closed-loop clients of
+    SERVE_REQUESTS requests each (one after another), mixing greedy, beam
+    K=SERVE_BEAM and the COCO classification mask; enough clients that a
+    batch key can fill the largest bucket. Every request must resolve and
+    none may fail; from the warm-up's end to close(drain=True) the kernels
+    must launch as the batches the server ran say, each at a shape the
+    kernels phase held against its plain version (`checked`: case names).
+    Returns the record and the run's {Case: launches}."""
+    from gpv_tpu_torch.evaluation.vocab_mask import coco_vocab_mask
+    from gpv_tpu_torch.serve import GPVServer
+
+    mask = coco_vocab_mask(eng.vocab)
+    images, queries = _batch(2, 16)
+    recorder = _Recorder(eng)
+    t0 = time.perf_counter()
+    server = GPVServer(recorder, bucket_sizes=SERVE_BUCKETS, max_wait_ms=5,
+                       num_workers=2, warmup=(IMG_H, IMG_W))
+    warmup_s = time.perf_counter() - t0
+    recorder.calls.clear()
+    _reset_counts()
+    kinds = ("greedy", "beam", "classification")
+    errors, counts = [], dict.fromkeys(kinds, 0)
+    lock = threading.Lock()
+
+    def client(c: int) -> None:
+        for r in range(SERVE_REQUESTS):
+            i = (SERVE_REQUESTS * c + r) % len(queries)
+            kind = kinds[(c + r) % 3]
+            fut = server.submit(
+                images[i], queries[i],
+                mask if kind == "classification" else None,
+                beam_size=SERVE_BEAM if kind == "beam" else None)
+            out = fut.result(timeout=300)
+            ok = (len(out.get("answers", [out["answer"]]))
+                  == (SERVE_BEAM if kind == "beam" else 1)
+                  and out["boxes"].shape == (100, 4))
+            with lock:
+                counts[kind] += 1
+                if not ok:
+                    errors.append((c, r, kind))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall_s = time.perf_counter() - t0
+    server.close(drain=True)
+    launches, by_var = _read_counts()
+    stats = server.stats()
+    n = SERVE_CLIENTS * SERVE_REQUESTS
+    if any(t.is_alive() for t in threads):
+        fail("serve: a client did not finish")
+    if errors:
+        fail(f"serve: malformed results {errors}")
+    if not (stats["completed"] == stats["submitted"] == n
+            and stats["failed"] == 0):
+        fail(f"serve: {stats}")
+    ran = Counter(rows for _, rows, _, _ in recorder.calls)
+    if ran != Counter({b: k for b, k in stats["batches_per_bucket"].items()
+                       if k}):
+        fail(f"serve: engine calls by rows {dict(ran)} != the server's "
+             f"batches {stats['batches_per_bucket']}")
+    run = Counter()
+    for path, rows, beam, steps in recorder.calls:
+        run.update(path_launches(path, steps, rows, beam or BEAM))
+    unchecked = {c.name for c in run} - checked
+    if unchecked:
+        fail(f"serve: shapes not held against their plain version in the "
+             f"kernels phase: {sorted(unchecked)}")
+    _check_counts("serve", by_var, run)
+    batches = Counter(f"{p}{'' if k is None else f' K={k}'} x{rows}"
+                      for p, rows, k, _ in recorder.calls)
+    return {"phase": "serve", "requests": counts, "clients": SERVE_CLIENTS,
+            "warmup_s": warmup_s, "wall_s": wall_s,
+            "requests_per_s": n / wall_s, "launches": launches,
+            "launches_by_variant": by_var,
+            "batches_by_call": dict(sorted(batches.items())),
+            "decode_steps": sorted({s for *_, s in recorder.calls}),
+            **stats}, run
+
+
+def phase_vocab_embed(vocab_path: Path) -> dict:
+    """embed_vocab over the generated vocabulary with BERT-base: bf16 on
+    the card with the launch counts read around it (12 tile launches a
+    batch), then fp32 card against CPU on the first 64 words."""
+    import torch
+    from gpv_tpu_torch.data.vocab_embed import embed_vocab
+    from gpv_tpu_torch.nn.bert import BertEncoder
+    from gpv_tpu_torch.text.wordpiece import WordPieceTokenizer
+    from gpv_tpu_torch.weights import init_random
+
+    words = json.loads(vocab_path.read_text())
+    tok = WordPieceTokenizer.debug()
+    bert = init_random(BertEncoder(), seed=0)
+    embed_vocab(words[:EMBED_BATCH], tok, bert, device="cuda",
+                dtype=torch.bfloat16)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    emb = embed_vocab(words, tok, bert, batch_size=EMBED_BATCH,
+                      device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches, by_variant = _read_counts()
+    batches = -(-len(words) // EMBED_BATCH)
+    counts = path_launches("embed_vocab", 0, words=len(words))
+    _check_counts("vocab_embed", by_variant, counts)
+    if emb.shape != (len(words), 768) or not np.isfinite(emb).all():
+        fail(f"vocab_embed: shape {emb.shape} or non-finite values")
+    got = embed_vocab(words[:64], tok, bert, device="cuda")
+    want = embed_vocab(words[:64], tok, bert, device="cpu")
+    err = float(np.abs(got - want).max())
+    if not err <= 1e-3:
+        fail(f"vocab_embed: fp32 card against CPU max abs err {err} > 1e-3")
+    return {"phase": "vocab_embed", "words": len(words), "batches": batches,
+            "dtype": "bfloat16", "launches": launches,
+            "launches_by_variant": by_variant, "measured_call_s": call_s,
+            "words_per_s": len(words) / call_s,
+            "fp32_cuda_vs_cpu_max_abs_err": err, "tol": 1e-3}, counts
+
+
+def kernels_line(kern: dict, runs: dict) -> dict:
+    """One entry per kernel of the paths. Its top-level numbers are one
+    predict's (the slice run): each bf16 shape's number times its
+    launches in that run, summed over the shapes that kernel serves;
+    `paths` holds the same for each measured run (predict, predict_beam,
+    embed_vocab, the whole serve run). runs: path -> (its phase record,
+    {Case: launches})."""
     keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
             "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
 
-    def per_predict(recs, counts):
+    def per_call(recs, counts):
+        counts = {c.name: n for c, n in counts.items()}
         tot = {k: 0.0 for k in keys}
         for r in recs:
             for k in keys:
@@ -532,32 +883,38 @@ def kernels_line(kern: dict, sl: dict) -> dict:
         tot["max_abs_err"] = max(r["max_abs_err"] for r in recs)
         return tot
 
-    steps = sl["decode_steps"]
-    counts = {c[0]: c[-1] for c in k1_cases(steps)}
     bf16 = [r for r in kern["K1"] if r["dtype"] == "bfloat16"]
     k2_bf16 = [r for r in kern["K2"] if r["dtype"] == "bfloat16"]
-    k2 = per_predict(k2_bf16, {"masks_10": 3})
-    k2["library_ms"] = k2["library_device_ms"] = None  # no single call
-    main = next(r for r in k2_bf16 if r["case"] == "masks_10")
-    k2["sdpa_two_calls_ms"] = 3 * main["sdpa_two_calls_ms"]
-    k2["sdpa_two_calls_device_ms"] = 3 * main["sdpa_two_calls_device_ms"]
-    per = f"one predict: B={B}, bf16, {steps} decode steps"
-    variants = sl["launches_by_variant"]
-    line = []
-    for variant, source in (("tile", "attention_tile.cu"),
-                            ("decode", "attention_decode.cu")):
-        recs = [r for r in bf16 if r["variant"] == variant]
-        line.append({"name": f"fused_attention[{variant}]", "route": "cuda",
-                     "source": f"gpv_tpu_torch/csrc/{source}",
-                     "replaces": "gpv_tpu/ops/attention.py:55",
-                     "launches": variants["fused_attention"][variant],
-                     **per_predict(recs, counts), "per": per})
-    line.append({"name": "fused_biattention[tile]", "route": "cuda",
-                 "source": "gpv_tpu_torch/csrc/attention_tile.cu",
-                 "replaces": "gpv_tpu/ops/attention.py:147",
-                 "launches": variants["fused_biattention"]["tile"],
-                 **k2, "per": per})
-    return {"kernels": line}
+    def k2_call(recs, counts):
+        out = per_call(recs, counts)
+        out["library_ms"] = out["library_device_ms"] = None  # no one call
+        names = {c.name: n for c, n in counts.items()}
+        for k in ("sdpa_two_calls_ms", "sdpa_two_calls_device_ms"):
+            out[k] = sum(names.get(r["case"], 0) * r[k] for r in recs)
+        return out
+
+    entries = []
+    for name, source, replaces, wrapper, variant, recs, call in (
+            ("fused_attention[tile]", "attention_tile.cu", ":55",
+             "fused_attention", "tile",
+             [r for r in bf16 if r["variant"] == "tile"], per_call),
+            ("fused_attention[decode]", "attention_decode.cu", ":55",
+             "fused_attention", "decode",
+             [r for r in bf16 if r["variant"] == "decode"], per_call),
+            ("fused_biattention[tile]", "attention_tile.cu", ":147",
+             "fused_biattention", "tile", k2_bf16, k2_call)):
+        paths = {}
+        for path, (rec, counts) in runs.items():
+            n = rec["launches_by_variant"][wrapper][variant]
+            paths[path] = {"launches": n, **call(recs, counts)}
+        sl = paths["predict"]
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"gpv_tpu_torch/csrc/{source}",
+                        "replaces": f"gpv_tpu/ops/attention.py{replaces}",
+                        **sl, "per": f"one predict: B={B}, bf16, "
+                        f"{runs['predict'][0]['decode_steps']} decode steps",
+                        "paths": paths})
+    return {"kernels": entries}
 
 
 def main() -> None:
@@ -579,14 +936,27 @@ def main() -> None:
     for phase in (phase_build, phase_kernels):
         records.append(phase())
         emit(records[-1])
-    model = build_model(seed=0)
-    sl, prof = phase_slice(model)
-    for rec in (sl, prof):
-        records.append(rec)
-        emit(rec)
-    records.append(phase_e2e(model))
-    emit(records[-1])
-    line = kernels_line(records[2], sl)
+    kern = records[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab_path = write_vocab(Path(tmp))
+        t0 = time.perf_counter()
+        eng = make_engine(vocab_path, "bfloat16", "cuda")
+        sl, sl_counts, prof = phase_slice(eng, time.perf_counter() - t0)
+        beam, beam_counts, prof_beam = phase_beam(eng)
+        for rec in (sl, prof, beam, prof_beam, phase_e2e(vocab_path)):
+            records.append(rec)
+            emit(rec)
+        checked = {r["case"] for r in kern["K1"] + kern["K2"]}
+        serve, serve_counts = phase_serve(eng, checked)
+        records.append(serve)
+        emit(serve)
+        ve, ve_counts = phase_vocab_embed(vocab_path)
+        records.append(ve)
+        emit(ve)
+    line = kernels_line(kern, {"predict": (sl, sl_counts),
+                               "predict_beam": (beam, beam_counts),
+                               "embed_vocab": (ve, ve_counts),
+                               "serve": (serve, serve_counts)})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -2,9 +2,10 @@
 `gpv_tpu/engine.py`).
 
 uint8 pixels -> normalise -> encode (ResNet / DETR / BERT / co-attention /
-relevance) -> KV-cached greedy decode -> relevance-sorted boxes, on one
-device. The output contract matches `inference.py:24-47`: `answer: str`,
-`boxes: (Q, 4)` normalised cxcywh sorted by relevance, `relevance: (Q,)`.
+relevance) -> KV-cached greedy or beam decode -> relevance-sorted boxes,
+on one device. The output contract matches `inference.py:24-47`:
+`answer: str`, `boxes: (Q, 4)` normalised cxcywh sorted by relevance,
+`relevance: (Q,)`; `predict_beam` that of `inference_beam_search.py`.
 
 The engine runs on the card unless the caller asks for the CPU:
 `device=None` means `cuda`, and without a CUDA device it raises.
@@ -12,17 +13,20 @@ The engine runs on the card unless the caller asks for the CPU:
 from __future__ import annotations
 
 import copy
+import threading
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .decode.beam import beam_decode
 from .decode.greedy import greedy_decode
-from .models.gpv import GPV
+from .models.gpv import GPV, build_gpv
 from .ops.fold_bn import fold_frozen_bn
 from .ops.image import normalize_image
 from .text.vocab import AnswerVocab
 from .text.wordpiece import WordPieceTokenizer
+from .weights import StateDict, init_random
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,12 +56,38 @@ class GPVEngine:
         self.tokenizer = tokenizer
         # queries can never exceed the BERT position table
         self.max_query_len = min(max_query_len, model.bert_max_len)
-        self.last_decode_steps = 0
+        self._local = threading.local()
+
+    @property
+    def last_decode_steps(self) -> int:
+        """Decode steps of the calling thread's last `predict*` call: the
+        server's worker threads share one engine."""
+        return getattr(self._local, "steps", 0)
+
+    @classmethod
+    def from_config(cls, model_cfg, vocab: AnswerVocab,
+                    tokenizer: WordPieceTokenizer,
+                    state_dict: Optional[StateDict] = None,
+                    dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                    max_query_len: int = 20, device=None) -> "GPVEngine":
+        """Build the model from the `model` config node (`build_gpv`),
+        with `state_dict` (reference names, loaded strictly) or, without
+        one, seeded random weights (`weights.init_random`)."""
+        model = build_gpv(model_cfg, vocab_size=len(vocab))
+        if state_dict is None:
+            init_random(model, seed)
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        return cls(model, vocab, tokenizer, max_query_len=max_query_len,
+                   device=device, dtype=dtype)
 
     def _tensor(self, arr) -> Optional[torch.Tensor]:
         if arr is None:
             return None
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:  # e.g. np.asarray of a PIL image
+            arr = arr.copy()
+        return torch.from_numpy(arr).to(self.device)
 
     @torch.inference_mode()
     def _encode(self, images_uint8, query_ids, query_valid,
@@ -77,7 +107,7 @@ class GPVEngine:
         tokens, _, steps = greedy_decode(self.model, memory, mem_valid,
                                          self.vocab.cls_id, vocab_mask,
                                          stop_id=self.vocab.stop_id)
-        self.last_decode_steps = steps
+        self._local.steps = steps
         return tokens.cpu().numpy(), boxes.cpu().numpy(), rel.cpu().numpy()
 
     def predict(self, images_uint8, queries: List[str],
@@ -133,3 +163,36 @@ class GPVEngine:
                 results[i] = {"answer": answers[j], "boxes": boxes[j],
                               "relevance": rel[j]}
         return results
+
+    def predict_beam(self, images_uint8, queries: List[str],
+                     beam_size: int = 5,
+                     vocab_mask: Optional[np.ndarray] = None,
+                     reference_quirks: bool = False):
+        """Batched beam-search prediction; returns per sample {answers:
+        [str x K], answer_probs: [float x K] (exp of the beam's fp32
+        log-prob, in fp32 as in gpv_tpu, best first), boxes, relevance}
+        (contract of `inference_beam_search.py:25-45`).
+
+        reference_quirks=True reproduces the reference's beam tail bug (a
+        phantom `vocab[0]` word after a beam that never emitted `__stop__`,
+        `text.vocab.AnswerVocab.decode_beam_ids`) for string-level parity
+        with upstream eval outputs; the default returns the clean decode.
+        """
+        qids, qvalid = self.tokenizer.batch_encode(list(queries),
+                                                   self.max_query_len)
+        memory, mem_valid, boxes, rel = self._encode(
+            self._tensor(images_uint8), self._tensor(qids),
+            self._tensor(qvalid))
+        seqs, logp = beam_decode(self.model, memory, mem_valid,
+                                 self.vocab.cls_id, beam_size,
+                                 self._tensor(vocab_mask))
+        self._local.steps = seqs.shape[-1]
+        seqs = seqs.cpu().numpy()
+        probs = np.exp(logp.cpu().numpy())
+        boxes, rel = boxes.cpu().numpy(), rel.cpu().numpy()
+        decode = (self.vocab.decode_beam_ids if reference_quirks
+                  else self.vocab.decode_ids)
+        return [{"answers": decode(seqs[i]),
+                 "answer_probs": probs[i].tolist(),
+                 "boxes": boxes[i], "relevance": rel[i]}
+                for i in range(len(queries))]

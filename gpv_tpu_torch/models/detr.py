@@ -8,8 +8,11 @@ aligned 7x7 RoI-align on C5 at the detached predicted boxes, mean-pooled,
 parameter-free LayerNorm (eps 1e-5), concatenated with the query states to
 the 2304-d `detr_hs`. Parameter names follow the reference
 (`backbone.0.body.*`, `input_proj`, `query_embed`, `class_embed`,
-`bbox_embed.layers.{i}`). Only the sine position embedding and the RoI
-head's released setting (7x7, sampling grid capped at 8) are ported.
+`bbox_embed.layers.{i}`). The position embedding is the sine one or the
+learned one (`backbone.1.row_embed` / `col_embed`, the reference Joiner's
+slot); `roi_head=False` drops the RoI features (`detr_hs` is then the
+query states alone). The RoI head runs at its released setting (7x7,
+sampling grid capped at 8).
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ from torch import nn
 from ..nn.detr_transformer import DetrTransformer
 from ..nn.layers import MLP
 from ..nn.resnet import ResNet
-from ..ops.posenc import sine_position_embedding_2d
+from ..ops.posenc import LearnedPositionEmbedding2D, sine_position_embedding_2d
 from ..ops.roi_align import roi_align_mean_pooled
+
+POSITION_EMBEDDINGS = ("sine", "v2", "learned", "v3")
 
 
 class _Body(nn.Module):
@@ -40,11 +45,18 @@ class DETR(nn.Module):
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 2048,
                  backbone_layers: tuple = (3, 4, 6, 3),
-                 dilation: bool = False, pre_norm: bool = False):
+                 dilation: bool = False, pre_norm: bool = False,
+                 roi_head: bool = True, position_embedding: str = "sine"):
         super().__init__()
+        if position_embedding not in POSITION_EMBEDDINGS:
+            raise ValueError(f"not supported {position_embedding!r} "
+                             "(expected sine/v2 or learned/v3)")
         self.hidden_dim = hidden_dim
+        self.roi_head = roi_head
         self.backbone = nn.ModuleList(
             [_Body(ResNet(backbone_layers, dilate_c5=dilation))])
+        if position_embedding in ("learned", "v3"):
+            self.backbone.append(LearnedPositionEmbedding2D(hidden_dim // 2))
         self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.transformer = DetrTransformer(
@@ -62,7 +74,7 @@ class DETR(nn.Module):
         """images: (B, H, W, 3) normalised; image_valid: (B, H, W) bool.
 
         Returns {pred_relevance_logits (B,Q,K+1), pred_boxes (B,Q,4),
-        detr_hs (B,Q,2048+D)}.
+        detr_hs (B,Q,2048+D), or (B,Q,D) without the RoI head}.
         """
         B, H, W, _ = images.shape
         dtype = self.input_proj.weight.dtype
@@ -80,7 +92,10 @@ class DETR(nn.Module):
             xs = (torch.arange(w, device=images.device, dtype=torch.float32)
                   * (W / w)).long()
             feat_valid = image_valid[:, ys][:, :, xs]
-        pos = sine_position_embedding_2d(feat_valid, self.hidden_dim // 2)
+        if len(self.backbone) > 1:
+            pos = self.backbone[1](B, h, w)
+        else:
+            pos = sine_position_embedding_2d(feat_valid, self.hidden_dim // 2)
 
         src = self.input_proj(feats).flatten(2).transpose(1, 2)  # (B,hw,D)
         pos = pos.reshape(B, h * w, self.hidden_dim).to(dtype)
@@ -90,6 +105,9 @@ class DETR(nn.Module):
                                  key_valid)
         out = {"pred_relevance_logits": self.class_embed(hs),
                "pred_boxes": self.bbox_embed(hs).sigmoid()}
+        if not self.roi_head:
+            out["detr_hs"] = hs
+            return out
         # no gradient into the box coordinates (torchvision's roi_align has
         # none for the rois, detr_roi_head.py:45-55)
         roi = roi_align_mean_pooled(feats, out["pred_boxes"].detach())

@@ -13,10 +13,12 @@ dict (`detr.*`, `bert.model.*`, `co_att_transformer.{i}.*`,
 `answer_input_embedings.transform`, ...).
 
 Defaults are the released widths of the `model` node of
-`configs/exp/gpv.yaml`. Building from a config node waits for a later
-slice; this module is inference-only (no dropout, no aux losses) and
-builds the released head: RoI features, relevance conditioning and the
-vocab-embedding answer classifier are always on.
+`configs/exp/gpv.yaml`; `build_gpv(cfg, vocab_size)` builds from that node
+with the JAX package's config checks. This module is inference-only (no
+dropout, no aux losses). Variants the node can select: `answer_head:
+linear` (a Linear classifier in place of the vocab-embedding one),
+`roi_head: False`, `relevance_conditioning: False`, the learned DETR
+position embedding and any `backbone_layers`.
 """
 from __future__ import annotations
 
@@ -29,18 +31,22 @@ from ..nn.bert import BertEncoder
 from ..nn.coattention import CoAttentionLayer
 from ..nn.text_decoder import TextDecoder
 from ..ops.posenc import sine_position_encoding_1d
-from .detr import DETR
+from .detr import DETR, POSITION_EMBEDDINGS
 
 
 class _AnswerHead(nn.Module):
     """Fixed vocab embedding + learned classifier transform (reference
-    AnswerHead, answer_head.py:8-33)."""
+    AnswerHead, answer_head.py:8-33), or with `linear` a Linear
+    classifier over the decoder state (`answer_head.classifier`)."""
 
-    def __init__(self, vocab_size: int, dim: int):
+    def __init__(self, vocab_size: int, dim: int, linear: bool = False):
         super().__init__()
         self.vocab_embed = nn.Parameter(torch.zeros(vocab_size, dim),
                                         requires_grad=False)
-        self.classifier_transform = nn.Linear(dim, dim)
+        if linear:
+            self.classifier = nn.Linear(dim, vocab_size)
+        else:
+            self.classifier_transform = nn.Linear(dim, dim)
 
 
 class _AnswerInput(nn.Module):
@@ -56,13 +62,16 @@ class GPV(nn.Module):
 
     def __init__(self, vocab_size: int, hidden_dim: int = 768,
                  max_text_len: int = 20, max_pos_enc_len: int = 30,
-                 text_pos_enc: bool = False, mask_query_pads: bool = True,
+                 text_pos_enc: bool = False,
+                 relevance_conditioning: bool = True,
+                 mask_query_pads: bool = True,
+                 answer_head: Optional[str] = None,
                  co_att_num_layers: int = 3, co_att_heads: int = 16,
                  co_att_intermediate: int = 3072,
                  co_att_extra: Optional[Dict[str, Any]] = None,
                  text_decoder_layers: int = 3, text_decoder_heads: int = 8,
                  detr_cfg: Optional[Dict[str, Any]] = None,
-                 bert_layers: int = 12,
+                 roi_head: bool = True, bert_layers: int = 12,
                  bert_hidden: int = 768, bert_heads: int = 12,
                  bert_vocab_size: int = 30522, bert_max_len: int = 512):
         super().__init__()
@@ -70,12 +79,15 @@ class GPV(nn.Module):
         self.vocab_size, self.hidden_dim = vocab_size, hidden_dim
         self.max_text_len = max_text_len
         self.text_pos_enc = text_pos_enc
+        self.relevance_conditioning = relevance_conditioning
         self.mask_query_pads = mask_query_pads
+        self.linear_answer_head = answer_head == "linear"
         self.bert_max_len = bert_max_len
-        self.detr = DETR(**detr_cfg)
-        # query states + the 2048-d RoI features
-        self.detr_joiner = nn.Linear(detr_cfg.get("hidden_dim", 256) + 2048,
-                                     hidden_dim)
+        self.detr = DETR(roi_head=roi_head, **detr_cfg)
+        # query states (+ the 2048-d RoI features)
+        self.detr_joiner = nn.Linear(
+            detr_cfg.get("hidden_dim", 256) + (2048 if roi_head else 0),
+            hidden_dim)
         self.bert = BertEncoder(bert_layers, bert_hidden, bert_heads,
                                 4 * bert_hidden, bert_vocab_size,
                                 bert_max_len)
@@ -88,7 +100,8 @@ class GPV(nn.Module):
             hidden_dim, detr_cfg.get("num_classes", 1) + 1)
         self.text_decoder = TextDecoder(hidden_dim, text_decoder_heads,
                                         text_decoder_layers)
-        self.answer_head = _AnswerHead(vocab_size, hidden_dim)
+        self.answer_head = _AnswerHead(vocab_size, hidden_dim,
+                                       self.linear_answer_head)
         self.answer_input_embedings = _AnswerInput(hidden_dim)
         # vision/lang tokens: kept for checkpoint parity, unused upstream
         self.vision_token = nn.Parameter(torch.zeros(hidden_dim))
@@ -133,6 +146,8 @@ class GPV(nn.Module):
         return memory, mem_valid, outputs
 
     def condition_on_relevance(self, relevance_logits, fused_hs):
+        if not self.relevance_conditioning:
+            return fused_hs
         prob = relevance_logits.softmax(-1)                    # (B,Q,2)
         return fused_hs + prob @ self.relevance_tokens.to(prob.dtype)
 
@@ -143,13 +158,18 @@ class GPV(nn.Module):
         emb = self.answer_head.vocab_embed.detach()[token_ids]
         return self.answer_input_embedings.transform(emb)
 
-    def answer_classifier(self) -> torch.Tensor:
-        """(V, D) fp32 classifier matrix, hoisted out of the decode loop."""
+    def answer_classifier(self) -> Optional[torch.Tensor]:
+        """(V, D) fp32 classifier matrix, hoisted out of the decode loop;
+        None with the linear head."""
         head = self.answer_head
+        if self.linear_answer_head:
+            return None
         return head.classifier_transform(head.vocab_embed.detach()).float()
 
     def answer_logits_head(self, h, classifier=None):
         """(..., D) decoder states -> (..., V) fp32 vocab logits."""
+        if self.linear_answer_head:
+            return self.answer_head.classifier(h).float()
         w = classifier if classifier is not None else self.answer_classifier()
         return h.float() @ w.t()
 
@@ -184,15 +204,163 @@ class GPV(nn.Module):
         return (self.text_decoder.precompute_memory(memory),
                 self.answer_classifier())
 
-    def text_step(self, token_t, mem_state, mem_valid, caches, t: int):
-        """(B,) ids at position t -> (B,V) fp32 logits; caches in place."""
+    def text_step(self, token_t, mem_state, mem_valid, caches, t: int,
+                  beam_group: int = 1):
+        """(B,) ids at position t -> (B,V) fp32 logits; caches in place.
+
+        beam_group K > 1: token_t and the caches hold B·K sample-major beam
+        rows while mem_state/mem_valid stay untiled at (B, ·)
+        (`TextDecoderLayer.step`)."""
         mem_kvs, classifier = mem_state
         x_t = self.embed_answer_tokens(token_t[:, None])      # (B,1,D)
         if self.text_pos_enc:
             x_t = x_t + self.pos_enc_table[t].to(x_t.dtype)
-        y = self.text_decoder.step(x_t, mem_kvs, mem_valid, caches, t)
+        y = self.text_decoder.step(x_t, mem_kvs, mem_valid, caches, t,
+                                   beam_group)
         return self.answer_logits_head(y[:, 0], classifier)
 
     def init_text_cache(self, batch: int, device):
         return self.text_decoder.init_cache(batch, self.max_text_len,
                                             self.dtype, device)
+
+
+_BACKBONE_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
+                    "resnet152": (3, 8, 36, 3), "resnet26": (2, 2, 2, 2),
+                    "resnet14": (1, 1, 1, 1)}
+
+
+def _check_co_att(cfg):
+    """Map the ViLBERT `co_att` schema onto CoAttentionLayer arguments:
+    (intermediate, {intermediate2, act, act2}).
+
+    The reference feeds stream 1 (text in GPV's call order) through its
+    `v_*` weights and stream 2 through the plain ones (vilbert.py:827-900);
+    the mapping keeps that. Untied per-stream widths are not representable
+    and raise. Dropouts are inference no-ops and are not read.
+    """
+    co = cfg.co_att
+    hd = int(cfg.hidden_dim)
+    for key in ("bi_hidden_size", "hidden_size", "v_hidden_size",
+                "output_size", "v_output_size"):
+        val = co.get(key)
+        if val is not None and int(val) != hd:
+            raise ValueError(
+                f"model.co_att.{key}={val} != model.hidden_dim={hd}: untied "
+                "co-attention stream widths are not supported (GPV always "
+                "ties them — reference configs/exp/gpv.yaml interpolations)")
+    for key in ("hidden_act", "v_hidden_act"):
+        act = co.get(key, "gelu")
+        if act not in ("gelu", "relu", "swish"):
+            raise ValueError(f"model.co_att.{key}={act!r}: unsupported "
+                             "co-attention activation (gelu/relu/swish)")
+    extra = dict(intermediate2=int(co.get("intermediate_size", 3072)),
+                 act=str(co.get("v_hidden_act", "gelu")),
+                 act2=str(co.get("hidden_act", "gelu")))
+    intermediate = int(co.get("v_intermediate_size",
+                              co.get("intermediate_size", 3072)))
+    return intermediate, extra
+
+
+def build_gpv(cfg, vocab_size: int) -> GPV:
+    """Build from the `model` config node (configs/exp/gpv.yaml schema),
+    with the checks and messages of `gpv_tpu.models.gpv.build_gpv`."""
+    if cfg.detr.get("masks"):
+        raise ValueError(
+            "model.detr.masks=True (DETR segmentation head) is not part of "
+            "GPV (the reference never trains it; detr.py builds DETRsegm "
+            "only for panoptic) — unsupported here")
+    if cfg.detr.get("frozenbatchnorm", True) is False:
+        raise ValueError(
+            "model.detr.frozenbatchnorm=False is not supported: the "
+            "backbone is built around FrozenBN (reference backbone.py "
+            "always freezes BN for GPV; serving-path BN folding depends "
+            "on it)")
+    backbone = str(cfg.detr.get("backbone", "resnet50"))
+    if backbone not in _BACKBONE_LAYERS:
+        raise ValueError(f"model.detr.backbone={backbone!r} not supported "
+                         f"(one of {sorted(_BACKBONE_LAYERS)})")
+    pe = str(cfg.detr.get("position_embedding", "sine"))
+    if pe not in POSITION_EMBEDDINGS:
+        raise ValueError(f"model.detr.position_embedding={pe!r} not "
+                         "supported (sine/v2 or learned/v3)")
+    if cfg.roi_head and not cfg.detr.last_layer_only:
+        raise ValueError(
+            "model.roi_head=True with detr.last_layer_only=False is not a "
+            "trainable configuration (it crashes the reference at "
+            "detr_roi_head.py:90-92); set last_layer_only=True or "
+            "roi_head=False")
+    if cfg.detr.get("stem_s2d"):
+        raise NotImplementedError(
+            "model.detr.stem_s2d=True (space-to-depth stem rewrite) is not "
+            "ported to gpv_tpu_torch: ROADMAP Queue 1 item 21, on H100 "
+            "evidence only; unset it (the stem computes the same function)")
+    detr_cfg = dict(
+        num_queries=int(cfg.detr.num_queries),
+        num_classes=int(cfg.detr.num_classes),
+        hidden_dim=int(cfg.detr.hidden_dim),
+        nheads=int(cfg.detr.nheads),
+        num_encoder_layers=int(cfg.detr.num_encoder_layers),
+        num_decoder_layers=int(cfg.detr.num_decoder_layers),
+        dim_feedforward=int(cfg.detr.dim_feedforward),
+        dilation=bool(cfg.detr.dilation),
+        pre_norm=bool(cfg.detr.get("pre_norm", False)),
+        position_embedding=pe)
+    if cfg.detr.get("backbone_layers"):
+        # an explicit block spec wins over the backbone's name
+        detr_cfg["backbone_layers"] = tuple(
+            int(x) for x in cfg.detr.backbone_layers)
+    else:
+        detr_cfg["backbone_layers"] = _BACKBONE_LAYERS[backbone]
+    bert_cfg = cfg.get("bert") or {}
+    co_att_intermediate, co_att_extra = _check_co_att(cfg)
+    if cfg.co_att.get("visualization"):
+        raise ValueError(
+            "model.co_att.visualization=True (return attention-probability "
+            "maps from fusion, vilbert.py:786-800) is not implemented; "
+            "unset it rather than silently losing the diagnostics")
+    hd = int(cfg.hidden_dim)
+    td_hidden = int(cfg.text_decoder.get("hidden_dim", hd))
+    if td_hidden != hd:
+        raise ValueError(
+            f"model.text_decoder.hidden_dim={td_hidden} != "
+            f"model.hidden_dim={hd}: the decoder width is tied to the "
+            "fusion width (reference gpv.yaml interpolation)")
+    exp_detr_dim = int(cfg.detr.hidden_dim) + (2048 if cfg.roi_head else 0)
+    joiner = cfg.get("detr_joiner") or {}
+    jd = joiner.get("detr_dim")
+    if jd is not None and int(jd) != exp_detr_dim:
+        raise ValueError(
+            f"model.detr_joiner.detr_dim={jd} but the DETR stream emits "
+            f"{exp_detr_dim} features (detr.hidden_dim"
+            f"{' + 2048 RoI' if cfg.roi_head else ''})")
+    for node, key, want, why in (
+            ("detr_joiner", "out_dim", hd, "fusion width"),
+            ("bert_joiner", "out_dim", hd, "fusion width"),
+            ("bert_joiner", "bert_dim", int(bert_cfg.get("hidden", 768)),
+             "BERT hidden size")):
+        val = (cfg.get(node) or {}).get(key)
+        if val is not None and int(val) != want:
+            raise ValueError(f"model.{node}.{key}={val} != {want} "
+                             f"({why})")
+    return GPV(
+        vocab_size=vocab_size,
+        hidden_dim=hd,
+        max_text_len=int(cfg.max_text_len),
+        max_pos_enc_len=int(cfg.max_pos_enc_len),
+        text_pos_enc=bool(cfg.text_decoder.pos_enc),
+        relevance_conditioning=bool(cfg.relevance_conditioning),
+        mask_query_pads=bool(cfg.get("mask_query_pads", True)),
+        answer_head=cfg.answer_head,
+        co_att_num_layers=int(cfg.co_att.num_layers),
+        co_att_heads=int(cfg.co_att.bi_num_attention_heads),
+        co_att_intermediate=co_att_intermediate,
+        co_att_extra=co_att_extra,
+        text_decoder_layers=int(cfg.text_decoder.num_layers),
+        text_decoder_heads=int(cfg.text_decoder.nheads),
+        detr_cfg=detr_cfg,
+        roi_head=bool(cfg.roi_head),
+        bert_layers=int(bert_cfg.get("num_layers", 12)),
+        bert_hidden=int(bert_cfg.get("hidden", 768)),
+        bert_heads=int(bert_cfg.get("heads", 12)),
+        bert_vocab_size=int(bert_cfg.get("vocab_size", 30522)),
+        bert_max_len=int(bert_cfg.get("max_len", 512)))

@@ -46,9 +46,15 @@ class TextDecoderLayer(nn.Module):
         return self.multihead_attn.project_kv(memory, memory)
 
     def step(self, x_t, mem_kv, mem_valid, cache_k, cache_v, t: int,
-             pos_valid):
+             pos_valid, beam_group: int = 1):
         """One token: x_t (B,1,D) at position t; cache_k/v (B,S,H,Dh) are
         written at t in place; pos_valid (B,S) = arange(S) <= t.
+
+        beam_group K > 1 marks x_t as B = B'·K sample-major beam rows whose
+        mem_kv/mem_valid stay untiled at (B', ·): the K beams of a sample
+        share the cross-attention K/V, so the beam axis rides the query
+        axis of one (B', K) attention call instead of repeating the memory
+        K-fold. Same result as passing the memory repeated.
         Returns y_t (B,1,D)."""
         qh = self.self_attn.project_q(x_t)
         kh_t, vh_t = self.self_attn.project_kv(x_t, x_t)
@@ -57,9 +63,12 @@ class TextDecoderLayer(nn.Module):
         x = self.norm1(x_t + self.self_attn.attend(qh, cache_k, cache_v,
                                                    pos_valid))
         mem_k, mem_v = mem_kv
-        ca = self.multihead_attn.attend(self.multihead_attn.project_q(x),
-                                        mem_k, mem_v, mem_valid)
-        return self._ffn(self.norm2(x + ca))
+        q = self.multihead_attn.project_q(x)  # (B,1,H,Dh), contiguous
+        B = q.shape[0]
+        if beam_group > 1:
+            q = q.view(B // beam_group, beam_group, *q.shape[2:])
+        ca = self.multihead_attn.attend(q, mem_k, mem_v, mem_valid)
+        return self._ffn(self.norm2(x + ca.view(B, 1, -1)))
 
 
 class TextDecoder(nn.Module):
@@ -87,12 +96,14 @@ class TextDecoder(nn.Module):
                       torch.zeros(shape, dtype=dtype, device=device))
                      for _ in self.layers)
 
-    def step(self, x_t, mem_kvs, mem_valid, caches, t: int):
+    def step(self, x_t, mem_kvs, mem_valid, caches, t: int,
+             beam_group: int = 1):
         """One token through all layers; the caches are updated in place.
-        Returns y_t (B,1,D)."""
+        `beam_group` as in `TextDecoderLayer.step`. Returns y_t (B,1,D)."""
         S = caches[0][0].shape[1]
         pos_valid = (torch.arange(S, device=x_t.device) <= t).expand(
             x_t.shape[0], S).contiguous()
         for layer, mem_kv, (ck, cv) in zip(self.layers, mem_kvs, caches):
-            x_t = layer.step(x_t, mem_kv, mem_valid, ck, cv, t, pos_valid)
+            x_t = layer.step(x_t, mem_kv, mem_valid, ck, cv, t, pos_valid,
+                             beam_group)
         return x_t

@@ -32,6 +32,7 @@ TPU originals.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -132,6 +133,7 @@ _SIGNATURES = {  # source -> {function: argtypes}; each returns cudaError_t
                          "gpv_attn_decode": [_P] * 5 + [_I] * 7 + [_P]},
 }
 _ready: dict = {}
+_count_lock = threading.Lock()
 
 
 def _lib(source: str) -> ctypes.CDLL:
@@ -203,6 +205,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _count(wrapper, variant: str) -> None:
+    """One launch of `variant` on `wrapper`'s counters, under a lock: the
+    serving workers launch from several threads."""
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.variant_launches[variant] += 1
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: Optional[torch.Tensor] = None,
                     causal: bool = False) -> torch.Tensor:
@@ -237,8 +247,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *ptrs, B, Tk, H, Dh, int(causal), plan.warps, plan.smem_bytes,
             stream)
     _raise_on(f"fused_attention ({plan.variant})", err)
-    fused_attention.launches += 1
-    fused_attention.variant_launches[plan.variant] += 1
+    _count(fused_attention, plan.variant)
     return out
 
 
@@ -281,8 +290,7 @@ def fused_biattention(q1, k1, v1, q2, k2, v2,
         err = _lib("attention_tile").gpv_attn_tile_bi(
             *ptrs, B, T1, T2, H, Dh, plan.warps, plan.smem_bytes, stream)
     _raise_on(f"fused_biattention ({plan.variant})", err)
-    fused_biattention.launches += 1
-    fused_biattention.variant_launches[plan.variant] += 1
+    _count(fused_biattention, plan.variant)
     return ctx1, ctx2
 
 

@@ -5,13 +5,16 @@ valid mask normalised to 2*pi, temperature 10000, d/2 features per axis,
 y-features then x-features) and the 1-D sine table `positionalencoding1d`
 (`exp/gpv/models/gpv.py:18`). Computed in fp32, channel-last (B, H, W, C)
 as in the JAX package; callers flatten to sequence form. The learned 2-D
-variant is not ported yet.
+variant (`position_embedding: learned` / `v3`, reference
+`PositionEmbeddingLearned`, position_encoding.py:51-76) is a module with
+50-entry row and column tables.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch import nn
 
 
 def _interleave(pos: torch.Tensor) -> torch.Tensor:
@@ -42,6 +45,31 @@ def sine_position_embedding_2d(valid_mask: torch.Tensor,
     pos_x = _interleave(x_embed[..., None] / dim_t)
     pos_y = _interleave(y_embed[..., None] / dim_t)
     return torch.cat([pos_y, pos_x], dim=-1)
+
+
+class LearnedPositionEmbedding2D(nn.Module):
+    """Learned absolute 2-D position embedding: per pixel
+    [col(x) features, row(y) features] (x first, unlike the sine
+    variant), the same for every image; the validity mask is ignored, as
+    in the reference. Tables `row_embed`, `col_embed` (table_size, F)."""
+
+    def __init__(self, num_pos_feats: int = 128, table_size: int = 50):
+        super().__init__()
+        self.table_size = table_size
+        self.row_embed = nn.Embedding(table_size, num_pos_feats)
+        self.col_embed = nn.Embedding(table_size, num_pos_feats)
+
+    def forward(self, batch: int, h: int, w: int) -> torch.Tensor:
+        """-> (batch, h, w, 2F) in the tables' dtype."""
+        if h > self.table_size or w > self.table_size:
+            raise ValueError(
+                f"learned position embedding table ({self.table_size}) too "
+                f"small for a {h}x{w} feature map")
+        F_ = self.row_embed.weight.shape[1]
+        x_emb = self.col_embed.weight[None, :w].expand(h, w, F_)
+        y_emb = self.row_embed.weight[:h, None].expand(h, w, F_)
+        pos = torch.cat([x_emb, y_emb], dim=-1)
+        return pos[None].expand(batch, h, w, 2 * F_)
 
 
 def sine_position_encoding_1d(d_model: int, length: int) -> torch.Tensor:

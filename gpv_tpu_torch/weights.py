@@ -12,10 +12,18 @@ names relative to their module, so a test can load one module alone.
 
 `init_random(model, seed)` fills every parameter and buffer from a
 `torch.Generator`, for runs without a released checkpoint.
+
+`load_torch_state_dict(path)` reads a reference `.pth` (a state dict, or a
+dict holding one under `model`, the DDP `module.` prefix stripped): its
+names are this package's, so `GPV.load_state_dict(sd, strict=True)` takes
+it as it is. `load_bert_weights(bert, sd)` loads an HF-named BERT state
+dict (`embeddings.*`, `encoder.layer.*` under any prefix) into a
+`BertEncoder`.
 """
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -113,11 +121,11 @@ def detr_transformer(p) -> StateDict:
 
 
 def detr(params, stats) -> StateDict:
-    if "position_embedding" in params:
-        raise NotImplementedError("the learned 2-D position embedding is "
-                                  "not ported yet")
     sd = _prefix("backbone.0.body", resnet(params["backbone"],
                                            stats["backbone"]))
+    if "position_embedding" in params:  # learned 2-D, the Joiner's slot 1
+        for n in ("row_embed", "col_embed"):
+            sd[f"backbone.1.{n}.weight"] = _t(params["position_embedding"][n])
     sd.update(_prefix("input_proj", conv(params["input_proj"])))
     sd["query_embed.weight"] = _t(params["query_embed"])
     sd.update(_prefix("transformer", detr_transformer(params["transformer"])))
@@ -203,8 +211,11 @@ def state_dict_from_jax(variables) -> StateDict:
                       linear(p["relevance_predictor"])))
     sd.update(_prefix("text_decoder", text_decoder(p["text_decoder"])))
     sd["answer_head.vocab_embed"] = _t(p["vocab_embed"])
-    sd.update(_prefix("answer_head.classifier_transform",
-                      linear(p["classifier_transform"])))
+    if "classifier" in p:  # answer_head: linear
+        sd.update(_prefix("answer_head.classifier", linear(p["classifier"])))
+    else:
+        sd.update(_prefix("answer_head.classifier_transform",
+                          linear(p["classifier_transform"])))
     sd.update(_prefix("answer_input_embedings.transform",
                       linear(p["answer_input_transform"])))
     for n in ("vision_token", "lang_token", "relevance_tokens"):
@@ -245,3 +256,42 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
             val = randn(shape, 0.1)
         t.copy_(val)
     return model
+
+
+def strip_ddp_prefix(sd: StateDict) -> StateDict:
+    """Drop the DDP `module.` prefix (reference inference.py:57-62)."""
+    if any(k.startswith("module.") for k in sd):
+        return {k[len("module."):] if k.startswith("module.") else k: v
+                for k, v in sd.items()}
+    return sd
+
+
+def load_torch_state_dict(path: str | Path) -> StateDict:
+    """A reference torch checkpoint -> its state dict on the CPU: the
+    `model` entry of a training checkpoint, or the file's dict itself,
+    with the DDP prefix stripped. Loaded with `weights_only=True`, so the
+    file can hold tensors and plain containers only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return strip_ddp_prefix(dict(ckpt.get("model", ckpt)))
+
+
+def load_bert_weights(bert: nn.Module, sd: StateDict) -> nn.Module:
+    """Load an HF-named BERT state dict (`<prefix>embeddings.*` and
+    `<prefix>encoder.layer.*`, the prefix found from the word embedding,
+    e.g. '' for `BertModel`, `bert.` or the reference's `bert.model.`)
+    into a `BertEncoder`, strictly; the pooler, the pre-training heads and
+    the `position_ids` buffer are left out."""
+    sd = strip_ddp_prefix(sd)
+    word = "embeddings.word_embeddings.weight"
+    prefix = next((k[:-len(word)] for k in sd if k.endswith(word)), None)
+    if prefix is None:
+        raise KeyError(f"no '{word}' in the state dict: not a BERT")
+    body = {}
+    for k, v in sd.items():
+        rest = k[len(prefix):]
+        if k.startswith(prefix) and rest.startswith(("embeddings.",
+                                                     "encoder.layer.")) \
+                and rest != "embeddings.position_ids":
+            body[f"model.{rest}"] = torch.as_tensor(v)
+    bert.load_state_dict(body, strict=True)
+    return bert

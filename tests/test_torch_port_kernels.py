@@ -10,7 +10,9 @@ Shapes are the main path's (DETR 300x300 / 100x100 / 100x300 with Dh 32,
 BERT 20x20 Dh 64, decode step 1x20 and 1x120 Dh 96, co-attention 20 x 100
 with 16 heads of 48), then ragged ones for each kernel variant (fp32; bf16
 tile for Tq >= 2 and K2; bf16 decode for Tq = 1): Tq in {1, 17, 65}, Tk in
-{1, 33, 301}, each Dh in {32, 48, 64, 96}, causal, and a fully masked row.
+{1, 33, 301}, each Dh in {32, 48, 64, 96}, causal, and a fully masked row;
+and beam search's shapes: Tq = K in {1, 3, 5, 20} beams over the 120-slot
+memory, and 3 to 100 beam rows (B·K) over the 20-slot cache.
 Tolerance: fp32 1e-5, bf16 2e-2, both times max(1, max |plain|); fp32 runs
 with TF32 off.
 """
@@ -182,6 +184,27 @@ def test_k2_ragged_shapes_match_plain(dtype, tol, T1, T2):
     for a, b in zip(got, ref):
         scale = max(1.0, b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("K", [1, 3, 5, 20])
+def test_k1_beam_grouped_cross_attention_matches_plain(dtype, tol, K):
+    """predict_beam's cross-attention: the K beams of each of 4 samples as
+    K query rows over the 120-slot memory (Dh 96) with its key mask."""
+    _cuda_or_skip()
+    _k1_against_plain(dtype, tol, 4, K, 120, 8, 96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rows", [3, 20, 24, 100])
+def test_k1_beam_cache_step_matches_plain(dtype, tol, rows):
+    """predict_beam's self-attention step: B·K beam rows (B=20, K=5; the
+    server's K=3 at buckets 1 and 8) each one query over the 20-slot
+    cache."""
+    _cuda_or_skip()
+    _k1_against_plain(dtype, tol, rows, 1, 20, 8, 96)
 
 
 @pytest.mark.cuda

@@ -27,13 +27,14 @@ def _chip_smoke():
     return mod
 
 
-K1_CASES = _chip_smoke().k1_cases(19)
+K1_CASES = _chip_smoke().k1_cases()
 
 
-@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: c.name)
 def test_plan_routes_main_path_k1_shapes(case):
-    name, _, tq, tk, _, dh, _, _, _ = case
+    tq, tk, dh = case.tq, case.tk, case.dh
     bf16 = A._plan(torch.bfloat16, tq, tk, dh)
+    assert bf16.variant == case.variant  # what chip_smoke's gates expect
     if tq == 1:
         assert bf16.variant == "decode"
         assert bf16.warps == min(4, -(-tk // 32))
@@ -93,3 +94,27 @@ def test_alignment_check_refuses_a_view_one_element_in():
     A._aligned("fused_attention", {"q": storage, "k": flat[8:]})
     with pytest.raises(ValueError, match="2 bytes past a 16-byte boundary"):
         A._aligned("fused_attention", {"q": storage, "k": flat[1:]})
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 20])
+def test_plan_routes_beam_grouped_cross_attention(K):
+    """predict_beam's cross-attention takes the K beams of a sample as K
+    query rows against the 120-slot memory (Dh 96): K = 1 is the decode
+    kernel; K >= 2 the tile kernel, 16 query rows a warp, so K = 5 pads
+    one warp's tile and K = 20 (the HTTP limit) takes two warps."""
+    plan = A._plan(torch.bfloat16, K, 120, 96)
+    row = 13 * 16  # Dh 96: 12 chunks of 16 bytes, made odd
+    if K == 1:
+        assert plan == A.Plan("decode", 4, 32, 512 + 1568 + 4 * 2 * 32 * row)
+    else:
+        warps = -(-K // 16)
+        assert plan == A.Plan("tile", warps, 64,
+                              512 + 16 * warps * row + 2 * 2 * 64 * row)
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+def test_plan_of_the_beam_cache_step_does_not_depend_on_rows():
+    """B·K = 100 beam rows over the 20-slot cache: one block per (row,
+    head) on the decode kernel, one warp, as at B = 20."""
+    assert A._plan(torch.bfloat16, 1, 20, 96) == \
+        A.Plan("decode", 1, 32, 512 + 400 + 2 * 32 * 13 * 16)

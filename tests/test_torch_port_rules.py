@@ -123,3 +123,40 @@ def test_chip_smoke_fails_alone(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    """The serving workers launch kernels from several threads: 16
+    threads counting 500 launches each, with a short switch interval,
+    must total 8000."""
+    import threading
+
+    w = A.fused_biattention
+    saved = w.launches, dict(w.variant_launches)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        w.launches, w.variant_launches = 0, dict.fromkeys(saved[1], 0)
+        threads = [threading.Thread(
+            target=lambda: [A._count(w, "tile") for _ in range(500)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert w.launches == w.variant_launches["tile"] == 8000
+    finally:
+        sys.setswitchinterval(old)
+        w.launches, w.variant_launches = saved
+
+
+def test_data_files_ship_as_package_data():
+    """The COCO synonyms behind the classification masks are matched by
+    the package-data globs."""
+    import tomllib
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["package-data"]
+    pkg = ROOT / "gpv_tpu_torch" / "evaluation"
+    assert pkg / "coco_synonyms.json" in {
+        p for g in data["gpv_tpu_torch.evaluation"] for p in pkg.glob(g)}
