@@ -37,10 +37,23 @@ Phases, each printing one JSON line:
              kernels' launches by variant against the batches the server
              ran, latency;
   vocab_embed  embed_vocab over the 10000 words with BERT-base in bf16
-             (launch counts), and fp32 card against CPU on 64 words.
+             (launch counts), and fp32 card against CPU on 64 words;
+  eval       offline evaluation (`infer.predictions.predict_dataset` and
+             `evaluate_predictions`) over seeded COCO-schema datasets of
+             the five tasks, 110 samples each, pixels seeded at COCO's
+             sizes and resized exactly on 8 forked loader processes: greedy
+             for every task, beam K=5 for VQA and captioning. Per run:
+             every sample predicted once, the evaluators' keys and finite
+             metrics, launches by variant against the batches it made,
+             one item's host ms, images/s of the loader alone (and its
+             first batch's s) and of the pipeline, evaluator s, device
+             idle share (profiled repeat); VQA 8 times over (880
+             samples), loader and pipeline; threads against processes;
+             fp32 card against CPU on 8 VQA and 8 detection samples.
 Then one `kernels` line (each kernel of the paths: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
-predict_beam, embed_vocab and the whole serve run under `paths`), and
+predict_beam, embed_vocab, the whole serve run and the whole eval phase
+under `paths`), and
 last `{"ok": true,
 "device": {...}}`. Any failed phase exits non-zero before that line;
 without a CUDA device, or without the package beside this file, it exits
@@ -71,6 +84,29 @@ BEAM, E2E_BEAM = 5, 3
 EMBED_BATCH = 256  # words a batch in embed_vocab
 SERVE_BUCKETS, SERVE_BEAM = (1, 8, B), 3
 SERVE_CLIENTS, SERVE_REQUESTS = 40, 25  # requests per client
+# offline eval: task -> its node under task_configs
+EVAL_TASKS = {"CocoVqa": "coco_vqa", "CocoCaptioning": "coco_captioning",
+              "CocoDetection": "coco_detection",
+              "CocoClassification": "coco_classification",
+              "RefCocop": "refcocop"}
+EVAL_BEAM_TASKS = ("CocoVqa", "CocoCaptioning")
+EVAL_SAMPLES = 110   # 5 full batches of B and one of 10 (padded)
+EVAL_WORKERS = 8     # eval.num_workers's default
+EVAL_LOADER_TASK = "CocoVqa"  # also run with loader=threads
+EVAL_HOST_ITEMS = 6  # items timed one by one in this process (3 images)
+EVAL_STEADY_REPEATS = 8  # one task's samples 8 times over: 44 batches
+EVAL_CHECK, EVAL_CHECK_TASKS = 8, ("CocoVqa", "CocoDetection")  # card vs CPU
+EVAL_CLASSES = ("dog", "cat", "horse", "person")
+COCO_SIZES = ((480, 640), (427, 640), (640, 480))  # (H, W)
+NOVELTIES = ("everything", "seen_concepts", "held_out_concepts")
+EVAL_METRIC_KEYS = {   # the keys of gpv_tpu's evaluators' metric dicts
+    "CocoVqa": {"correct", "total", "absent", "accuracy"},
+    "CocoClassification": {"correct", "overall_correct", "total",
+                           "overall_total", "absent", "accuracy",
+                           "overall_accuracy"},
+    "CocoCaptioning": {"absent", "total", "scores"},
+    "CocoDetection": {"absent", "total", "mAP"},
+    "RefCocop": {"absent", "total", "mAP"}}
 
 
 def emit(record: dict) -> None:
@@ -464,7 +500,8 @@ def phase_profile(phase: str, call, counts: Counter) -> dict:
     """torch.profiler over one `call()` (a predict or predict_beam): device
     time by kernel, the port's kernels by variant, and the share of the
     call's wall time in which the card ran no kernel. Fails unless each
-    port kernel launched as often as `counts` ({Case: launches}) says."""
+    port kernel launched as often as `counts` ({Case: launches}, or a
+    function giving them once the call has run) says."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -475,6 +512,8 @@ def phase_profile(phase: str, call, counts: Counter) -> dict:
         call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    if callable(counts):
+        counts = counts()
     rows = sorted(_device_events(prof), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     groups = (("port_attention_kernels", ("gpv_attn_",)),
@@ -730,11 +769,20 @@ class _Recorder:
         self._log("predict", len(queries), None)
         return out
 
-    def predict_beam(self, images, queries, beam_size=5, vocab_mask=None):
+    def predict_beam(self, images, queries, beam_size=5, vocab_mask=None,
+                     reference_quirks=False):
         out = self.eng.predict_beam(images, queries, beam_size=beam_size,
-                                    vocab_mask=vocab_mask)
+                                    vocab_mask=vocab_mask,
+                                    reference_quirks=reference_quirks)
         self._log("predict_beam", len(queries), beam_size)
         return out
+
+    def launches(self) -> Counter:
+        """{Case: launches} of the calls logged so far."""
+        run = Counter()
+        for path, rows, beam, steps in self.calls:
+            run.update(path_launches(path, steps, rows, beam or BEAM))
+        return run
 
 
 def phase_serve(eng, checked: set):
@@ -803,9 +851,7 @@ def phase_serve(eng, checked: set):
                        if k}):
         fail(f"serve: engine calls by rows {dict(ran)} != the server's "
              f"batches {stats['batches_per_bucket']}")
-    run = Counter()
-    for path, rows, beam, steps in recorder.calls:
-        run.update(path_launches(path, steps, rows, beam or BEAM))
+    run = recorder.launches()
     unchecked = {c.name for c in run} - checked
     if unchecked:
         fail(f"serve: shapes not held against their plain version in the "
@@ -862,13 +908,314 @@ def phase_vocab_embed(vocab_path: Path) -> dict:
             "fp32_cuda_vs_cpu_max_abs_err": err, "tol": 1e-3}, counts
 
 
+def eval_samples(task: str, n: int = EVAL_SAMPLES) -> list:
+    """`n` seeded samples of `task` in COCO's sample schema (as
+    `tests/_fake_data.py` writes them): an id, a query, answers or boxes,
+    the image (two samples an image; W and H for the box tasks, from the
+    image's COCO size), and coco_categories, every third sample with an
+    unseen class so that each novelty split has samples."""
+    from gpv_tpu_torch.evaluation.evaluators import TASK_TO_ID_FIELD
+    rng = np.random.RandomState(sorted(EVAL_TASKS).index(task))
+    words = ("a", "man", "dog", "cat", "horse", "riding", "red", "on", "the")
+    out = []
+    for i in range(n):
+        image_id = 1000 + i // 2
+        h, w = COCO_SIZES[image_id % len(COCO_SIZES)]
+        cls = EVAL_CLASSES[i % len(EVAL_CLASSES)]
+        s = {TASK_TO_ID_FIELD[task]: 1 + i,
+             "image": {"subset": "val2014", "image_id": image_id},
+             "coco_categories": {"seen": [cls],
+                                 "unseen": ["cat"] if i % 3 == 0 else []}}
+        x, y = rng.uniform(0, 0.6 * w), rng.uniform(0, 0.6 * h)
+        box = [x, y, rng.uniform(8, w - x), rng.uniform(8, h - y)]
+        if task == "CocoVqa":
+            a, b = rng.choice(("two", "yes", "no", "red", "dog"), 2,
+                              replace=False)
+            s.update(query="what is on the table?", answer=str(a),
+                     all_answers={str(a): 7, str(b): 3},
+                     anno={"answer_type": ("number", "yes/no")[i % 2],
+                           "question_type": ("how many", "is the")[i % 3 > 0]})
+        elif task == "CocoCaptioning":
+            s.update(query="describe the image",
+                     answer=" ".join(rng.choice(words, 6)))
+        elif task == "CocoClassification":
+            s.update(query="what is this?", boxes=box, answer=cls,
+                     category_id=1 + i % len(EVAL_CLASSES))
+        else:
+            s["image"].update(W=w, H=h)
+            if task == "CocoDetection":
+                s.update(query=f"locate the {cls}", category_name=cls,
+                         boxes=[box, [0.5 * w, 0.5 * h, 0.3 * w, 0.2 * h]])
+            else:
+                s.update(query=f"the {cls} on the left", boxes=[box])
+        out.append(s)
+    return out
+
+
+class _SeededPixels:
+    """A task dataset whose pixels are seeded uint8 at the image's COCO
+    size, made from the image id: no JPEG files and no PIL. Crop, resize,
+    box normalisation and transforms are the dataset's own."""
+
+    def load_pixels(self, sample):
+        image_id = int(sample["image"]["image_id"])
+        h, w = COCO_SIZES[image_id % len(COCO_SIZES)]
+        return np.random.RandomState(image_id).randint(
+            0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def eval_datasets(data_dir: Path) -> dict:
+    """{task: dataset} over seeded samples written under `data_dir`, read
+    through `configs/exp/gpv.yaml`'s task configs at 480x640 with
+    `host_resize: exact` (the reference's eval pixels)."""
+    from gpv_tpu_torch.datasets.coco import DATASET_CLASSES
+    from gpv_tpu_torch.utils.config import load_config
+    cfg = load_config(ROOT / "configs", "exp/gpv",
+                      [f"data_dir={data_dir}", "task_configs.host_resize=exact"])
+    out = {}
+    for task, node in EVAL_TASKS.items():
+        task_cfg = cfg.task_configs[node]
+        path = Path(task_cfg.samples.val)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(eval_samples(task)))
+        cls = DATASET_CLASSES[task]
+        out[task] = type(cls.__name__, (_SeededPixels, cls), {})(task_cfg,
+                                                                 "val")
+    return out
+
+
+def _finite_leaves(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(_finite_leaves(v) for v in obj.values())
+    return bool(np.isfinite(obj))
+
+
+def _check_metrics(task: str, metrics: dict) -> None:
+    """The JAX evaluators' keys, finite values, every novelty split
+    non-empty and no sample absent."""
+    if set(metrics) != set(NOVELTIES):
+        fail(f"eval {task}: novelties {sorted(metrics)}")
+    for novelty, m in metrics.items():
+        if set(m) != EVAL_METRIC_KEYS[task] or not _finite_leaves(m):
+            fail(f"eval {task} {novelty}: keys {sorted(m)} or a value not "
+                 f"finite: {m}")
+        total = m["total"]
+        total = total.get("all", 0) if isinstance(total, dict) else total
+        total = m.get("overall_total", total)
+        if m["absent"] != 0 or not total > 0:
+            fail(f"eval {task} {novelty}: absent {m['absent']}, total "
+                 f"{total}")
+
+
+def _eval_card_vs_cpu(vocab_path: Path, datasets: dict, tmp: Path) -> dict:
+    """The first EVAL_CHECK samples of VQA and detection through an fp32
+    engine on the card and one on the CPU: equal answers, boxes and
+    relevance within 1e-3, equal metrics."""
+    import torch
+    from gpv_tpu_torch.infer.predictions import (evaluate_predictions,
+                                                 predict_dataset)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs = {}
+    for device in ("cuda", "cpu"):
+        eng = make_engine(vocab_path, "float32", device)
+        for task in EVAL_CHECK_TASKS:
+            ds = datasets[task]
+            preds, boxes = predict_dataset(eng, ds, task, EVAL_CHECK,
+                                           num_eval_batches=1)
+            metrics = evaluate_predictions(
+                task, ds.samples[:EVAL_CHECK], preds, boxes,
+                tmp / f"check_{device}", "val")
+            outs[device, task] = preds, boxes, metrics
+        del eng
+    rec = {"samples_per_task": EVAL_CHECK, "dtype": "float32", "tol": 1e-3}
+    for task in EVAL_CHECK_TASKS:
+        (cp, cb, cm), (pp, pb, pm) = outs["cuda", task], outs["cpu", task]
+        if len(cp) != EVAL_CHECK or cp != pp:
+            fail(f"eval card vs cpu {task}: answers differ {cp} {pp}")
+        for key in ("boxes", "relevance"):
+            err = max(float(np.abs(cb[k][key] - pb[k][key]).max())
+                      for k in cb)
+            rec[f"{task}_{key}_max_abs_err"] = err
+            if not err <= 1e-3:
+                fail(f"eval card vs cpu {task} {key}: {err} > 1e-3")
+        if cm != pm:
+            fail(f"eval card vs cpu {task}: metrics differ {cm} {pm}")
+    return rec
+
+
+def _loader_pass(ds, loader: dict) -> dict:
+    """Iterate the padded batches of `ds` without predicting: images/s
+    over the whole pass, the seconds to the first batch (pool start and
+    one batch's items on one worker) and images/s after it."""
+    from gpv_tpu_torch.infer.predictions import iter_padded_batches
+    t0 = time.perf_counter()
+    n, first = 0, None
+    for _, n_real in iter_padded_batches(ds, B, **loader):
+        n += n_real
+        if first is None:
+            first, n_first = time.perf_counter() - t0, n_real
+    total = time.perf_counter() - t0
+    return {"images": n, "images_per_s": n / total, "first_batch_s": first,
+            "after_first_images_per_s": (n - n_first) / (total - first)
+            if total > first else None}
+
+
+def _eval_steady(eng, ds, task: str, loader: dict) -> dict:
+    """`ds`'s samples EVAL_STEADY_REPEATS times over, with fresh ids, so
+    that the loader's start is a small part of the run: the loader alone
+    and the pipeline (greedy), images/s."""
+    import copy
+
+    import torch
+    from gpv_tpu_torch.evaluation.evaluators import TASK_TO_ID_FIELD
+    from gpv_tpu_torch.infer.predictions import predict_dataset
+    big = copy.copy(ds)
+    big.samples = [dict(s, **{TASK_TO_ID_FIELD[task]: k + 1}) for k, s in
+                   enumerate(ds.samples * EVAL_STEADY_REPEATS)]
+    rec = {"task": task, "samples": len(big),
+           "loader": _loader_pass(big, loader)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds, _ = predict_dataset(eng, big, task, B, **loader)
+    torch.cuda.synchronize()
+    rec["pipeline_images_per_s"] = len(preds) / (time.perf_counter() - t0)
+    if len(preds) != len(big):
+        fail(f"eval steady: {len(preds)} predictions for {len(big)}")
+    return rec
+
+
+def phase_eval(eng, vocab_path: Path, tmp: Path, checked: set):
+    """Offline evaluation through `infer.predictions` at B=20 over seeded
+    COCO-schema datasets of every task (EVAL_SAMPLES each: five full
+    batches and one padded), loaded by EVAL_WORKERS forked processes with
+    the exact resize: greedy for every task, beam K=BEAM for VQA and
+    captioning, each run's predictions scored by the task's evaluator on
+    the in-memory boxes. Per run: one item's host cost, the loader
+    alone, the pipeline, the evaluator, and a profiled repeat (device idle
+    share); then VQA eight times over (the loader's start amortised).
+    Gates: every
+    sample predicted once, no padded row kept; metrics with the JAX
+    evaluators' keys and finite values; launches by variant as the
+    batches the run made say (greedy steps per batch read from the
+    engine), fp32 none, every shape a `kernels` case; threads and
+    processes give the same predictions; fp32 card against CPU.
+    Returns the record and the phase's {Case: launches}."""
+    import torch
+    from gpv_tpu_torch.evaluation.evaluators import TASK_TO_ID_FIELD
+    from gpv_tpu_torch.infer.predictions import (evaluate_predictions,
+                                                 predict_dataset)
+
+    t_phase = time.perf_counter()
+    datasets = eval_datasets(tmp / "data")
+    recorder = _Recorder(eng)
+    loader = {"num_workers": EVAL_WORKERS, "loader": "processes"}
+    phase_run, phase_variants, runs = Counter(), None, []
+    loader_ips, host_ms = {}, {}
+    for task, beam in [(t, None) for t in EVAL_TASKS] + [
+            (t, BEAM) for t in EVAL_BEAM_TASKS]:
+        ds = datasets[task]
+        n = len(ds)
+        if task not in loader_ips:
+            # one item's host cost (pixels, crop, exact resize) on one
+            # core, after a first call that imports what the resize needs
+            ds.get(0, np.random.RandomState(0))
+            t0 = time.perf_counter()
+            for i in range(EVAL_HOST_ITEMS):
+                ds.get(i, np.random.RandomState(i))
+            host_ms[task] = 1e3 * (time.perf_counter() - t0) \
+                / EVAL_HOST_ITEMS
+            loader_ips[task] = _loader_pass(ds, loader)
+
+        def run():
+            return predict_dataset(recorder, ds, task, B, beam_size=beam,
+                                   **loader)
+        torch.cuda.synchronize()
+        recorder.calls.clear()
+        _reset_counts()
+        t0 = time.perf_counter()
+        preds, boxes = run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        _, by_var = _read_counts()
+        counts = recorder.launches()
+        name = f"eval {task}{'' if beam is None else f' K={beam}'}"
+        _check_counts(name, by_var, counts)
+        unchecked = {c.name for c in counts} - checked
+        if unchecked:
+            fail(f"{name}: shapes not held against their plain version in "
+                 f"the kernels phase: {sorted(unchecked)}")
+        rows = [r for _, r, _, _ in recorder.calls]
+        ids = [s[TASK_TO_ID_FIELD[task]] for s in ds.samples]
+        if rows != [B] * -(-n // B) or list(preds) != ids \
+                or list(boxes) != [str(i) for i in ids]:
+            fail(f"{name}: batches {rows}, {len(preds)} predictions for "
+                 f"{n} samples")
+        _check_boxes(boxes.values())
+        if beam and any(len(p["answers"]) != beam for p in preds.values()):
+            fail(f"{name}: not {beam} answers a sample")
+        steps = [s for *_, s in recorder.calls]
+        t0 = time.perf_counter()
+        metrics = evaluate_predictions(task, ds.samples, preds, boxes,
+                                       tmp / "eval", "val")
+        eval_s = time.perf_counter() - t0
+        _check_metrics(task, metrics)
+        phase_run.update(counts)
+        phase_variants = by_var if phase_variants is None else {
+            w: {v: phase_variants[w][v] + k for v, k in vs.items()}
+            for w, vs in by_var.items()}
+        recorder.calls.clear()
+        prof = phase_profile(f"{name} profile", run, recorder.launches)
+        runs.append({
+            "task": task, "beam_size": beam, "samples": n,
+            "batches": len(rows), "decode_steps": steps,
+            "host_ms_per_item": host_ms[task],
+            "loader_images_per_s": loader_ips[task]["images_per_s"],
+            "loader_first_batch_s": loader_ips[task]["first_batch_s"],
+            "pipeline_images_per_s": n / wall_s, "pipeline_s": wall_s,
+            "evaluator_s": eval_s,
+            "device_idle_share": prof["device_idle_share"],
+            "profile_wall_ms": prof["wall_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "port_kernels": prof["port_kernels"],
+            "launches_by_variant": by_var,
+            "metrics_everything": metrics["everything"],
+            "answers": [preds[i]["answer"] for i in ids[:2]]})
+        if task == EVAL_LOADER_TASK and beam is None:
+            ref = (preds, boxes)
+    # the same task with threads: the same predictions
+    task = EVAL_LOADER_TASK
+    t0 = time.perf_counter()
+    preds, boxes = predict_dataset(eng, datasets[task], task, B,
+                                   num_workers=EVAL_WORKERS,
+                                   loader="threads")
+    threads_s = time.perf_counter() - t0
+    box_err = max(float(np.abs(boxes[k][f] - ref[1][k][f]).max())
+                  for k in boxes for f in ("boxes", "relevance"))
+    if preds != ref[0] or box_err != 0:
+        fail(f"eval {task}: threads and processes differ (boxes, "
+             f"relevance max abs {box_err})")
+    rec = {"phase": "eval", "batch": B, "dtype": "bfloat16",
+           "workers": EVAL_WORKERS, "host_resize": "exact",
+           "images": sum(r["samples"] for r in runs), "runs": runs,
+           "launches_by_variant": phase_variants,
+           "threads_equal_processes": EVAL_LOADER_TASK,
+           "threads_pipeline_images_per_s": len(preds) / threads_s}
+    rec["steady"] = _eval_steady(eng, datasets[task], task, loader)
+    t0 = time.perf_counter()
+    rec["card_vs_cpu"] = _eval_card_vs_cpu(vocab_path, datasets, tmp)
+    rec["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, phase_run
+
+
 def kernels_line(kern: dict, runs: dict) -> dict:
     """One entry per kernel of the paths. Its top-level numbers are one
     predict's (the slice run): each bf16 shape's number times its
     launches in that run, summed over the shapes that kernel serves;
     `paths` holds the same for each measured run (predict, predict_beam,
-    embed_vocab, the whole serve run). runs: path -> (its phase record,
-    {Case: launches})."""
+    embed_vocab, the whole serve run, the eval phase's gated runs). runs:
+    path -> (its phase record, {Case: launches})."""
     keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
             "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
 
@@ -953,10 +1300,14 @@ def main() -> None:
         ve, ve_counts = phase_vocab_embed(vocab_path)
         records.append(ve)
         emit(ve)
+        ev, ev_counts = phase_eval(eng, vocab_path, Path(tmp), checked)
+        records.append(ev)
+        emit(ev)
     line = kernels_line(kern, {"predict": (sl, sl_counts),
                                "predict_beam": (beam, beam_counts),
                                "embed_vocab": (ve, ve_counts),
-                               "serve": (serve, serve_counts)})
+                               "serve": (serve, serve_counts),
+                               "eval": (ev, ev_counts)})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that no parity test sees.
 
 - Nothing under gpv_tpu_torch/ and no line of chip_smoke.py imports jax,
-  flax or gpv_tpu (the port keeps its own copies).
+  flax or gpv_tpu (the port keeps its own copies), nor PIL or h5py when
+  it is imported (the card machine has neither).
 - Entry points run on the card unless asked: an engine built without a
   device raises where CUDA is absent.
 - CPU tensors take the plain versions and leave the launch counters at 0;
@@ -52,6 +53,39 @@ def test_port_imports_nothing_of_jax_or_gpv_tpu(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in BANNED, f"{path.name} imports {name}"
+
+
+def _import_time_imports(tree):
+    """Modules a file imports when it is imported: its module-level and
+    class-level import statements, not those inside functions."""
+    for node in ast.iter_child_nodes(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        else:
+            yield from _import_time_imports(node)
+
+
+def test_import_time_imports_skip_function_bodies():
+    src = ("import PIL\ndef f():\n    import h5py\nclass A:\n"
+           "    import h5py as h\n    def g(self):\n        import x\n"
+           "try:\n    from PIL import Image\nexcept ImportError:\n    pass\n")
+    assert list(_import_time_imports(ast.parse(src))) == ["PIL", "h5py",
+                                                         "PIL"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_pil_or_h5py_at_import_time(path):
+    """The card machine has neither: every module the card run imports
+    must load without them, so they are imported where they are used."""
+    tree = ast.parse(path.read_text(), str(path))
+    for name in _import_time_imports(tree):
+        assert name.split(".")[0] not in ("PIL", "h5py"), \
+            f"{path.name} imports {name} at import time"
 
 
 def test_kernel_sources_ship_as_package_data():
