@@ -49,11 +49,29 @@ Phases, each printing one JSON line:
              first batch's s) and of the pipeline, evaluator s, device
              idle share (profiled repeat); VQA 8 times over (880
              samples), loader and pipeline; threads against processes;
-             fp32 card against CPU on 8 VQA and 8 detection samples.
+             fp32 card against CPU on 8 VQA and 8 detection samples;
+  train      `train.trainer.Trainer` over `configs/exp/gpv.yaml` at the
+             released widths (learning_datasets all, bf16 autocast, fp32
+             parameters and AdamW state, global batch 120 with the
+             smallest grad_accum_steps of 1/2/4/8 that fits, query dedup,
+             seeded COCO-schema data at COCO's sizes, exact resize on 8
+             forked loader processes, seeded random weights): 2 warm-up
+             and 5 timed steps through the loader, 3 on one resident
+             batch, one step split by stage, the matcher's parts, one
+             profiled step, peak memory, the in-train eval (40 samples a
+             task), a save and a resume. Gates: every loss key finite,
+             frozen parameters bit-unchanged and every other leaf moved,
+             K1 12 launches a step at the dedup's rows, the eval's keys
+             finite and its launches by variant, the restored state equal
+             to the saved one, every shape a `kernels` case;
+  train_e2e  one train step in fp32 (TF32 off) on the card and on the CPU
+             from the same weights at dropout 0, B=4, 480x640: losses
+             within 1e-4 relative, the assignment equal, the clipped
+             gradients within 1e-3 x max(1, max|g|) per leaf.
 Then one `kernels` line (each kernel of the paths: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
-predict_beam, embed_vocab, the whole serve run and the whole eval phase
-under `paths`), and
+predict_beam, embed_vocab, the whole serve run, the whole eval phase, one
+train step and the in-train eval under `paths`), and
 last `{"ok": true,
 "device": {...}}`. Any failed phase exits non-zero before that line;
 without a CUDA device, or without the package beside this file, it exits
@@ -63,6 +81,7 @@ JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -99,6 +118,23 @@ EVAL_CHECK, EVAL_CHECK_TASKS = 8, ("CocoVqa", "CocoDetection")  # card vs CPU
 EVAL_CLASSES = ("dog", "cat", "horse", "person")
 COCO_SIZES = ((480, 640), (427, 640), (640, 480))  # (H, W)
 NOVELTIES = ("everything", "seen_concepts", "held_out_concepts")
+# training: learning_datasets all, the released global batch
+TRAIN_TASKS = ("CocoCaptioning", "CocoDetection", "CocoClassification",
+               "CocoVqa")
+TRAIN_B, TRAIN_ACCUM = 120, (1, 2, 4, 8)  # batch, grad_accum_steps tried
+TRAIN_SAMPLES, TRAIN_VAL = 240, 40  # a task: 8 batches of 120; val
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_RESIDENT = 2, 5, 3
+TRAIN_DEDUP_ROWS = 16   # U: 7 distinct queries padded to one bucket
+E2E_TRAIN_B = 4
+TRAIN_LOSS_KEYS = {"loss_caption", "loss_vqa", "loss_cls", "loss_ce",
+                   "loss_bbox", "loss_giou", "cardinality_error",
+                   "total_loss"}  # gpv_tpu's gpv_criterion keys
+TRAIN_EVAL_KEYS = {"vqa_acc", "cider", "bleu4", "cls_acc", "det_map",
+                   "model_selection_metric"}  # gpv_tpu's Trainer.evaluate
+# frozen in every phase: BERT, the stem, the dead tokens, the vocab embed
+FROZEN_PREFIXES = ("bert.", "detr.backbone.0.body.conv1.",
+                   "detr.backbone.0.body.layer1.", "vision_token",
+                   "lang_token", "answer_head.vocab_embed")
 EVAL_METRIC_KEYS = {   # the keys of gpv_tpu's evaluators' metric dicts
     "CocoVqa": {"correct", "total", "absent", "accuracy"},
     "CocoClassification": {"correct", "overall_correct", "total",
@@ -313,8 +349,21 @@ def path_cases() -> list:
     for b in SERVE_BUCKETS:
         calls += [path_launches("predict", 0, b),
                   path_launches("predict_beam", 0, b, SERVE_BEAM)]
+    calls += [train_step_launches(TRAIN_DEDUP_ROWS, True),
+              train_step_launches(TRAIN_B, False),
+              train_step_launches(E2E_TRAIN_B, False)]
     return list(dict.fromkeys(c for counts in calls for c in counts)) + [
         Case("teacher_forced_causal", B, 20, 20, 8, 96, None, True)]
+
+
+def train_step_launches(rows: int, dedup: bool) -> Counter:
+    """{Case: launches} of one train step: frozen BERT on K1 alone (12
+    layers) at `rows` query rows (the dedup's U unique rows, or the whole
+    batch); DETR, co-attention and the text decoder take the training
+    attention and launch nothing."""
+    name = (f"bert_self_train_u{rows}" if dedup
+            else "bert_self_train" + ("" if rows == TRAIN_B else f"_b{rows}"))
+    return Counter({Case(name, rows, 20, 20, 12, 64, "query"): 12})
 
 
 def k1_cases() -> list:
@@ -759,6 +808,9 @@ class _Recorder:
     def __init__(self, eng):
         self.eng, self.vocab, self.calls = eng, eng.vocab, []
         self._lock = threading.Lock()
+
+    def load_weights(self, model):
+        self.eng.load_weights(model)
 
     def _log(self, path, rows, beam):
         with self._lock:
@@ -1209,6 +1261,343 @@ def phase_eval(eng, vocab_path: Path, tmp: Path, checked: set):
     return rec, phase_run
 
 
+@contextlib.contextmanager
+def seeded_pixel_datasets():
+    """Within the block every dataset class the trainer builds supplies
+    seeded pixels (`_SeededPixels`): the card machine has no JPEGs."""
+    from gpv_tpu_torch.datasets import coco
+    saved = dict(coco.DATASET_CLASSES)
+    coco.DATASET_CLASSES.update(
+        {k: type(c.__name__, (_SeededPixels, c), {}) for k, c in
+         saved.items()})
+    try:
+        yield
+    finally:
+        coco.DATASET_CLASSES.update(saved)
+
+
+def train_config(data_dir: Path, vocab_path: Path, *extra):
+    """`configs/exp/gpv.yaml` for the train phases, and the seeded train
+    and val samples of each task written where it reads them."""
+    from gpv_tpu_torch.utils.config import load_config
+    cfg = load_config(ROOT / "configs", "exp/gpv", [
+        f"data_dir={data_dir}", f"output_dir={data_dir / 'exp'}",
+        "exp_name=train", "learning_datasets=all",
+        "task_configs.host_resize=exact", f"model.vocab={vocab_path}",
+        f"training.batch_size={TRAIN_B}", "training.query_dedup=true",
+        "training.run_vis_at_launch=false", "tb_dir=null",
+        "training.num_val_samples={coco_vqa: %d, coco_cap: %d, "
+        "coco_det: %d, coco_cls: %d}" % ((TRAIN_VAL,) * 4),
+        "device=cuda"] + list(extra))
+    for task in TRAIN_TASKS:
+        samples = cfg.task_configs[EVAL_TASKS[task]].samples
+        for subset, n in (("train", TRAIN_SAMPLES), ("val", TRAIN_VAL)):
+            path = Path(samples[subset])
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(eval_samples(task, n)))
+    return cfg
+
+
+def _finite_losses(phase: str, losses: dict) -> dict:
+    out = {k: float(v) for k, v in losses.items()}
+    if set(out) != TRAIN_LOSS_KEYS or not all(map(np.isfinite,
+                                                  out.values())):
+        fail(f"{phase}: loss keys {sorted(out)} or a value not finite: "
+             f"{out}")
+    return out
+
+
+def _first_step(trainer, batch, cfg) -> int:
+    """Run the first step at the smallest grad_accum_steps that fits: the
+    trainer's own step (the config's 1), else a step rebuilt at 2, 4, 8."""
+    import torch
+    from gpv_tpu_torch.losses.criterion import LossConfig
+    from gpv_tpu_torch.parallel.train_step import make_train_step
+    for accum in TRAIN_ACCUM:
+        if accum > int(cfg.training.grad_accum_steps):
+            trainer.train_step = make_train_step(
+                trainer.model, LossConfig.from_config(cfg.losses),
+                float(cfg.training.clip_max_norm), grad_accum=accum,
+                dtype=trainer.dtype)
+        try:
+            _finite_losses("train", trainer.train_step(trainer.state, batch))
+            return accum
+        except torch.cuda.OutOfMemoryError:
+            trainer.state.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+    fail(f"train: batch {TRAIN_B} does not fit at grad_accum "
+         f"{TRAIN_ACCUM[-1]}")
+
+
+def _state_copy(state) -> tuple:
+    """Copies of the model's and the optimizer's tensors, on the card."""
+    opt = state.optimizer.state_dict()
+    return ({k: v.detach().clone() for k, v in
+             state.model.state_dict().items()},
+            {i: {k: v.clone() if hasattr(v, "clone") else v
+                 for k, v in s.items()} for i, s in opt["state"].items()},
+            state.step)
+
+
+def _matcher_ms(model, batch, dtype) -> dict:
+    """The matcher's parts on one forward's predictions: cost matrices on
+    the card, their copy to the host, scipy's solve."""
+    import torch
+    from gpv_tpu_torch.ops.image import normalize_image
+    from gpv_tpu_torch.ops.matcher import match_costs, solve_costs
+    with torch.no_grad(), torch.autocast("cuda", dtype=dtype):
+        out = model(normalize_image(batch["image"].float() / 255.0),
+                    batch["query_ids"], batch["answer_ids"],
+                    query_valid=batch["query_valid"], train=True)
+    valid = batch["box_valid"] & batch["has_boxes"][:, None]
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    costs = match_costs(out["pred_relevance_logits"], out["pred_boxes"],
+                        batch["box_labels"], batch["boxes"], valid)
+    torch.cuda.synchronize()
+    times["cost_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    host = costs.cpu().numpy()
+    times["copy_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    solve_costs(host)
+    times["solve_ms"] = 1e3 * (time.perf_counter() - t0)
+    times["shape"] = list(host.shape)
+    return times
+
+
+def phase_train(vocab_path: Path, tmp: Path, checked: set):
+    """The training path at released width through `Trainer` (module
+    docstring). Returns the record, the {Case: launches} of one step, the
+    in-train eval's record and launches, and one loaded batch (numpy)."""
+    import torch
+    from gpv_tpu_torch.parallel.train_step import batch_to_device
+    from gpv_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = train_config(tmp / "train_data", vocab_path)
+    rec = {"phase": "train", "batch": TRAIN_B, "dtype": "bfloat16",
+           "image_hw": [IMG_H, IMG_W], "workers": int(
+               cfg.training.num_workers), "host_resize": "exact"}
+    with seeded_pixel_datasets():
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)
+        rec["setup_s"] = time.perf_counter() - t0
+        model = trainer.model
+        frozen = {n for n, p in model.named_parameters()
+                  if not p.requires_grad}
+        want = {n for n, _ in model.named_parameters()
+                if n.startswith(FROZEN_PREFIXES)}
+        if frozen != want:
+            fail(f"train: frozen {sorted(frozen ^ want)[:6]} differ from "
+                 "BERT, the stem, the tokens and the vocab embedding")
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batches = iter(trainer.loaders["train"])
+        waits, rows, steps_s = [], [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch = next(batches)
+            waits.append(1e3 * (time.perf_counter() - t0))
+            rows.append(len(batch["query_uniq_ids"]))
+            if i == 0:
+                rec["grad_accum_steps"] = _first_step(trainer, batch, cfg)
+            else:
+                if i == TRAIN_WARMUP:
+                    torch.cuda.synchronize()
+                    _reset_counts()
+                    torch.cuda.reset_peak_memory_stats()
+                    t_timed = time.perf_counter()
+                t0 = time.perf_counter()
+                losses = trainer.train_step(trainer.state, batch)
+                steps_s.append(time.perf_counter() - t0)
+            trainer.step += 1
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - t_timed
+        batches.close()  # stops the loader's workers
+        rec["losses"] = _finite_losses("train", losses)
+        _, by_var = _read_counts()
+        counts = Counter()
+        for u in rows[TRAIN_WARMUP:]:
+            counts.update(train_step_launches(u, True))
+        _check_counts("train", by_var, counts)
+        unchecked = {c.name for c in counts} - checked
+        if unchecked:
+            fail(f"train: shapes not held against their plain version in "
+                 f"the kernels phase: {sorted(unchecked)}")
+        rec.update({"dedup_rows": rows, "launches_by_variant": by_var,
+                    "loader_wait_ms": waits,
+                    "images_per_s_with_loader":
+                        TRAIN_STEPS * TRAIN_B / timed_s,
+                    "timed_step_s": steps_s})
+        for name, p in model.named_parameters():
+            same = torch.equal(p.detach(), start[name])
+            if same != (name in frozen):
+                fail(f"train: {name} {'did not change' if same else 'changed'}"
+                     " over the steps")
+        del start
+
+        # one resident batch: the card alone, then split and profiled
+        resident = batch_to_device(batch, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_RESIDENT):
+            trainer.train_step(trainer.state, resident)
+        torch.cuda.synchronize()
+        rec["images_per_s_resident"] = TRAIN_RESIDENT * TRAIN_B / (
+            time.perf_counter() - t0)
+        split = {}  # from the host batch: the upload is part of it
+        trainer.train_step(trainer.state, batch, timings=split)
+        rec["step_ms_by_stage"] = split
+        rec["step_ms"] = sum(split.values())
+        rec["matcher"] = _matcher_ms(model, resident, trainer.dtype)
+        one_step = train_step_launches(rows[-1], True)
+        prof = phase_profile(
+            "train_profile",
+            lambda: trainer.train_step(trainer.state, resident), one_step)
+        rec["profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "ms_by_group", "port_kernels", "top_kernels")}
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del resident
+
+        # in-train eval through a recording engine
+        recorder = _Recorder(trainer.engine)
+        trainer.engine = recorder
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = trainer.evaluate("val")
+        torch.cuda.synchronize()
+        ev = {"eval_s": time.perf_counter() - t0, "results": results}
+        trainer.engine = recorder.eng
+        _, ev_var = _read_counts()
+        ev_counts = recorder.launches()
+        _check_counts("train eval", ev_var, ev_counts)
+        if {c.name for c in ev_counts} - checked:
+            fail("train eval: a shape is not a kernels case")
+        if set(results) != TRAIN_EVAL_KEYS or not all(
+                map(np.isfinite, results.values())):
+            fail(f"train eval: keys {sorted(results)} or a value not "
+                 f"finite: {results}")
+        ev.update(launches_by_variant=ev_var,
+                  batches=len(recorder.calls))
+
+        # save, move on one step, resume: the saved state comes back
+        saved = _state_copy(trainer.state)
+        t0 = time.perf_counter()
+        trainer.save(0, results)
+        rec["save_s"] = time.perf_counter() - t0
+        trainer.train_step(trainer.state, batch)
+        t0 = time.perf_counter()
+        trainer._resume(Path(cfg.ckpt_dir) / "model")
+        rec["resume_s"] = time.perf_counter() - t0
+        back = _state_copy(trainer.state)
+        if back[2] != saved[2] or any(
+                not torch.equal(back[0][k], v) for k, v in saved[0].items()):
+            fail("train: the resumed model differs from the saved one")
+        for i, s in saved[1].items():
+            for k, v in s.items():
+                if not torch.equal(torch.as_tensor(back[1][i][k]),
+                                   torch.as_tensor(v)):
+                    fail(f"train: resumed optimizer state {i}.{k} differs")
+        rec["resume_equal"] = True
+        del trainer, model, saved, back
+    torch.cuda.empty_cache()
+    rec["eval"] = ev
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, one_step, ev, ev_counts, batch
+
+
+def phase_train_e2e(vocab_path: Path, tmp: Path, batch: dict) -> dict:
+    """One fp32 train step (TF32 off) on the card and on the CPU from the
+    same seeded weights at dropout 0, on the first E2E_TRAIN_B rows of a
+    loaded batch without the dedup fields (so BERT runs in the forward):
+    the losses, the assignment and the clipped gradients."""
+    import copy
+
+    import torch
+    from gpv_tpu_torch.losses.criterion import LossConfig
+    from gpv_tpu_torch.models.gpv import build_gpv
+    from gpv_tpu_torch.ops.image import normalize_image
+    from gpv_tpu_torch.ops.matcher import hungarian_match
+    from gpv_tpu_torch.parallel.train_step import (TrainState,
+                                                   batch_to_device,
+                                                   make_train_step)
+    from gpv_tpu_torch.text.vocab import AnswerVocab
+    from gpv_tpu_torch.train.optimizer import build_optimizer
+    from gpv_tpu_torch.weights import init_random
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config(tmp / "train_data", vocab_path, "tpu.dtype=float32",
+                       "model.detr.dropout=0.0")
+    base = init_random(build_gpv(cfg.model, len(AnswerVocab.load(
+        vocab_path))), seed=1)
+    rows = {k: v[:E2E_TRAIN_B] for k, v in batch.items()
+            if not k.startswith("query_uniq") and k != "query_gather"}
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(device)
+        b = batch_to_device(rows, device)
+        with torch.no_grad():
+            pred = model(normalize_image(b["image"].float() / 255.0),
+                         b["query_ids"], b["answer_ids"],
+                         query_valid=b["query_valid"], train=True)
+        q4t = hungarian_match(pred["pred_relevance_logits"],
+                              pred["pred_boxes"], b["box_labels"],
+                              b["boxes"], b["box_valid"]
+                              & b["has_boxes"][:, None]).cpu()
+        opt, sched = build_optimizer(cfg.training, 10, model)
+        step = make_train_step(model, LossConfig.from_config(cfg.losses),
+                               float(cfg.training.clip_max_norm))
+        _reset_counts()
+        losses = step(TrainState(model, opt, sched), rows)
+        out[device] = {
+            "losses": {k: float(v) for k, v in losses.items()},
+            "q4t": q4t, "valid": (b["box_valid"]
+                                  & b["has_boxes"][:, None]).cpu(),
+            "launches": _read_counts()[1],
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None}}
+        del model, opt, b
+    torch.cuda.empty_cache()
+    c, p = out["cuda"], out["cpu"]
+    rec = {"phase": "train_e2e", "batch": E2E_TRAIN_B, "dtype": "float32",
+           "losses_cuda": c["losses"], "launches_cuda": c["launches"]}
+    want = by_variant(train_step_launches(E2E_TRAIN_B, False))
+    want["fused_attention"]["fp32"] = want["fused_attention"].pop("tile")
+    want["fused_attention"]["tile"] = 0
+    if c["launches"] != want:
+        fail(f"train_e2e: launches {c['launches']} != {want}")
+    _finite_losses("train_e2e", c["losses"])
+    rel = max(abs(c["losses"][k] - v) / max(abs(v), 1e-6)
+              for k, v in p["losses"].items())
+    rec["loss_max_rel_err"], rec["loss_tol"] = rel, 1e-4
+    if not rel <= 1e-4:
+        fail(f"train_e2e: losses card {c['losses']} cpu {p['losses']}")
+    if not torch.equal(torch.where(c["valid"], c["q4t"], -1),
+                       torch.where(p["valid"], p["q4t"], -1)):
+        fail("train_e2e: the assignments differ")
+    rec["assignment_equal"] = True
+    if set(c["grads"]) != set(p["grads"]):
+        fail("train_e2e: the card and the CPU have other gradient leaves")
+    worst, name = 0.0, None
+    for n, g in p["grads"].items():
+        err = (c["grads"][n] - g).abs().max().item() / max(
+            1.0, g.abs().max().item())
+        if err > worst:
+            worst, name = err, n
+    rec["grad_max_err"], rec["grad_worst_leaf"] = worst, name
+    rec["grad_tol"] = 1e-3
+    if not worst <= 1e-3:
+        fail(f"train_e2e: gradient of {name} differs by {worst} x "
+             "max(1, max|g|)")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def kernels_line(kern: dict, runs: dict) -> dict:
     """One entry per kernel of the paths. Its top-level numbers are one
     predict's (the slice run): each bf16 shape's number times its
@@ -1303,11 +1692,20 @@ def main() -> None:
         ev, ev_counts = phase_eval(eng, vocab_path, Path(tmp), checked)
         records.append(ev)
         emit(ev)
-    line = kernels_line(kern, {"predict": (sl, sl_counts),
-                               "predict_beam": (beam, beam_counts),
-                               "embed_vocab": (ve, ve_counts),
-                               "serve": (serve, serve_counts),
-                               "eval": (ev, ev_counts)})
+        del eng
+        tr, tr_counts, tr_eval, tr_eval_counts, batch = phase_train(
+            vocab_path, Path(tmp), checked)
+        records.append(tr)
+        emit(tr)
+        records.append(phase_train_e2e(vocab_path, Path(tmp), batch))
+        emit(records[-1])
+    line = kernels_line(kern, {
+        "predict": (sl, sl_counts), "predict_beam": (beam, beam_counts),
+        "embed_vocab": (ve, ve_counts), "serve": (serve, serve_counts),
+        "eval": (ev, ev_counts),
+        "train_step": ({"launches_by_variant": by_variant(tr_counts)},
+                       tr_counts),
+        "train_eval": (tr_eval, tr_eval_counts)})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

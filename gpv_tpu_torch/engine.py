@@ -46,17 +46,27 @@ class GPVEngine:
         """Takes a copy of `model` with its weights: BN folded into the
         backbone convs (serving fold, on by default as in the JAX engine),
         cast to `dtype` and moved to `device`. The caller's model is left
-        as it is."""
+        as it is; `load_weights` takes its weights again later."""
         self.device = resolve_device(device)
-        model = copy.deepcopy(model).eval().requires_grad_(False)
-        if fold_bn:
-            fold_frozen_bn(model.detr.trunk)
-        self.model = model.to(device=self.device, dtype=dtype)
+        self.fold_bn, self.dtype = fold_bn, dtype
+        self.load_weights(model)
         self.vocab = vocab
         self.tokenizer = tokenizer
         # queries can never exceed the BERT position table
         self.max_query_len = min(max_query_len, model.bert_max_len)
         self._local = threading.local()
+
+    def load_weights(self, model: GPV) -> None:
+        """Serve `model`'s current weights: a fresh copy, BN folded, cast
+        and moved as at construction. The trainer calls it before every
+        in-train eval and visualisation; `model` itself is not touched
+        (its BN stays unfolded)."""
+        model = copy.deepcopy(model).eval().requires_grad_(False)
+        for p in model.parameters():
+            p.grad = None
+        if self.fold_bn:
+            fold_frozen_bn(model.detr.trunk)
+        self.model = model.to(device=self.device, dtype=self.dtype)
 
     @property
     def last_decode_steps(self) -> int:

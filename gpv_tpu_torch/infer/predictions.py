@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..datasets.loader import take_shared_block, to_shared_block
 from ..evaluation.evaluators import EVALUATOR_CLASSES, TASK_TO_ID_FIELD
 from ..evaluation.vocab_mask import coco_vocab_mask
 
@@ -48,9 +49,9 @@ def iter_padded_batches(dataset, batch_size: int, max_samples=None,
     - "processes": fork-based ProcessPoolExecutor, one BATCH per task;
       workers stack the batch's images into a SharedMemory block and send
       only its name + the light fields over the pipe, so the uint8 pixels
-      are never pickled. The parent copies each image out of the block
-      and frees the block at once, so yielded items are ordinary owning
-      arrays. Workers run `dataset.get` only (numpy), never torch or CUDA,
+      are never pickled. The parent copies the images out of the block
+      and frees the block at once, so no yielded item views shared
+      memory. Workers run `dataset.get` only (numpy), never torch or CUDA,
       so forking a parent that has launched kernels is safe; fork start
       means the dataset need not be picklable.
 
@@ -112,35 +113,22 @@ def _proc_init(dataset):
 def _proc_load_range(s, e):
     """Load items [s, e) in a worker; return (shm meta, light items).
 
-    The batch's images are stacked into ONE SharedMemory block and stripped
-    from the item dicts, so only the block NAME plus the light fields cross
-    the pipe. Ownership transfers to the parent: the worker unregisters the
-    block from its own resource tracker (else the tracker double-unlinks
-    at worker exit) and the parent unlinks after consumption."""
-    from multiprocessing import shared_memory
-
+    The batch's images are stacked into ONE shared-memory block
+    (`datasets.loader.to_shared_block`) and stripped from the item dicts,
+    so only the block's name plus the light fields cross the pipe; the
+    parent takes the block over and unlinks it."""
     items = [_PROC_DATASET.get(i, np.random.RandomState(i))
              for i in range(s, e)]
     if not items or "image" not in items[0]:
         return None, items
-    stack = np.stack([it.pop("image") for it in items])
-    shm = shared_memory.SharedMemory(create=True, size=stack.nbytes)
-    np.ndarray(stack.shape, stack.dtype, buffer=shm.buf)[:] = stack
-    meta = (shm.name, stack.shape, str(stack.dtype))
-    try:  # transfer ownership to the parent (CPython tracker wart)
-        from multiprocessing import resource_tracker
-        resource_tracker.unregister(shm._name, "shared_memory")
-    except Exception:
-        pass
-    shm.close()
-    return meta, items
+    return to_shared_block(np.stack([it.pop("image") for it in items])), \
+        items
 
 
 def _iter_batches_procs(dataset, starts, n, batch_size, num_workers,
                         prefetch, pad):
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
-    from multiprocessing import shared_memory
 
     if "fork" not in mp.get_all_start_methods():
         raise RuntimeError(
@@ -149,23 +137,12 @@ def _iter_batches_procs(dataset, starts, n, batch_size, num_workers,
             "on this platform")
     ctx = mp.get_context("fork")
 
-    def attach_copy_release(meta, items):
-        """Copy images out of the worker's shm block, then unlink it.
-
-        The copy keeps yielded items ordinary owning arrays: unlinking shm
-        under a live numpy VIEW would succeed silently and turn any later
-        read into a SIGSEGV, so views never escape this function."""
-        if meta is None:
-            return items
-        name, shape, dtype = meta
-        shm = shared_memory.SharedMemory(name=name)
-        try:
-            arr = np.ndarray(shape, np.dtype(dtype), buffer=shm.buf)
+    def attach(meta, items):
+        """The images, copied out of the worker's block (then unlinked)."""
+        if meta is not None:
+            images = take_shared_block(meta)
             for j, it in enumerate(items):
-                it["image"] = np.array(arr[j])
-        finally:
-            shm.close()
-            shm.unlink()
+                it["image"] = images[j]
         return items
 
     pending = []
@@ -183,7 +160,7 @@ def _iter_batches_procs(dataset, starts, n, batch_size, num_workers,
                     s = starts[bi + depth]
                     pending.append(pool.submit(_proc_load_range, s,
                                                min(s + batch_size, n)))
-                yield pad(attach_copy_release(meta, items))
+                yield pad(attach(meta, items))
         finally:
             # a consumer abandoning the generator mid-epoch leaves
             # worker-created blocks (ownership already transferred to
@@ -192,9 +169,7 @@ def _iter_batches_procs(dataset, starts, n, batch_size, num_workers,
                 try:
                     meta, _ = f.result()
                     if meta is not None:
-                        shm = shared_memory.SharedMemory(name=meta[0])
-                        shm.close()
-                        shm.unlink()
+                        take_shared_block(meta)
                 except Exception:
                     pass
 

@@ -12,7 +12,10 @@ the 2304-d `detr_hs`. Parameter names follow the reference
 learned one (`backbone.1.row_embed` / `col_embed`, the reference Joiner's
 slot); `roi_head=False` drops the RoI features (`detr_hs` is then the
 query states alone). The RoI head runs at its released setting (7x7,
-sampling grid capped at 8).
+sampling grid capped at 8). In training (`train=True`) the transformer
+applies its dropout and the training attention route; with `aux_loss` and
+not `last_layer_only` it also returns every earlier decoder layer's
+predictions for the aux losses.
 """
 from __future__ import annotations
 
@@ -46,8 +49,11 @@ class DETR(nn.Module):
                  dim_feedforward: int = 2048,
                  backbone_layers: tuple = (3, 4, 6, 3),
                  dilation: bool = False, pre_norm: bool = False,
-                 roi_head: bool = True, position_embedding: str = "sine"):
+                 roi_head: bool = True, position_embedding: str = "sine",
+                 dropout: float = 0.1, aux_loss: bool = False,
+                 last_layer_only: bool = True):
         super().__init__()
+        self.aux_loss, self.last_layer_only = aux_loss, last_layer_only
         if position_embedding not in POSITION_EMBEDDINGS:
             raise ValueError(f"not supported {position_embedding!r} "
                              "(expected sine/v2 or learned/v3)")
@@ -61,7 +67,7 @@ class DETR(nn.Module):
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.transformer = DetrTransformer(
             hidden_dim, nheads, num_encoder_layers, num_decoder_layers,
-            dim_feedforward, pre_norm)
+            dim_feedforward, pre_norm, dropout)
         self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
 
@@ -70,11 +76,14 @@ class DETR(nn.Module):
         return self.backbone[0].body
 
     def forward(self, images: torch.Tensor,
-                image_valid: Optional[torch.Tensor] = None) -> dict:
+                image_valid: Optional[torch.Tensor] = None,
+                train: bool = False) -> dict:
         """images: (B, H, W, 3) normalised; image_valid: (B, H, W) bool.
 
         Returns {pred_relevance_logits (B,Q,K+1), pred_boxes (B,Q,4),
-        detr_hs (B,Q,2048+D), or (B,Q,D) without the RoI head}.
+        detr_hs (B,Q,2048+D), or (B,Q,D) without the RoI head}, plus
+        aux_pred_relevance_logits (L-1,B,Q,K+1) and aux_pred_boxes
+        (L-1,B,Q,4) when the aux losses are on in training.
         """
         B, H, W, _ = images.shape
         dtype = self.input_proj.weight.dtype
@@ -101,10 +110,18 @@ class DETR(nn.Module):
         pos = pos.reshape(B, h * w, self.hidden_dim).to(dtype)
         key_valid = (None if image_valid is None
                      else feat_valid.reshape(B, h * w).contiguous())
+        aux = self.aux_loss and train and not self.last_layer_only
         hs, _ = self.transformer(src, pos, self.query_embed.weight,
-                                 key_valid)
-        out = {"pred_relevance_logits": self.class_embed(hs),
-               "pred_boxes": self.bbox_embed(hs).sigmoid()}
+                                 key_valid, not train, aux)
+        logits, boxes = self.class_embed(hs), self.bbox_embed(hs).sigmoid()
+        if aux:
+            hs = hs[-1]
+            out = {"pred_relevance_logits": logits[-1],
+                   "pred_boxes": boxes[-1],
+                   "aux_pred_relevance_logits": logits[:-1],
+                   "aux_pred_boxes": boxes[:-1]}
+        else:
+            out = {"pred_relevance_logits": logits, "pred_boxes": boxes}
         if not self.roi_head:
             out["detr_hs"] = hs
             return out

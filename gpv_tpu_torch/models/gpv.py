@@ -14,8 +14,12 @@ dict (`detr.*`, `bert.model.*`, `co_att_transformer.{i}.*`,
 
 Defaults are the released widths of the `model` node of
 `configs/exp/gpv.yaml`; `build_gpv(cfg, vocab_size)` builds from that node
-with the JAX package's config checks. This module is inference-only (no
-dropout, no aux losses). Variants the node can select: `answer_head:
+with the JAX package's config checks. `forward(..., train=True)` is the
+teacher-forced training forward: dropout where the JAX modules have it,
+the training attention route in DETR, co-attention and the text decoder,
+and DETR's aux outputs when configured; BERT stays frozen and
+deterministic in every mode (it always takes K1). Variants the node can
+select: `answer_head:
 linear` (a Linear classifier in place of the vocab-embedding one),
 `roi_head: False`, `relevance_conditioning: False`, the learned DETR
 position embedding and any `backbone_layers`.
@@ -69,7 +73,9 @@ class GPV(nn.Module):
                  co_att_num_layers: int = 3, co_att_heads: int = 16,
                  co_att_intermediate: int = 3072,
                  co_att_extra: Optional[Dict[str, Any]] = None,
+                 dropout: float = 0.1,
                  text_decoder_layers: int = 3, text_decoder_heads: int = 8,
+                 text_decoder_dropout: Optional[float] = None,
                  detr_cfg: Optional[Dict[str, Any]] = None,
                  roi_head: bool = True, bert_layers: int = 12,
                  bert_hidden: int = 768, bert_heads: int = 12,
@@ -92,14 +98,17 @@ class GPV(nn.Module):
                                 4 * bert_hidden, bert_vocab_size,
                                 bert_max_len)
         self.bert_joiner = nn.Linear(bert_hidden, hidden_dim)
+        co_att_kwargs = {"dropout": dropout, **(co_att_extra or {})}
         self.co_att_transformer = nn.ModuleList(
             CoAttentionLayer(hidden_dim, co_att_heads, co_att_intermediate,
-                             **(co_att_extra or {}))
+                             **co_att_kwargs)
             for _ in range(co_att_num_layers))
         self.relevance_predictor = nn.Linear(
             hidden_dim, detr_cfg.get("num_classes", 1) + 1)
-        self.text_decoder = TextDecoder(hidden_dim, text_decoder_heads,
-                                        text_decoder_layers)
+        self.text_decoder = TextDecoder(
+            hidden_dim, text_decoder_heads, text_decoder_layers,
+            dropout=(dropout if text_decoder_dropout is None
+                     else text_decoder_dropout))
         self.answer_head = _AnswerHead(vocab_size, hidden_dim,
                                        self.linear_answer_head)
         self.answer_input_embedings = _AnswerInput(hidden_dim)
@@ -117,23 +126,35 @@ class GPV(nn.Module):
     # ---------------- encoding ----------------
 
     def encode_queries(self, query_ids, query_valid=None):
-        """Frozen BERT: (N, Tl) ids -> (N, Tl, 768), detached."""
-        return self.bert(query_ids, query_valid).detach()
+        """Frozen BERT: (N, Tl) ids -> (N, Tl, 768), without a gradient.
+        BERT runs deterministic in every mode (so through K1), and the
+        train step calls this on the batch's unique query rows alone."""
+        with torch.no_grad():
+            return self.bert(query_ids, query_valid)
 
-    def encode(self, images, query_ids, image_valid=None, query_valid=None):
-        """images (B,H,W,3) normalised, query_ids (B,Tl).
-        Returns (memory (B,Q+Tl,D), mem_valid (B,Q+Tl) or None, outputs)."""
-        outputs = self.detr(images, image_valid)
+    def encode(self, images, query_ids, image_valid=None, query_valid=None,
+               train: bool = False, query_enc=None):
+        """images (B,H,W,3) normalised, query_ids (B,Tl). `query_enc`
+        (B,Tl,768), when given, is an `encode_queries` output and BERT is
+        skipped. Returns (memory (B,Q+Tl,D), mem_valid (B,Q+Tl) or None,
+        outputs)."""
+        outputs = self.detr(images, image_valid, train)
         vl_hs = self.detr_joiner(outputs.pop("detr_hs"))     # (B,Q,D)
-        lv_hs = self.bert_joiner(self.encode_queries(query_ids, query_valid))
+        if query_enc is None:
+            query_enc = self.encode_queries(query_ids, query_valid)
+        lv_hs = self.bert_joiner(query_enc)
         # mask_query_pads=True: padded query positions are invisible to
         # fusion and decode; False: the reference's batched no-mask
         # semantics (PARITY.md #12)
         fusion_valid = query_valid if self.mask_query_pads else None
         for layer in self.co_att_transformer:
-            lv_hs, vl_hs = layer(lv_hs, vl_hs, fusion_valid, None)
+            lv_hs, vl_hs = layer(lv_hs, vl_hs, fusion_valid, None, not train)
+        relevance = self.relevance_predictor(vl_hs)
         outputs["pred_relevance_logits"] = (
-            outputs["pred_relevance_logits"] + self.relevance_predictor(vl_hs))
+            outputs["pred_relevance_logits"] + relevance)
+        if "aux_pred_relevance_logits" in outputs:
+            outputs["aux_pred_relevance_logits"] = (
+                outputs["aux_pred_relevance_logits"] + relevance[None])
         vl_hs = self.condition_on_relevance(outputs["pred_relevance_logits"],
                                             vl_hs)
         memory = torch.cat([vl_hs, lv_hs], dim=1)
@@ -167,30 +188,34 @@ class GPV(nn.Module):
         return head.classifier_transform(head.vocab_embed.detach()).float()
 
     def answer_logits_head(self, h, classifier=None):
-        """(..., D) decoder states -> (..., V) fp32 vocab logits."""
+        """(..., D) decoder states -> (..., V) fp32 vocab logits (an fp32
+        product, also under autocast)."""
         if self.linear_answer_head:
             return self.answer_head.classifier(h).float()
         w = classifier if classifier is not None else self.answer_classifier()
-        return h.float() @ w.t()
+        with torch.autocast(h.device.type, enabled=False):
+            return h.float() @ w.float().t()
 
-    def decode_text(self, target_embed, memory, mem_valid=None):
+    def decode_text(self, target_embed, memory, mem_valid=None,
+                    train: bool = False):
         """Teacher-forced causal decode: (B,S,D) -> (B,S,V)."""
         if self.text_pos_enc:
             S = target_embed.shape[1]
             target_embed = target_embed + self.pos_enc_table[:S].to(
                 target_embed.dtype)
         return self.answer_logits_head(
-            self.text_decoder(target_embed, memory, mem_valid))
+            self.text_decoder(target_embed, memory, mem_valid, not train))
 
     def forward(self, images, query_ids, answer_ids=None, image_valid=None,
-                query_valid=None):
+                query_valid=None, train: bool = False, query_enc=None):
         """The reference `outputs` dict; with `answer_ids` (B,S),
-        `answer_logits` (B,S-1,V) are the teacher-forced logits."""
-        memory, mem_valid, outputs = self.encode(images, query_ids,
-                                                 image_valid, query_valid)
+        `answer_logits` (B,S-1,V) are the teacher-forced logits. `train`
+        and `query_enc` as in `encode`."""
+        memory, mem_valid, outputs = self.encode(
+            images, query_ids, image_valid, query_valid, train, query_enc)
         if answer_ids is not None:
             logits = self.decode_text(self.embed_answer_tokens(answer_ids),
-                                      memory, mem_valid)
+                                      memory, mem_valid, train)
             outputs["answer_logits"] = logits[:, :-1]
         outputs["memory"] = memory
         if mem_valid is not None:
@@ -253,9 +278,15 @@ def _check_co_att(cfg):
         if act not in ("gelu", "relu", "swish"):
             raise ValueError(f"model.co_att.{key}={act!r}: unsupported "
                              "co-attention activation (gelu/relu/swish)")
-    extra = dict(intermediate2=int(co.get("intermediate_size", 3072)),
-                 act=str(co.get("v_hidden_act", "gelu")),
-                 act2=str(co.get("hidden_act", "gelu")))
+    dflt = float(cfg.detr.dropout)
+    extra = dict(
+        intermediate2=int(co.get("intermediate_size", 3072)),
+        dropout2=float(co.get("hidden_dropout_prob", dflt)),
+        attn_dropout=float(co.get("v_attention_probs_dropout_prob", dflt)),
+        attn_dropout2=float(co.get("attention_probs_dropout_prob", dflt)),
+        act=str(co.get("v_hidden_act", "gelu")),
+        act2=str(co.get("hidden_act", "gelu")),
+        dropout=float(co.get("v_hidden_dropout_prob", dflt)))
     intermediate = int(co.get("v_intermediate_size",
                               co.get("intermediate_size", 3072)))
     return intermediate, extra
@@ -304,7 +335,10 @@ def build_gpv(cfg, vocab_size: int) -> GPV:
         dim_feedforward=int(cfg.detr.dim_feedforward),
         dilation=bool(cfg.detr.dilation),
         pre_norm=bool(cfg.detr.get("pre_norm", False)),
-        position_embedding=pe)
+        position_embedding=pe,
+        dropout=float(cfg.detr.dropout),
+        aux_loss=bool(cfg.detr.aux_loss),
+        last_layer_only=bool(cfg.detr.last_layer_only))
     if cfg.detr.get("backbone_layers"):
         # an explicit block spec wins over the backbone's name
         detr_cfg["backbone_layers"] = tuple(
@@ -355,8 +389,11 @@ def build_gpv(cfg, vocab_size: int) -> GPV:
         co_att_heads=int(cfg.co_att.bi_num_attention_heads),
         co_att_intermediate=co_att_intermediate,
         co_att_extra=co_att_extra,
+        dropout=float(cfg.detr.dropout),
         text_decoder_layers=int(cfg.text_decoder.num_layers),
         text_decoder_heads=int(cfg.text_decoder.nheads),
+        text_decoder_dropout=float(
+            cfg.text_decoder.get("dropout", cfg.detr.dropout)),
         detr_cfg=detr_cfg,
         roi_head=bool(cfg.roi_head),
         bert_layers=int(bert_cfg.get("num_layers", 12)),

@@ -5,41 +5,100 @@
   DETR and text-decoder state dicts load as they are. `project_q`,
   `project_kv` and `attend` stay separate so decode can cache K/V.
 - `attend_heads`: the one place where attention over (B, T, H, Dh) heads
-  runs; it calls the fused kernel K1 (`ops.attention.fused_attention`).
+  runs. Deterministic calls go to the fused kernel K1
+  (`ops.attention.fused_attention`); training calls take `attend_train`.
+- `attend_train`: the differentiable formulation the JAX package computes
+  outside any Pallas kernel in training (`gpv_tpu/nn/layers.py:71-84`),
+  because the kernels are forward-only: invalid keys set to -1e9, the
+  additive causal mask, softmax in fp32, dropout on the probabilities, a
+  cast to the compute dtype, then P·V. It is the port of that product, not
+  a fallback: the route is chosen by `deterministic` alone.
+- `dropout`: dropout drawing from the generator a train step installs with
+  `dropout_generator` (seeded from the step count, as the JAX step folds
+  the step into its key), or from torch's default generator.
 - `MLP`: DETR's ReLU box-head MLP.
 - `FrozenBatchNorm`: BN with frozen statistics, NCHW.
 
 LayerNorm is torch's own `nn.LayerNorm` (eps 1e-5 by default, as in the
-JAX package's `LayerNorm`). Modules here are inference-only: the dropouts
-of the JAX package are identities at inference and are left out.
+JAX package's `LayerNorm`).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_attention
+from ..ops.attention import NEG, fused_attention
+
+_rng = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]):
+    """Draw every `dropout` mask of this thread from `generator` inside the
+    block (a generator on the activations' device)."""
+    saved = getattr(_rng, "generator", None)
+    _rng.generator = generator
+    try:
+        yield
+    finally:
+        _rng.generator = saved
+
+
+def dropout(x: torch.Tensor, rate: float,
+            deterministic: bool = True) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The identity when
+    `deterministic` or at rate 0."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=getattr(_rng, "generator", None),
+                      device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+def attend_train(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                 key_valid: Optional[torch.Tensor] = None,
+                 causal: bool = False, rate: float = 0.0) -> torch.Tensor:
+    """Differentiable attention: (B,Tq,H,Dh) x (B,Tk,H,Dh)^2 -> (B,Tq,H*Dh)
+    in the compute dtype (v's)."""
+    B, Tq, H, Dh = qh.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh * (1.0 / Dh ** 0.5),
+                          kh).float()
+    if causal:
+        Tk = kh.shape[1]
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=qh.device).tril()
+        logits = logits + torch.where(keep, 0.0, NEG)
+    if key_valid is not None:
+        logits = torch.where(key_valid[:, None, None, :], logits, NEG)
+    probs = dropout(logits.softmax(-1).to(vh.dtype), rate, False)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(B, Tq, H * Dh)
 
 
 def attend_heads(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                  key_valid: Optional[torch.Tensor] = None,
-                 causal: bool = False) -> torch.Tensor:
-    """(B,Tq,H,Dh) x (B,Tk,H,Dh)^2 -> (B,Tq,H*Dh) through K1.
+                 causal: bool = False, deterministic: bool = True,
+                 rate: float = 0.0) -> torch.Tensor:
+    """(B,Tq,H,Dh) x (B,Tk,H,Dh)^2 -> (B,Tq,H*Dh): through K1 when
+    `deterministic`, else `attend_train` with attention dropout `rate`.
     key_valid: (B,Tk) bool, True = valid key."""
-    return fused_attention(qh, kh, vh, key_valid, causal).flatten(2)
+    if deterministic:
+        return fused_attention(qh, kh, vh, key_valid, causal).flatten(2)
+    return attend_train(qh, kh, vh, key_valid, causal, rate)
 
 
 class MultiHeadAttention(nn.Module):
     """Multi-head attention over (B, T, D) streams; key_valid True = VALID."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
-        self.dim, self.num_heads = dim, num_heads
+        self.dim, self.num_heads, self.dropout = dim, num_heads, dropout
         self.head_dim = dim // num_heads
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
@@ -57,13 +116,17 @@ class MultiHeadAttention(nn.Module):
     def project_kv(self, k: torch.Tensor, v: torch.Tensor):
         return self._proj(k, 1), self._proj(v, 2)
 
-    def attend(self, qh, kh, vh, key_valid=None, causal: bool = False):
+    def attend(self, qh, kh, vh, key_valid=None, causal: bool = False,
+               deterministic: bool = True):
         """qh: (B,Tq,H,Dh), kh/vh: (B,Tk,H,Dh) -> (B,Tq,D)."""
-        return self.out_proj(attend_heads(qh, kh, vh, key_valid, causal))
+        return self.out_proj(attend_heads(qh, kh, vh, key_valid, causal,
+                                          deterministic, self.dropout))
 
-    def forward(self, q, k, v, key_valid=None, causal: bool = False):
+    def forward(self, q, k, v, key_valid=None, causal: bool = False,
+                deterministic: bool = True):
         kh, vh = self.project_kv(k, v)
-        return self.attend(self.project_q(q), kh, vh, key_valid, causal)
+        return self.attend(self.project_q(q), kh, vh, key_valid, causal,
+                           deterministic)
 
 
 class MLP(nn.Module):
@@ -102,5 +165,7 @@ class FrozenBatchNorm(nn.Module):
         return scale, self.bias - self.running_mean * scale
 
     def forward(self, x):
-        scale, shift = self.scale_shift()
-        return x * scale[:, None, None] + shift[:, None, None]
+        # in x's dtype, as the JAX package casts scale and shift
+        scale, shift = (t.to(x.dtype)[:, None, None]
+                        for t in self.scale_shift())
+        return x * scale + shift

@@ -11,7 +11,9 @@ cross-attention K/V once (`precompute_memory`) and runs one token per
 `step` against a static (B, S, H, Dh) self-attention cache, so the fused
 kernel sees the same shapes at every step. The cache is written in place
 at position t (no copy of the whole cache per step) and masked by
-`arange(S) <= t`.
+`arange(S) <= t`. Dropout (torch's `TransformerDecoderLayer` places, rate
+`dropout`) acts only in a teacher-forced forward that is not
+`deterministic`, which also takes the training attention route.
 """
 from __future__ import annotations
 
@@ -19,27 +21,38 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MultiHeadAttention
+from .layers import MultiHeadAttention, dropout
 
 
 class TextDecoderLayer(nn.Module):
-    def __init__(self, dim: int, num_heads: int, ffn_dim: int = 2048):
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int = 2048,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(dim, num_heads)
-        self.multihead_attn = MultiHeadAttention(dim, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(dim, num_heads, dropout)
+        self.multihead_attn = MultiHeadAttention(dim, num_heads, dropout)
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
         self.norm3 = nn.LayerNorm(dim)
 
-    def _ffn(self, x):
-        return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+    def _ffn(self, x, deterministic: bool = True):
+        def drop(y):
+            return dropout(y, self.dropout, deterministic)
+        return self.norm3(x + drop(self.linear2(drop(F.relu(
+            self.linear1(x))))))
 
-    def forward(self, tgt, memory, mem_valid=None):
-        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt, causal=True))
-        ca = self.multihead_attn(tgt, memory, memory, mem_valid)
-        return self._ffn(self.norm2(tgt + ca))
+    def forward(self, tgt, memory, mem_valid=None,
+                deterministic: bool = True):
+        sa = self.self_attn(tgt, tgt, tgt, causal=True,
+                            deterministic=deterministic)
+        tgt = self.norm1(tgt + dropout(sa, self.dropout, deterministic))
+        ca = self.multihead_attn(tgt, memory, memory, mem_valid,
+                                 deterministic=deterministic)
+        return self._ffn(self.norm2(tgt + dropout(ca, self.dropout,
+                                                  deterministic)),
+                         deterministic)
 
     def precompute_memory(self, memory):
         """Cross-attention K/V, once per decode: (B,Tm,H,Dh) x2."""
@@ -75,16 +88,18 @@ class TextDecoder(nn.Module):
     """Stack of TextDecoderLayers; torch TransformerDecoder semantics."""
 
     def __init__(self, dim: int = 768, num_heads: int = 8,
-                 num_layers: int = 3, ffn_dim: int = 2048):
+                 num_layers: int = 3, ffn_dim: int = 2048,
+                 dropout: float = 0.0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.layers = nn.ModuleList(
-            TextDecoderLayer(dim, num_heads, ffn_dim)
+            TextDecoderLayer(dim, num_heads, ffn_dim, dropout)
             for _ in range(num_layers))
 
-    def forward(self, tgt, memory, mem_valid=None):
+    def forward(self, tgt, memory, mem_valid=None,
+                deterministic: bool = True):
         for layer in self.layers:
-            tgt = layer(tgt, memory, mem_valid)
+            tgt = layer(tgt, memory, mem_valid, deterministic)
         return tgt
 
     def precompute_memory(self, memory):
