@@ -11,13 +11,15 @@ Phases, each printing one JSON line:
   device     the card, and its name and power limit as nvidia-smi gives
              them;
   build      nvcc builds every kernel source of gpv_tpu_torch/csrc
-             (sm_90a);
+             (sm_90a), and g++ the native host runtime
+             (gpv_tpu_torch/native) beside it;
   kernels    K1 (fused_attention) and K2 (fused_biattention) against their
              plain PyTorch versions at every shape of the paths below, fp32
              (TF32 off) and bf16, timed beside the plain version and SDPA:
              `ms` over 30 back-to-back calls (host cost included) and
              `device_ms`, one launch's device time from a CUDA-graph replay
-             of 30 launches;
+             of 30 launches; `op_ms`, the same call through the torch op
+             (`torch.ops.gpv.*`, what exported programs call);
   slice      GPVEngine.predict (B=20 uint8 480x640, 12-token queries, bf16,
              BN folded), with the kernels' launch counts read around one
              call;
@@ -49,7 +51,17 @@ Phases, each printing one JSON line:
              first batch's s) and of the pipeline, evaluator s, device
              idle share (profiled repeat); VQA 8 times over (880
              samples), loader and pipeline; threads against processes;
-             fp32 card against CPU on 8 VQA and 8 detection samples;
+             every task again with the native resize (loader, pipeline,
+             idle share); fp32 card against CPU on 8 VQA and 8 detection
+             samples;
+  export     the bf16 engine exported at buckets 1/8/20 (seconds per
+             program, bytes: weights stored once), loaded by a fresh
+             process with no model module imported, predicting the slice's
+             batch and a batch of 5 padded to 8 (answers equal to the
+             engine's, boxes and relevance 2e-2, launches by variant as
+             path_launches gives them), images/s beside the engine's; fp32
+             at B=4 against its engine (1e-4); GPVServer over the bundle
+             (10 clients x 10 requests resolved, a beam request refused);
   train      `train.trainer.Trainer` over `configs/exp/gpv.yaml` at the
              released widths (learning_datasets all, bf16 autocast, fp32
              parameters and AdamW state, global batch 120 with the
@@ -63,7 +75,17 @@ Phases, each printing one JSON line:
              frozen parameters bit-unchanged and every other leaf moved,
              K1 12 launches a step at the dedup's rows, the eval's keys
              finite and its launches by variant, the restored state equal
-             to the saved one, every shape a `kernels` case;
+             to the saved one, every shape a `kernels` case. Then the
+             two-phase recipe (`two_phase`): phase 1 frozen from a seeded
+             pretrained DETR, 2 steps, saved; phase 2 resumes it unfrozen:
+             model and carried AdamW state equal to the saved ones, the
+             unfrozen leaves start empty and move, step, epoch and the
+             schedule's lr restored;
+  train_native  phase 2 goes on with the native resize and the fused C++
+             jitter (the numpy and exact paths refused, each batch's
+             native calls counted): images/s through the loader and its
+             wait beside `train`'s; the native matcher solve against
+             scipy's loop on one step's 120 cost matrices (totals 1e-5);
   train_e2e  one train step in fp32 (TF32 off) on the card and on the CPU
              from the same weights at dropout 0, B=4, 480x640: losses
              within 1e-4 relative, the assignment equal, the clipped
@@ -71,7 +93,8 @@ Phases, each printing one JSON line:
 Then one `kernels` line (each kernel of the paths: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
 predict_beam, embed_vocab, the whole serve run, the whole eval phase, one
-train step and the in-train eval under `paths`), and
+train step, the in-train eval and the exported bundle's B=20 predict
+under `paths`), and
 last `{"ok": true,
 "device": {...}}`. Any failed phase exits non-zero before that line;
 without a CUDA device, or without the package beside this file, it exits
@@ -268,8 +291,19 @@ def _sass_mma(lib: Path) -> dict:
 
 
 def phase_build() -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gpv_tpu_torch.native import build as native_build
     from gpv_tpu_torch.ops import _cuda
-    seconds = _cuda.build_all()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc runs
+        native = pool.submit(timed, native_build.build_native)
+        seconds = _cuda.build_all()
+        native_s = native.result()
     ptxas = [ln.strip() for name in _cuda.SOURCES
              for ln in _cuda.build_log(name).splitlines()
              if "Used" in ln or "spill" in ln]
@@ -278,7 +312,10 @@ def phase_build() -> dict:
     if tile and not all(tile.values()):
         fail(f"a tile kernel issues no tensor-core instruction: {tile}")
     return {"phase": "build", "sources": list(_cuda.SOURCES),
-            "seconds": seconds, "ptxas": ptxas, "sass_mma_per_kernel": mma}
+            "seconds": seconds, "ptxas": ptxas, "sass_mma_per_kernel": mma,
+            "native_sources": list(native_build.SOURCES),
+            "native_seconds": native_s,
+            "native_library": native_build.library_path().name}
 
 
 class Case(NamedTuple):
@@ -471,7 +508,9 @@ def phase_kernels() -> dict:
                        "shape": [b, tq, tk, h, dh],
                        "variant": A._plan(dtype, tq, tk, dh).variant,
                        "max_abs_err": err, "tol": TOL[dname] * scale,
-                       **_timings(calls)}
+                       **_timings(calls),
+                       "op_ms": time_ms(lambda: torch.ops.gpv.fused_attention(
+                           q, k, v, kv, causal))}
                 nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                     * q.element_size() + (0 if kv is None else kv.numel())
                 rec.update(_bound(nbytes, 4.0 * b * h * tq * tk * dh, dname))
@@ -515,7 +554,9 @@ def phase_kernels() -> dict:
                        "variant": A._plan(dtype, t2, t1, dh,
                                           both=True).variant,
                        "max_abs_err": err, "tol": tol, "library_ms": None,
-                       "library_device_ms": None, **_timings(calls)}
+                       "library_device_ms": None, **_timings(calls),
+                       "op_ms": time_ms(lambda: torch.ops.gpv
+                                        .fused_biattention(*xs, v1, v2))}
                 # six inputs read once; ctx1, ctx2 written (shapes of q2, q1)
                 nbytes = (sum(x.numel() for x in xs) + xs[0].numel()
                           + xs[3].numel()) * xs[0].element_size() \
@@ -548,21 +589,48 @@ PORT_KERNELS = (("K2 tile", "gpv_attn_tile_bi_kernel"),
 def phase_profile(phase: str, call, counts: Counter) -> dict:
     """torch.profiler over one `call()` (a predict or predict_beam): device
     time by kernel, the port's kernels by variant, and the share of the
-    call's wall time in which the card ran no kernel. Fails unless each
-    port kernel launched as often as `counts` ({Case: launches}, or a
-    function giving them once the call has run) says."""
+    call's wall time in which the card ran no kernel. Fails unless the
+    wrappers' counters, read around the profiled call, show each port
+    kernel launched as often as `counts` ({Case: launches}, or a function
+    giving them once the call has run) says, and unless the trace shows
+    them too. A trace of a train step has lacked one K1 record, the same
+    one in every attempt, while the counters held (PERF.md §7): with fixed
+    `counts` the call is profiled once more, and a trace still short of
+    launches the counters saw is recorded (`trace_launches_short`) rather
+    than failed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    if callable(counts):
-        counts = counts()
+    for attempt in (1, 2):
+        _reset_counts()
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        wrappers = _read_counts()[1]
+        want = counts() if callable(counts) else counts
+        _check_counts(phase, wrappers, want)
+        rec = _profile_record(phase, prof, wall_ms, want)
+        rec["attempts"] = attempt
+        if rec.pop("launches_match") or callable(counts):
+            break
+    short = {k: n - rec["profiled_launches"][k]
+             for k, n in rec["expected_launches"].items()
+             if n != rec["profiled_launches"][k]}
+    if any(n < 0 for n in short.values()) or (short and callable(counts)):
+        fail(f"{phase}: profiled kernel launches {rec['profiled_launches']}"
+             f" != expected {rec['expected_launches']}")
+    if short:
+        rec["trace_launches_short"] = short
+        print(f"chip_smoke: {phase}: the trace lacks {short} launches the "
+              "counters saw", file=sys.stderr, flush=True)
+    return rec
+
+
+def _profile_record(phase: str, prof, wall_ms: float, counts) -> dict:
     rows = sorted(_device_events(prof), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     groups = (("port_attention_kernels", ("gpv_attn_",)),
@@ -586,9 +654,11 @@ def phase_profile(phase: str, call, counts: Counter) -> dict:
     want = {"K2 tile": v["fused_biattention"]["tile"],
             "K1 tile": v["fused_attention"]["tile"],
             "K1 decode": v["fused_attention"]["decode"], "fp32": 0}
-    if got != want:
-        fail(f"{phase}: profiled kernel launches {got} != expected {want}")
-    return {"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"phase": phase, "launches_match": got == want,
+            "profiled_launches": got, "expected_launches": want,
+            "port_kernel_names": {name[:120]: n for _, n, name in rows
+                                  if "gpv_attn" in name},
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "ms_by_group": by_group, "port_kernels": port,
             "top_kernels": [{"ms": ms, "count": n, "name": name[:90]}
@@ -1016,14 +1086,15 @@ class _SeededPixels:
             0, 256, (h, w, 3), dtype=np.uint8)
 
 
-def eval_datasets(data_dir: Path) -> dict:
+def eval_datasets(data_dir: Path, resize: str = "exact") -> dict:
     """{task: dataset} over seeded samples written under `data_dir`, read
     through `configs/exp/gpv.yaml`'s task configs at 480x640 with
-    `host_resize: exact` (the reference's eval pixels)."""
+    `host_resize: <resize>` (exact: the reference's eval pixels)."""
     from gpv_tpu_torch.datasets.coco import DATASET_CLASSES
     from gpv_tpu_torch.utils.config import load_config
     cfg = load_config(ROOT / "configs", "exp/gpv",
-                      [f"data_dir={data_dir}", "task_configs.host_resize=exact"])
+                      [f"data_dir={data_dir}",
+                       f"task_configs.host_resize={resize}"])
     out = {}
     for task, node in EVAL_TASKS.items():
         task_cfg = cfg.task_configs[node]
@@ -1135,6 +1206,49 @@ def _eval_steady(eng, ds, task: str, loader: dict) -> dict:
     if len(preds) != len(big):
         fail(f"eval steady: {len(preds)} predictions for {len(big)}")
     return rec
+
+
+def _eval_native(recorder, tmp: Path, checked: set, loader: dict) -> list:
+    """Every task's samples again, greedy, resized by the native runtime
+    (the exact resize refused, in the forked loaders too): the loader
+    alone, the pipeline and a profiled repeat's idle share. Gates: every
+    sample predicted once, boxes well formed, launches by variant as the
+    batches say, every shape a `kernels` case."""
+    import torch
+    from gpv_tpu_torch.infer.predictions import predict_dataset
+    runs = []
+    with numpy_and_exact_paths_refused():
+        datasets = eval_datasets(tmp / "data", "native")
+        for task, ds in datasets.items():
+            def run():
+                return predict_dataset(recorder, ds, task, B, **loader)
+            lp = _loader_pass(ds, loader)
+            torch.cuda.synchronize()
+            recorder.calls.clear()
+            _reset_counts()
+            t0 = time.perf_counter()
+            preds, boxes = run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            _, by_var = _read_counts()
+            counts = recorder.launches()
+            name = f"eval native {task}"
+            _check_counts(name, by_var, counts)
+            if {c.name for c in counts} - checked:
+                fail(f"{name}: a shape is not a kernels case")
+            if len(preds) != len(ds) or len(boxes) != len(ds):
+                fail(f"{name}: {len(preds)} predictions for {len(ds)}")
+            _check_boxes(boxes.values())
+            recorder.calls.clear()
+            prof = phase_profile(f"{name} profile", run, recorder.launches)
+            runs.append({
+                "task": task, "samples": len(ds),
+                "loader_images_per_s": lp["images_per_s"],
+                "loader_first_batch_s": lp["first_batch_s"],
+                "pipeline_images_per_s": len(ds) / wall_s,
+                "device_idle_share": prof["device_idle_share"],
+                "launches_by_variant": by_var})
+    return runs
 
 
 def phase_eval(eng, vocab_path: Path, tmp: Path, checked: set):
@@ -1254,6 +1368,7 @@ def phase_eval(eng, vocab_path: Path, tmp: Path, checked: set):
            "threads_equal_processes": EVAL_LOADER_TASK,
            "threads_pipeline_images_per_s": len(preds) / threads_s}
     rec["steady"] = _eval_steady(eng, datasets[task], task, loader)
+    rec["native"] = _eval_native(recorder, tmp, checked, loader)
     t0 = time.perf_counter()
     rec["card_vs_cpu"] = _eval_card_vs_cpu(vocab_path, datasets, tmp)
     rec["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
@@ -1339,9 +1454,10 @@ def _state_copy(state) -> tuple:
             state.step)
 
 
-def _matcher_ms(model, batch, dtype) -> dict:
+def _matcher_ms(model, batch, dtype):
     """The matcher's parts on one forward's predictions: cost matrices on
-    the card, their copy to the host, scipy's solve."""
+    the card, their copy to the host, the native solve. Returns the times
+    and the host costs."""
     import torch
     from gpv_tpu_torch.ops.image import normalize_image
     from gpv_tpu_torch.ops.matcher import match_costs, solve_costs
@@ -1364,7 +1480,7 @@ def _matcher_ms(model, batch, dtype) -> dict:
     solve_costs(host)
     times["solve_ms"] = 1e3 * (time.perf_counter() - t0)
     times["shape"] = list(host.shape)
-    return times
+    return times, host
 
 
 def phase_train(vocab_path: Path, tmp: Path, checked: set):
@@ -1450,7 +1566,7 @@ def phase_train(vocab_path: Path, tmp: Path, checked: set):
         trainer.train_step(trainer.state, batch, timings=split)
         rec["step_ms_by_stage"] = split
         rec["step_ms"] = sum(split.values())
-        rec["matcher"] = _matcher_ms(model, resident, trainer.dtype)
+        rec["matcher"], costs = _matcher_ms(model, resident, trainer.dtype)
         one_step = train_step_launches(rows[-1], True)
         prof = phase_profile(
             "train_profile",
@@ -1505,7 +1621,285 @@ def phase_train(vocab_path: Path, tmp: Path, checked: set):
     torch.cuda.empty_cache()
     rec["eval"] = ev
     rec["seconds"] = time.perf_counter() - t_phase
-    return rec, one_step, ev, ev_counts, batch
+    return rec, one_step, ev, ev_counts, batch, costs
+
+
+@contextlib.contextmanager
+def numpy_and_exact_paths_refused():
+    """Within the block the numpy jitter and the exact resize raise, here
+    and in the loader workers forked here: a batch that one of them built
+    fails the run."""
+    from gpv_tpu_torch.data import skimage_resize
+    from gpv_tpu_torch.datasets import transforms
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("the numpy jitter or the exact resize ran on "
+                           "the native path")
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (transforms, "adjust_brightness"), (transforms, "adjust_contrast"),
+        (transforms, "adjust_saturation"), (transforms, "adjust_hue"),
+        (transforms, "_grayscale"),
+        (skimage_resize, "skimage_resize_exact"))]
+    for m, n, _ in saved:
+        setattr(m, n, refused)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def _count_native(loader) -> None:
+    """Every batch `loader` makes carries `native_calls`: the native
+    resizes and jitters its items ran, counted in the process that made
+    them (a forked worker)."""
+    from gpv_tpu_torch import native
+    fns = (native.resize_bilinear_native, native.color_jitter_native)
+    make = loader.load_batch
+
+    def load_batch(bi, idxs, epoch):
+        before = [f.calls for f in fns]
+        batch = make(bi, idxs, epoch)
+        batch["native_calls"] = np.array(
+            [f.calls - b for f, b in zip(fns, before)])
+        return batch
+    loader.load_batch = load_batch
+
+
+def _native_batch(batches, phase: str) -> dict:
+    """The next batch, gated on its `native_calls`: every item resized
+    natively, and the fused jitter ran."""
+    batch = next(batches)
+    resized, jittered = batch.pop("native_calls")
+    if resized != TRAIN_B or not jittered > 0:
+        fail(f"{phase}: a batch of {TRAIN_B} made {resized} native resizes "
+             f"and {jittered} fused jitters")
+    return batch
+
+
+def _adam_by_name(state) -> dict:
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {names[id(p)]: s for p, s in state.optimizer.state.items()}
+
+
+def _grouped(state) -> set:
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {names[id(p)] for g in state.optimizer.param_groups
+            for p in g["params"]}
+
+
+def write_detr_pth(path: Path, cfg, vocab_len: int) -> Path:
+    """A seeded DETR checkpoint at the released widths under the reference
+    names, as the released `detr_coco.pth` holds them: COCO's 92-way
+    `class_embed`, so that one leaf does not load and keeps training."""
+    import torch
+    from gpv_tpu_torch.models.gpv import build_gpv
+    from gpv_tpu_torch.weights import init_random
+    sd = dict(init_random(build_gpv(cfg.model, vocab_len), seed=7)
+              .detr.state_dict())
+    g = torch.Generator().manual_seed(7)
+    dim = sd["class_embed.weight"].shape[1]
+    sd["class_embed.weight"] = 0.02 * torch.randn(92, dim, generator=g)
+    sd["class_embed.bias"] = torch.zeros(92)
+    torch.save({"model": sd}, path)
+    return path
+
+
+def _train_item_ms(data: Path, vocab_path: Path, n: int = 12) -> dict:
+    """One train item's host ms on one core, averaged over `n` items of
+    every task: the seeded pixels alone (what a JPEG decode stands for),
+    the item with the native resize and fused jitter, and with the exact
+    resize and the numpy jitter."""
+    import functools
+
+    from gpv_tpu_torch.datasets import transforms
+    from gpv_tpu_torch.datasets.coco import CocoMultitaskDataset
+    out = {}
+    calls = [(c, c.__call__) for c in (transforms.ColorJitter,
+                                       transforms.RandomGrayscale)]
+    with seeded_pixel_datasets():
+        for resize, jitter in (("native", True), ("exact", False)):
+            cfg = train_config(data, vocab_path,
+                               f"task_configs.host_resize={resize}")
+            ds = CocoMultitaskDataset(cfg.learning_datasets,
+                                      cfg.task_configs, "train", True)
+            for c, call in calls:
+                c.__call__ = functools.partialmethod(call, native=jitter)
+            try:
+                ds.get(0, np.random.RandomState(0))
+                t0 = time.perf_counter()
+                for i in range(1, n + 1):
+                    ds.get(i * 97 % len(ds), np.random.RandomState(i))
+                out[f"{resize}_resize_{'fused' if jitter else 'numpy'}"
+                    "_jitter"] = 1e3 * (time.perf_counter() - t0) / n
+            finally:
+                for c, call in calls:
+                    c.__call__ = call
+        sub = ds.datasets[0]
+        t0 = time.perf_counter()
+        for sample in sub.samples[:n]:
+            sub.load_pixels(sample)
+        out["seeded_pixels"] = 1e3 * (time.perf_counter() - t0) / n
+    return out
+
+
+def phase_train_native(vocab_path: Path, tmp: Path, train_rec: dict,
+                       costs: np.ndarray):
+    """The two-phase recipe (scripts/train.sh) at released width with the
+    native resize and the fused jitter, then the native loader's rate.
+    Phase 1: `training.freeze` with a seeded `model.pretr_detr`, 2 steps,
+    saved. Phase 2: the same trainer config as `train` resuming phase 1's
+    `ckpts/model` with the freeze off. Gates: the model equals the saved
+    one; the carried AdamW state equals the saved one bit for bit; the
+    newly unfrozen leaves start from empty state, take their first step
+    and move (those with a gradient); the step and epoch are restored; the
+    lr is the schedule's at the restored step; every batch built by the
+    native resize and jitter (numpy and exact paths refused). Then 2
+    warm-up and 5 timed phase-2 steps through the loader, beside `train`'s
+    exact-resize rate; and the native matcher solve against scipy's loop
+    on the train phase's costs (every image's total within 1e-5
+    relative). Returns the two-phase record and the `train_native`
+    record."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from gpv_tpu_torch.ops.matcher import solve_costs
+    from gpv_tpu_torch.text.vocab import AnswerVocab
+    from gpv_tpu_torch.train.optimizer import make_schedule
+    from gpv_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    data = tmp / "two_phase"
+    native = "task_configs.host_resize=native"
+    cfg1 = train_config(data, vocab_path, native, "training.freeze=true")
+    pth = write_detr_pth(tmp / "detr.pth", cfg1,
+                         len(AnswerVocab.load(vocab_path)))
+    cfg1 = train_config(data, vocab_path, native, "training.freeze=true",
+                        f"model.pretr_detr={pth}")
+    two = {"steps_phase1": 2}
+    with seeded_pixel_datasets(), numpy_and_exact_paths_refused():
+        t0 = time.perf_counter()
+        one = Trainer(cfg1)
+        two["setup_s"] = time.perf_counter() - t0
+        _count_native(one.loaders["train"])
+        batches = iter(one.loaders["train"])
+        for _ in range(two["steps_phase1"]):
+            _finite_losses("train_native phase 1", one.train_step(
+                one.state, _native_batch(batches, "phase 1")))
+            one.step += 1
+        batches.close()
+        one.save(0, {"model_selection_metric": 0.0})
+        frozen1 = {n for n, p in one.model.named_parameters()
+                   if not p.requires_grad}
+        two["frozen_phase1"] = len(frozen1)
+        if "detr.class_embed.weight" in frozen1 or not any(
+                n.startswith("detr.transformer.") for n in frozen1):
+            fail("train_native: phase 1 froze other leaves than the loaded "
+                 "DETR ones")
+
+        cfg2 = train_config(data, vocab_path, native,
+                            f"training.ckpt={Path(cfg1.ckpt_dir) / 'model'}")
+        t0 = time.perf_counter()
+        tr = Trainer(cfg2)
+        two["resume_setup_s"] = time.perf_counter() - t0
+        for name, t in one.model.state_dict().items():
+            if not torch.equal(tr.model.state_dict()[name], t):
+                fail(f"train_native: phase 2's {name} differs from the "
+                     "saved one")
+        s1, s2 = _adam_by_name(one.state), _adam_by_name(tr.state)
+        if set(s1) != set(s2) or set(s1) != _grouped(one.state):
+            fail("train_native: phase 2's AdamW state covers other leaves "
+                 "than phase 1's groups")
+        for name, want in s1.items():
+            for key, t in want.items():
+                if not torch.equal(s2[name][key], t):
+                    fail(f"train_native: carried {name}.{key} differs")
+        unfrozen = _grouped(tr.state) - _grouped(one.state)
+        two.update(carried=len(s1), unfrozen=len(unfrozen))
+        if unfrozen != frozen1 & _grouped(tr.state) or not any(
+                n.startswith("detr.transformer.") for n in unfrozen):
+            fail("train_native: phase 2 unfroze other leaves than phase 1's "
+                 "frozen DETR ones")
+        if (tr.step, tr.state.step, tr.last_epoch) != (2, 2, 0):
+            fail(f"train_native: step {tr.step}/{tr.state.step}, epoch "
+                 f"{tr.last_epoch} after the resume")
+        lam = make_schedule(cfg2.training, len(tr.loaders["train"]))
+        base = {"detr_backbone": float(cfg2.training.lr_backbone)}
+        for g in tr.state.optimizer.param_groups:
+            want = base.get(g["name"], float(cfg2.training.lr)) * lam(2)
+            if abs(g["lr"] - want) > 1e-12 * want:
+                fail(f"train_native: group {g['name']} lr {g['lr']} is not "
+                     f"the schedule's {want} at step 2")
+        del one, s1, s2
+        torch.cuda.empty_cache()
+
+        _count_native(tr.loaders["train"])
+        start = {n: tr.model.get_parameter(n).detach().clone()
+                 for n in unfrozen}
+        batches = iter(tr.loaders["train"])
+        waits, steps_s = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch = _native_batch(batches, "phase 2")
+            waits.append(1e3 * (time.perf_counter() - t0))
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t_timed = time.perf_counter()
+            t0 = time.perf_counter()
+            losses = tr.train_step(tr.state, batch)
+            steps_s.append(time.perf_counter() - t0)
+            tr.step += 1
+            if i == 0:
+                state, moved = _adam_by_name(tr.state), 0
+                for n, t in start.items():
+                    p = tr.model.get_parameter(n)
+                    if int(state[n]["step"]) != 1:
+                        fail(f"train_native: unfrozen {n} did not start "
+                             "from empty state")
+                    if torch.count_nonzero(p.grad):
+                        if torch.equal(p.detach(), t):
+                            fail(f"train_native: unfrozen {n} did not move")
+                        moved += 1
+                two["unfrozen_moved"] = moved
+                del start, state
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - t_timed
+        batches.close()
+        _finite_losses("train_native", losses)
+        del tr
+    torch.cuda.empty_cache()
+    two["seconds"] = time.perf_counter() - t_phase
+    host = _train_item_ms(data, vocab_path)
+
+    # the matcher: one native call against scipy's per-image loop
+    t0 = time.perf_counter()
+    got = solve_costs(costs)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = [linear_sum_assignment(c) for c in costs]
+    scipy_ms = 1e3 * (time.perf_counter() - t0)
+    worst = 0.0
+    for c, q4t, (rows, cols) in zip(costs, got, ref):
+        a = float(c[np.arange(len(q4t)), q4t].sum())
+        b = float(c[rows, cols].sum())
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-6))
+    if not worst <= 1e-5:
+        fail(f"train_native: a native assignment's total is {worst} "
+             "relative off scipy's optimum")
+    rec = {"phase": "train_native", "batch": TRAIN_B,
+           "host_resize": "native", "jitter": "fused C++",
+           "workers": int(cfg2.training.num_workers),
+           "loader_wait_ms": waits, "timed_step_s": steps_s,
+           "images_per_s_with_loader": TRAIN_STEPS * TRAIN_B / timed_s,
+           "exact_images_per_s_with_loader":
+               train_rec["images_per_s_with_loader"],
+           "exact_loader_wait_ms": train_rec["loader_wait_ms"],
+           "host_ms_per_item": host,
+           "matcher": {"shape": list(costs.shape), "native_solve_ms":
+                       native_ms, "scipy_solve_ms": scipy_ms,
+                       "total_cost_max_rel_err": worst, "tol": 1e-5},
+           "seconds": time.perf_counter() - t_phase}
+    return two, rec
 
 
 def phase_train_e2e(vocab_path: Path, tmp: Path, batch: dict) -> dict:
@@ -1596,6 +1990,187 @@ def phase_train_e2e(vocab_path: Path, tmp: Path, batch: dict) -> dict:
              "max(1, max|g|)")
     rec["seconds"] = time.perf_counter() - t_phase
     return rec
+
+
+EXPORT_BUCKETS, EXPORT_FP32_B, EXPORT_PAD_N = SERVE_BUCKETS, 4, 5
+EXPORT_CLIENTS, EXPORT_REQUESTS = 10, 10
+# run in a fresh process: load the bundle without the model code, predict
+# the slice's seeded batch (B) and a batch of EXPORT_PAD_N, with the
+# kernels' launches by variant read around each call
+_EXPORT_LOADER = """
+import json, sys, time
+sys.path.insert(0, sys.argv[2])
+import torch
+import chip_smoke as cs
+from gpv_tpu_torch.export import ExportedEngine
+eng = ExportedEngine(sys.argv[1])
+images, queries = cs._batch(0, cs.B)
+runs = {}
+for n in (cs.B, cs.EXPORT_PAD_N):
+    eng.predict(images[:n], queries[:n])  # warm-up
+    torch.cuda.synchronize()
+    cs._reset_counts()
+    out = eng.predict(images[:n], queries[:n])
+    torch.cuda.synchronize()
+    runs[n] = {"answers": [o["answer"] for o in out],
+               "boxes": [o["boxes"].tolist() for o in out],
+               "relevance": [o["relevance"].tolist() for o in out],
+               "steps": eng.last_decode_steps,
+               "launches_by_variant": cs._read_counts()[1]}
+ips = cs._images_per_s(lambda: eng.predict(images, queries), 5)
+leaked = sorted(m for m in sys.modules if m.split(".")[:2] in (
+    ["gpv_tpu_torch", "models"], ["gpv_tpu_torch", "nn"],
+    ["gpv_tpu_torch", "weights"], ["gpv_tpu_torch", "infer"]))
+print(json.dumps({"runs": runs, "images_per_s": ips, "leaked": leaked}))
+"""
+
+
+def _agree(phase: str, got, want, tol: float) -> float:
+    """Answers equal; boxes and relevance within tol x max(1, max|ref|).
+    Returns the worst scaled error."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g["answer"] != w["answer"]:
+            fail(f"{phase}: answer {i} {g['answer']!r} != {w['answer']!r}")
+        for key in ("boxes", "relevance"):
+            ref = np.asarray(w[key], np.float64)
+            err = float(np.abs(np.asarray(g[key]) - ref).max()) / max(
+                1.0, float(np.abs(ref).max()))
+            if not err <= tol:
+                fail(f"{phase}: {key} {i} off by {err} > {tol}")
+            worst = max(worst, err)
+    if len(got) != len(want):
+        fail(f"{phase}: {len(got)} results for {len(want)}")
+    return worst
+
+
+def phase_export(eng, vocab_path: Path, tmp: Path, checked: set):
+    """The bf16 engine exported at buckets EXPORT_BUCKETS (released width):
+    seconds per program, bytes on disk (weights stored once: under 1.3x
+    the weights file). A fresh process loads the bundle with no model
+    module imported and predicts the slice's batch and a batch of
+    EXPORT_PAD_N (padded to 8): answers equal to `GPVEngine.predict`'s on
+    the same padded rows, boxes and relevance within 2e-2 x
+    max(1, max|ref|), launches by
+    variant equal to `path_launches` for the steps run, every shape a
+    `kernels` case, images/s beside the engine's. Then fp32 (TF32 off) at
+    B=EXPORT_FP32_B: answers equal, boxes and relevance within 1e-4. Then
+    GPVServer over the bundle: EXPORT_CLIENTS x EXPORT_REQUESTS requests
+    all resolved, a beam request refused at the door. Returns the record
+    and the B-row run's {Case: launches}."""
+    import torch
+    from gpv_tpu_torch.export import ExportedEngine, export_engine
+    from gpv_tpu_torch.serve import GPVServer
+
+    t_phase = time.perf_counter()
+    shapes = {c.name for b in EXPORT_BUCKETS
+              for c in path_launches("predict", 0, b)}
+    if shapes - checked:
+        fail(f"export: shapes not held against their plain version in the "
+             f"kernels phase: {sorted(shapes - checked)}")
+    out = tmp / "bundle"
+    t0 = time.perf_counter()
+    manifest = export_engine(eng, out, EXPORT_BUCKETS, (IMG_H, IMG_W))
+    rec = {"phase": "export", "buckets": list(EXPORT_BUCKETS),
+           "dtype": "bfloat16", "export_s": time.perf_counter() - t0,
+           "program_export_s": {k: p["export_s"] for k, p in
+                                manifest["programs"].items()}}
+    sizes = {f.name: f.stat().st_size for f in out.iterdir()}
+    rec["bundle_bytes"], rec["weights_bytes"] = (sum(sizes.values()),
+                                                 sizes["weights.pt"])
+    rec["bundle_over_weights"] = rec["bundle_bytes"] / rec["weights_bytes"]
+    if not rec["bundle_over_weights"] < 1.3:
+        fail(f"export: the bundle is {rec['bundle_over_weights']} x its "
+             f"weights file: {sizes}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _EXPORT_LOADER, str(out),
+                           str(ROOT)], capture_output=True, text=True,
+                          timeout=600, cwd=str(tmp))
+    rec["fresh_process_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"export: the fresh process failed:\n{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if got["leaked"]:
+        fail(f"export: loading the bundle imported {got['leaked']}")
+    images, queries = _batch(0, B)
+    rec["runs"], counts = {}, None
+    for n_str, r in got["runs"].items():
+        n = int(n_str)
+        bucket = min(b for b in EXPORT_BUCKETS if b >= n)
+        # the engine on the rows the bundle ran (padded by repetition): in
+        # bf16 another batch size may round a near-tie the other way
+        pad = [i % n for i in range(bucket)]
+        want = eng.predict(images[pad], [queries[i] for i in pad])[:n]
+        unpadded = eng.predict(images[:n], queries[:n])
+        err = _agree(f"export B={n}", [
+            {"answer": a, "boxes": bx, "relevance": rl} for a, bx, rl in
+            zip(r["answers"], r["boxes"], r["relevance"])], want, 2e-2)
+        run = path_launches("predict", r["steps"], bucket)
+        _check_counts(f"export B={n}", r["launches_by_variant"], run)
+        rec["runs"][n] = {"bucket": bucket, "decode_steps": r["steps"],
+                          "answers_equal_unpadded_engine": sum(
+                              a == u["answer"] for a, u in
+                              zip(r["answers"], unpadded)),
+                          "launches_by_variant": r["launches_by_variant"],
+                          "max_scaled_err": err, "tol": 2e-2}
+        if n == B:
+            counts = run
+            rec["launches_by_variant"] = r["launches_by_variant"]
+            rec["decode_steps"] = r["steps"]
+    rec["images_per_s"] = got["images_per_s"]
+    rec["engine_images_per_s"] = _images_per_s(
+        lambda: eng.predict(images, queries), 5)
+
+    # fp32, TF32 off: the bundle against its engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    e32 = make_engine(vocab_path, "float32", "cuda")
+    export_engine(e32, tmp / "bundle32", (EXPORT_FP32_B,), (IMG_H, IMG_W))
+    x32 = ExportedEngine(tmp / "bundle32")
+    imgs, qs = _batch(3, EXPORT_FP32_B)
+    rec["fp32"] = {"batch": EXPORT_FP32_B, "tol": 1e-4, "max_scaled_err":
+                   _agree("export fp32", x32.predict(imgs, qs),
+                          e32.predict(imgs, qs), 1e-4)}
+    del e32, x32
+    torch.cuda.empty_cache()
+
+    # the server over the bundle
+    server = GPVServer(ExportedEngine(out), bucket_sizes=EXPORT_BUCKETS,
+                       max_wait_ms=5, num_workers=2, warmup=(IMG_H, IMG_W))
+    try:
+        server.submit(images[0], queries[0], beam_size=3)
+        fail("export: the server took a beam request for a bundle")
+    except ValueError:
+        rec["beam_refused"] = True
+    errors = []
+
+    def client(c: int) -> None:
+        for r in range(EXPORT_REQUESTS):
+            i = (c * EXPORT_REQUESTS + r) % B
+            out = server.submit(images[i], queries[i]).result(timeout=300)
+            if out["boxes"].shape != (100, 4):
+                errors.append((c, r))
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(EXPORT_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    server.close(drain=True)
+    stats = server.stats()
+    n = EXPORT_CLIENTS * EXPORT_REQUESTS
+    if any(t.is_alive() for t in threads) or errors or not (
+            stats["completed"] == stats["submitted"] == n
+            and stats["failed"] == 0):
+        fail(f"export: served {stats}, errors {errors}")
+    rec["serve"] = {"requests": n, "requests_per_s": n / wall,
+                    "batches_per_bucket": stats["batches_per_bucket"],
+                    "latency_ms": stats["latency_ms"]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, counts
 
 
 def kernels_line(kern: dict, runs: dict) -> dict:
@@ -1692,11 +2267,17 @@ def main() -> None:
         ev, ev_counts = phase_eval(eng, vocab_path, Path(tmp), checked)
         records.append(ev)
         emit(ev)
+        ex, ex_counts = phase_export(eng, vocab_path, Path(tmp), checked)
+        records.append(ex)
+        emit(ex)
         del eng
-        tr, tr_counts, tr_eval, tr_eval_counts, batch = phase_train(
+        tr, tr_counts, tr_eval, tr_eval_counts, batch, costs = phase_train(
             vocab_path, Path(tmp), checked)
-        records.append(tr)
-        emit(tr)
+        tr["two_phase"], tn = phase_train_native(vocab_path, Path(tmp), tr,
+                                                 costs)
+        for rec in (tr, tn):
+            records.append(rec)
+            emit(rec)
         records.append(phase_train_e2e(vocab_path, Path(tmp), batch))
         emit(records[-1])
     line = kernels_line(kern, {
@@ -1705,7 +2286,8 @@ def main() -> None:
         "eval": (ev, ev_counts),
         "train_step": ({"launches_by_variant": by_variant(tr_counts)},
                        tr_counts),
-        "train_eval": (tr_eval, tr_eval_counts)})
+        "train_eval": (tr_eval, tr_eval_counts),
+        "export": (ex, ex_counts)})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -15,15 +15,18 @@ Protocol (JSON over HTTP), the same as the JAX package's:
 
 `task=classification[_syns]` applies the COCO-class vocab mask; other
 tasks decode over the open vocabulary. Images are resized on the server
-to the task size (`task_configs.image_size`, default 480x640), so the
-batches of a bucket share one shape.
+to the task size (`task_configs.image_size`, default 480x640; a bundle's
+own size), so the batches of a bucket share one shape.
 
 Usage (from a checkout; it reads `configs/exp/gpv_inference.yaml`):
   python -m gpv_tpu_torch.cli.serve_http ckpt=<model.pth | null> \
       [port=8000] [serve.batch_size=20] [serve.max_wait_ms=5] \
       [model.vocab=...] [tpu.dtype=float32] [device=cpu]
-Serving an exported bundle (`bundle=`) waits for the export slice
-(ROADMAP) and is refused.
+Serving an exported bundle (`gpv_tpu_torch.cli.export_serving`) needs no
+checkout, config or model code; buckets and image size come from its
+manifest, and a beam request is answered 400 (bundles serve greedy):
+  python -m gpv_tpu_torch.cli.serve_http bundle=<dir> [port=8000] \
+      [serve.bucket_sizes=[1,8]] [serve.warmup=false] [device=cpu]
 """
 from __future__ import annotations
 
@@ -101,8 +104,12 @@ def make_handler(server, vocab_masks: dict, size_hw, timeout_s: float = 120.0):
                 self._reply(400, {"error": f"bad request: {e}"})
                 return
             try:
-                out = server.submit(image, query, mask,
-                                    beam_size=beam).result(timeout=timeout_s)
+                fut = server.submit(image, query, mask, beam_size=beam)
+            except ValueError as e:  # refused at the door: beam on a bundle
+                self._reply(400, {"error": str(e)})
+                return
+            try:
+                out = fut.result(timeout=timeout_s)
                 payload = {
                     "answer": out["answer"],
                     "boxes": np.asarray(out["boxes"]).tolist(),
@@ -140,23 +147,35 @@ def serve_in_thread(httpd: ThreadingHTTPServer) -> threading.Thread:
 
 def main(argv=None):
     from gpv_tpu_torch.evaluation.vocab_mask import coco_vocab_mask
-    from gpv_tpu_torch.infer.build import build_engine
     from gpv_tpu_torch.serve import GPVServer
-    from gpv_tpu_torch.utils.config import load_config
 
-    overrides = list(argv if argv is not None else sys.argv[1:])
-    if any(o.startswith("bundle=") for o in overrides):
-        raise NotImplementedError(
-            "bundle= (serving an exported AOT bundle) waits for the export "
-            "slice of gpv_tpu_torch (ROADMAP Queue 1); serve a checkpoint: "
-            "ckpt=<model.pth> or ckpt=null")
-    cfg = load_config("configs", "exp/gpv_inference", overrides)
-    engine = build_engine(cfg)
-    H = int(cfg.task_configs.image_size.H)
-    W = int(cfg.task_configs.image_size.W)
-    serve_cfg = cfg.get("serve") or {}
-    batch = int(serve_cfg.get("batch_size", 20))
-    buckets = tuple(serve_cfg.get("bucket_sizes") or (1, 8, batch))
+    raw = list(argv if argv is not None else sys.argv[1:])
+    bundle = next((o.split("=", 1)[1] for o in raw
+                   if o.startswith("bundle=")), None)
+    overrides = [o for o in raw if not o.startswith("bundle=")]
+    if bundle:
+        # config-free: no model code and no configs/ tree; the overrides
+        # are dotted values over serving defaults
+        from gpv_tpu_torch.export import ExportedEngine
+        from gpv_tpu_torch.utils.config import ConfigNode, _parse_scalar
+        cfg = ConfigNode({"serve": ConfigNode()})
+        for o in overrides:
+            k, _, v = o.partition("=")
+            cfg.set_path(k, _parse_scalar(v))
+        engine = ExportedEngine(bundle, device=cfg.get("device"))
+        H, W = engine.image_hw
+        serve_cfg = cfg.get("serve") or {}
+        buckets = tuple(serve_cfg.get("bucket_sizes") or engine.batch_sizes)
+    else:
+        from gpv_tpu_torch.infer.build import build_engine
+        from gpv_tpu_torch.utils.config import load_config
+        cfg = load_config("configs", "exp/gpv_inference", overrides)
+        engine = build_engine(cfg)
+        H = int(cfg.task_configs.image_size.H)
+        W = int(cfg.task_configs.image_size.W)
+        serve_cfg = cfg.get("serve") or {}
+        batch = int(serve_cfg.get("batch_size", 20))
+        buckets = tuple(serve_cfg.get("bucket_sizes") or (1, 8, batch))
     warm = str(serve_cfg.get("warmup", True)).lower() != "false"
     server = GPVServer(
         engine, max_wait_ms=float(serve_cfg.get("max_wait_ms", 5.0)),

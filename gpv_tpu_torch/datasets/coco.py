@@ -52,7 +52,7 @@ class GenericCocoDataset:
         self.imh = int(cfg.image_size.H)
         self.imw = int(cfg.image_size.W)
         self.read_image = bool(cfg.get("read_image", True))
-        # host_resize: pil (default) | exact — see datasets/image.py
+        # host_resize: pil (default) | native | exact (datasets/image.py)
         self.resize_method = str(cfg.get("host_resize", "pil"))
         samples = json.loads(Path(cfg.samples[subset]).read_text())
         max_samples = (cfg.get("max_samples") or {}).get(subset)
@@ -61,6 +61,11 @@ class GenericCocoDataset:
         self.samples: List[Dict[str, Any]] = samples
         self.transforms: Compose = (train_transforms(self.task) if training
                                     else eval_transforms())
+        if training or self.resize_method == "native":
+            # the fused jitter and the native resize: built and loaded here,
+            # in the process that forks the loader's workers
+            from ..native import load_native
+            load_native()
 
     def __len__(self):
         return len(self.samples)

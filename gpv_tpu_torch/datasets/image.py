@@ -29,15 +29,16 @@ def resize_uint8(img: np.ndarray, h: int, w: int,
     - "pil" (default): PIL bilinear, as the JAX package's default.
     - "exact": the skimage-0.17.2 anti-aliased path of the reference's eval
       pixels (`data/skimage_resize.py`), rounded to uint8.
-    - "native": the JAX package's host C++ resize (`gpv_tpu/native`); not
-      ported (ROADMAP Queue 1), so it raises.
+    - "native": the C++ point-sampled bilinear resize of the native
+      runtime (`gpv_tpu_torch.native`, built with g++ at first use), the
+      training pipeline's. A failed build raises: unlike the JAX package,
+      there is no silent fall-back to PIL (the card machine has no PIL).
     """
     if method not in RESIZE_METHODS:
         raise ValueError(f"unknown resize method {method!r}")
     if method == "native":
-        raise NotImplementedError(
-            "host_resize=native (the JAX package's C++ resize) is not "
-            "ported to gpv_tpu_torch (ROADMAP Queue 1); use pil or exact")
+        from ..native import resize_bilinear_native
+        return resize_bilinear_native(img.astype(np.uint8), h, w)
     if method == "exact":
         from ..data.skimage_resize import skimage_resize_exact
         out = skimage_resize_exact(img.astype(np.uint8), (h, w),

@@ -1,4 +1,4 @@
-"""Host-side image augmentations in numpy (counterpart of
+"""Host-side image augmentations, C++ and numpy (counterpart of
 `gpv_tpu/datasets/transforms.py`).
 
 Behavior spec: reference train transforms —
@@ -9,13 +9,18 @@ Behavior spec: reference train transforms —
     (`datasets/coco_datasets.py:26-43,137-155,199-216`).
 Implemented with torchvision's sampling semantics: factors drawn uniformly
 from [max(0,1-x), 1+x], hue from [-h, h], applied in a random order, all
-from the caller's `RandomState`. The JAX package's fused C++ jitter is not
-ported (ROADMAP Queue 1, with the native resize); this numpy path is its
-reference and gives the same values.
+from the caller's `RandomState`. `ColorJitter` and `RandomGrayscale` apply
+the drawn ops in one pass of the native runtime's fused C++ jitter
+(`gpv_tpu_torch.native.color_jitter_native`) by default, or with
+`native=False` in numpy, the fused jitter's reference. Both draw the same
+random stream in the same order. A jitter that cannot be built raises;
+unlike the JAX package, nothing falls back to numpy silently.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native as _native
 
 
 def _blend(img: np.ndarray, other: np.ndarray, factor: float) -> np.ndarray:
@@ -83,24 +88,38 @@ class ColorJitter:
         self.hue = hue
         self.p = p
 
-    def __call__(self, img: np.ndarray, rng: np.random.RandomState):
+    def __call__(self, img: np.ndarray, rng: np.random.RandomState,
+                 native: bool = True):
         if rng.rand() >= self.p:
             return img
+        # a fresh copy: the fused jitter works in place
         img = np.array(img, dtype=np.float32, order="C")
-        fns = []
+        codes, factors, fns = [], [], []
         if self.brightness > 0:
             f = rng.uniform(max(0, 1 - self.brightness), 1 + self.brightness)
+            codes.append(_native.JITTER_BRIGHTNESS)
+            factors.append(f)
             fns.append(lambda x, f=f: adjust_brightness(x, f))
         if self.contrast > 0:
             f = rng.uniform(max(0, 1 - self.contrast), 1 + self.contrast)
+            codes.append(_native.JITTER_CONTRAST)
+            factors.append(f)
             fns.append(lambda x, f=f: adjust_contrast(x, f))
         if self.saturation > 0:
             f = rng.uniform(max(0, 1 - self.saturation), 1 + self.saturation)
+            codes.append(_native.JITTER_SATURATION)
+            factors.append(f)
             fns.append(lambda x, f=f: adjust_saturation(x, f))
         if self.hue > 0:
             f = rng.uniform(-self.hue, self.hue)
+            codes.append(_native.JITTER_HUE)
+            factors.append(f)
             fns.append(lambda x, f=f: adjust_hue(x, f))
-        for i in rng.permutation(len(fns)):
+        order = rng.permutation(len(codes))
+        if native:
+            return _native.color_jitter_native(
+                img, [codes[i] for i in order], [factors[i] for i in order])
+        for i in order:
             img = fns[i](img)
         return img
 
@@ -109,8 +128,12 @@ class RandomGrayscale:
     def __init__(self, p=0.2):
         self.p = p
 
-    def __call__(self, img, rng):
+    def __call__(self, img, rng, native: bool = True):
         if rng.rand() < self.p:
+            if native and img.shape[-1] == 3:
+                return _native.color_jitter_native(
+                    np.array(img, dtype=np.float32, order="C"),
+                    [_native.JITTER_GRAYSCALE], [0.0])
             g = _grayscale(img.astype(np.float32))
             return np.broadcast_to(g, img.shape).copy()
         return img

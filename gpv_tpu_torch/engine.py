@@ -38,6 +38,22 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def encode_sorted(model: GPV, images_uint8, query_ids, query_valid,
+                  image_valid=None):
+    """uint8 (B,H,W,3) images and queries -> (memory, mem_valid, boxes
+    (B,Q,4) fp32 and relevance (B,Q) fp32, both sorted by relevance, most
+    relevant first). What every predict path runs before decoding; the
+    export's encode program traces it."""
+    images = normalize_image(images_uint8.float() / 255.0)
+    memory, mem_valid, outputs = model.encode(
+        images, query_ids.long(), image_valid, query_valid)
+    rel = outputs["pred_relevance_logits"].float().softmax(-1)[..., 0]
+    order = torch.argsort(-rel, dim=-1, stable=True)
+    boxes = torch.take_along_dim(outputs["pred_boxes"].float(),
+                                 order[..., None], dim=1)
+    return memory, mem_valid, boxes, torch.take_along_dim(rel, order, 1)
+
+
 class GPVEngine:
     def __init__(self, model: GPV, vocab: AnswerVocab,
                  tokenizer: WordPieceTokenizer, max_query_len: int = 20,
@@ -102,14 +118,8 @@ class GPVEngine:
     @torch.inference_mode()
     def _encode(self, images_uint8, query_ids, query_valid,
                 image_valid=None):
-        images = normalize_image(images_uint8.float() / 255.0)
-        memory, mem_valid, outputs = self.model.encode(
-            images, query_ids.long(), image_valid, query_valid)
-        rel = outputs["pred_relevance_logits"].float().softmax(-1)[..., 0]
-        order = torch.argsort(-rel, dim=-1, stable=True)
-        boxes = torch.take_along_dim(outputs["pred_boxes"].float(),
-                                     order[..., None], dim=1)
-        return memory, mem_valid, boxes, torch.take_along_dim(rel, order, 1)
+        return encode_sorted(self.model, images_uint8, query_ids,
+                             query_valid, image_valid)
 
     def _greedy(self, images, qids, qvalid, vocab_mask, image_valid=None):
         memory, mem_valid, boxes, rel = self._encode(images, qids, qvalid,

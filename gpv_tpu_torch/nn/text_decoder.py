@@ -60,8 +60,10 @@ class TextDecoderLayer(nn.Module):
 
     def step(self, x_t, mem_kv, mem_valid, cache_k, cache_v, t: int,
              pos_valid, beam_group: int = 1):
-        """One token: x_t (B,1,D) at position t; cache_k/v (B,S,H,Dh) are
-        written at t in place; pos_valid (B,S) = arange(S) <= t.
+        """One token: x_t (B,1,D) at position t (an int, or a 0-d int64
+        tensor when the step is traced for export, so one program serves
+        every t); cache_k/v (B,S,H,Dh) are written at t in place;
+        pos_valid (B,S) = arange(S) <= t.
 
         beam_group K > 1 marks x_t as B = B'·K sample-major beam rows whose
         mem_kv/mem_valid stay untiled at (B', ·): the K beams of a sample
@@ -71,8 +73,12 @@ class TextDecoderLayer(nn.Module):
         Returns y_t (B,1,D)."""
         qh = self.self_attn.project_q(x_t)
         kh_t, vh_t = self.self_attn.project_kv(x_t, x_t)
-        cache_k[:, t] = kh_t[:, 0]
-        cache_v[:, t] = vh_t[:, 0]
+        if isinstance(t, torch.Tensor):  # an exported step's 0-d input
+            cache_k.index_copy_(1, t.view(1), kh_t)
+            cache_v.index_copy_(1, t.view(1), vh_t)
+        else:
+            cache_k[:, t] = kh_t[:, 0]
+            cache_v[:, t] = vh_t[:, 0]
         x = self.norm1(x_t + self.self_attn.attend(qh, cache_k, cache_v,
                                                    pos_valid))
         mem_k, mem_v = mem_kv

@@ -28,6 +28,15 @@ a kernel or raises. Masks are passed as (B, Tk) key validity plus a
 `causal` flag and applied as additive -1e9, as the TPU kernels do; nothing
 materialises a (B, Tq, Tk) mask. Both kernels are forward-only, like the
 TPU originals.
+
+Both wrappers are also torch ops, `gpv::fused_attention` and
+`gpv::fused_biattention` (`torch.library.custom_op`: the CUDA kernel is
+the launch above, the CPU kernel the plain version, a fake kernel gives
+the outputs' shapes), so `torch.export` and `torch.compile` see one node
+where they cannot trace a ctypes launch. Only traced code goes through the
+op: an eager call takes the wrapper's direct path, because the op's
+dispatch adds host time to every call (PERF.md). The ops are forward-only:
+no autograd formula is registered.
 """
 from __future__ import annotations
 
@@ -213,14 +222,28 @@ def _count(wrapper, variant: str) -> None:
         wrapper.variant_launches[variant] += 1
 
 
+def _traced(t: torch.Tensor) -> bool:
+    """True while torch.export or torch.compile traces the caller (the
+    tensors are fake, or dynamo runs): the call must become an op node."""
+    return torch.compiler.is_compiling() or type(t) is not torch.Tensor
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: Optional[torch.Tensor] = None,
                     causal: bool = False) -> torch.Tensor:
     """K1: q (B,Tq,H,Dh), k/v (B,Tk,H,Dh), key_valid (B,Tk) bool (True =
     valid) or None, causal (query i sees keys j <= i). Returns (B,Tq,H,Dh)
-    in q's dtype. CPU tensors take `attend_plain`."""
+    in q's dtype. CPU tensors take `attend_plain`; traced code the op
+    `gpv::fused_attention`."""
+    if _traced(q):
+        return torch.ops.gpv.fused_attention(q, k, v, key_valid, causal)
     if q.device.type == "cpu":
         return attend_plain(q, k, v, key_valid, causal)
+    return _launch_attention(q, k, v, key_valid, causal)
+
+
+def _launch_attention(q, k, v, key_valid, causal) -> torch.Tensor:
+    """K1 on CUDA tensors: check, plan, launch, count."""
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     _check("fused_attention", q.device, q.dtype,
@@ -263,9 +286,17 @@ def fused_biattention(q1, k1, v1, q2, k2, v2,
     (B,T_s,H,Dh) and optional key validity valid_s (B,T_s).
     Returns ctx1 = softmax(q2 k1^T + m1) v1 (B,T2,H,Dh) and
     ctx2 = softmax(q1 k2^T + m2) v2 (B,T1,H,Dh). CPU tensors take
-    `biattend_plain`."""
+    `biattend_plain`; traced code the op `gpv::fused_biattention`."""
+    if _traced(q1):
+        return torch.ops.gpv.fused_biattention(q1, k1, v1, q2, k2, v2,
+                                               valid1, valid2)
     if q1.device.type == "cpu":
         return biattend_plain(q1, k1, v1, q2, k2, v2, valid1, valid2)
+    return _launch_biattention(q1, k1, v1, q2, k2, v2, valid1, valid2)
+
+
+def _launch_biattention(q1, k1, v1, q2, k2, v2, valid1, valid2):
+    """K2 on CUDA tensors: check, plan, launch, count."""
     B, T1, H, Dh = q1.shape
     T2 = q2.shape[1]
     s1, s2 = (B, T1, H, Dh), (B, T2, H, Dh)
@@ -296,3 +327,25 @@ def fused_biattention(q1, k1, v1, q2, k2, v2,
 
 fused_biattention.launches = 0
 fused_biattention.variant_launches = dict.fromkeys(("tile", "fp32"), 0)
+
+
+# ---- the torch ops: CUDA = the launch, CPU = the plain version ----
+
+_attention_op = torch.library.custom_op(
+    "gpv::fused_attention", _launch_attention, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? key_valid, bool causal)"
+           " -> Tensor")
+_attention_op.register_kernel("cpu")(attend_plain)
+_attention_op.register_fake(
+    lambda q, k, v, key_valid, causal: torch.empty_like(q))
+
+_biattention_op = torch.library.custom_op(
+    "gpv::fused_biattention", _launch_biattention, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor q1, Tensor k1, Tensor v1, Tensor q2, Tensor k2, "
+           "Tensor v2, Tensor? valid1, Tensor? valid2) -> (Tensor, Tensor)")
+_biattention_op.register_kernel("cpu")(biattend_plain)
+_biattention_op.register_fake(
+    lambda q1, k1, v1, q2, k2, v2, valid1, valid2: (torch.empty_like(q2),
+                                                    torch.empty_like(q1)))

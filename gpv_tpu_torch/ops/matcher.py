@@ -3,14 +3,19 @@
 Reference `utils/matcher.py`: the cost 5·L1 + 1·(−prob[target class]) +
 2·(−GIoU) per image, solved with `scipy.optimize.linear_sum_assignment` on
 the host. The cost matrices of the whole batch are built on the device in
-one pass and copied to the host once; scipy then solves each image. (The
-JAX package moved the solve onto the TPU as a `while_loop` Jonker-Volgenant;
-in eager PyTorch a sequential per-row solver would cost a launch and a
-synchronisation per row, and scipy's solver finds the same optima.)
+one pass and copied to the host once; the native runtime's C++ solver
+(`gpv_tpu_torch.native`, the port's copy of `gpv_tpu/native/lap.cc`) then
+solves every image in one call. (The JAX package moved the solve onto the
+TPU as a `while_loop` Jonker-Volgenant; in eager PyTorch a sequential
+per-row solver would cost a launch and a synchronisation per row.) Both
+solvers reach the optimum; on an exact tie the C++ solver may pick another
+assignment than scipy, which stays the tests' oracle.
 
 Ragged targets are padded to a fixed M: a padded target row costs 0 against
 every query, a constant row, which adds the same amount to every complete
-assignment and so leaves the real rows' optimum where it was.
+assignment and so leaves the real rows' optimum where it was. The solver
+takes M <= Q, which the padding keeps (M is the collator's
+`max_target_boxes`, at most the query count).
 """
 from __future__ import annotations
 
@@ -51,17 +56,13 @@ def match_costs(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
 
 def solve_costs(costs: np.ndarray) -> np.ndarray:
     """(B, M, Q) host costs, M <= Q -> (B, M) int64: the query assigned to
-    each target row, by `scipy.optimize.linear_sum_assignment` per image."""
-    from scipy.optimize import linear_sum_assignment
+    each target row, every image solved in one native call."""
+    from ..native import solve_lsap_native
     B, M, Q = costs.shape
     if M > Q:
         raise ValueError(f"{M} target rows for {Q} queries: every target "
                          "needs its own query")
-    out = np.empty((B, M), np.int64)
-    for b in range(B):
-        rows, cols = linear_sum_assignment(costs[b])
-        out[b, rows] = cols
-    return out
+    return solve_lsap_native(costs).astype(np.int64)
 
 
 @torch.no_grad()

@@ -80,11 +80,20 @@ class GPVServer:
         `engine.predict_beam`; it resolves to {answers, answer_probs,
         boxes, relevance, answer} with `answer` the top beam. K = 1 is a
         1-beam search, so a beam request always gets `answers`. Requests
-        share a batch only when their vocab mask and beam size match."""
+        share a batch only when their vocab mask and beam size match. An
+        engine without `predict_beam` (an `ExportedEngine`) refuses a beam
+        request here with ValueError."""
         fut: Future = Future()
         beam = None if beam_size is None else int(beam_size)
         if beam is not None and beam < 1:
             raise ValueError(f"beam_size must be >= 1, got {beam}")
+        if beam is not None and not hasattr(self.engine, "predict_beam"):
+            # refused at the door: inside a worker it would fail the whole
+            # coalesced batch
+            raise ValueError(
+                "beam_size requested but this engine does not support beam "
+                "search (no predict_beam; exported bundles serve greedy "
+                "only)")
         with self._lifecycle_lock:
             if self._closed.is_set() or self._closing.is_set():
                 raise RuntimeError("server closed")

@@ -6,10 +6,15 @@ Reference (`exp/gpv/train_distr.py:386-394`): one `torch.save` dict of the
 model, optimizer, epoch, step and selection metric. Here a checkpoint is
 one torch file `ckpt_dir/<name>` ("model" for the best, "last" for the
 rolling one) holding the model's state dict, the optimizer's, the lr
-schedule's and the step, with `ckpt_dir/<name>.meta.json` beside it as the
-JAX package writes it. The file is written under a temporary name and
-renamed into place, and the meta is written last, so a write cut short
-leaves the previous checkpoint whole.
+schedule's, the step and each optimizer group's parameter names, with
+`ckpt_dir/<name>.meta.json` beside it as the JAX package writes it. The
+file is written under a temporary name and renamed into place, and the
+meta is written last, so a write cut short leaves the previous checkpoint
+whole.
+
+The names let a run whose optimizer groups differ from the saved ones
+resume: phase 2 of the two-phase recipe (`scripts/train.sh`) unfreezes the
+DETR parameters that phase 1 left out of every group (`load_into`).
 
 Not here: an orbax directory of the JAX package cannot be read without JAX
 (ROADMAP Queue 1 item 19), and `training.async_checkpoint` is refused
@@ -20,12 +25,20 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, Set, Tuple
+from typing import Any, Dict, List, Set, Tuple
 
 import torch
 from torch import nn
 
 from ..weights import load_torch_state_dict
+
+
+def param_names(state) -> Dict[str, List[str]]:
+    """{optimizer group name: the names of its parameters, in the group's
+    order} of a `TrainState`, as `build_optimizer` filled the groups."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {g["name"]: [names[id(p)] for p in g["params"]]
+            for g in state.optimizer.param_groups}
 
 
 def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
@@ -38,7 +51,8 @@ def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
     torch.save({"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "scheduler": state.scheduler.state_dict(),
-                "step": int(state.step)}, tmp)
+                "step": int(state.step),
+                "param_names": param_names(state)}, tmp)
     os.replace(tmp, path)
     (path.parent / f"{name}.meta.json").write_text(
         json.dumps(metadata, default=float))
@@ -63,11 +77,54 @@ def restore_checkpoint(ckpt_dir: str | Path,
 
 
 def load_into(state, payload: dict) -> None:
-    """Restore a `restore_checkpoint` payload into `state` in place."""
+    """Restore a `restore_checkpoint` payload into `state` in place.
+
+    Saved optimizer groups that hold the parameters `state`'s hold (same
+    names, same order): everything is restored as saved. Groups that
+    differ (phase 2 resuming phase 1, whose frozen DETR parameters were in
+    no group):
+      - the model loads strictly and the step is restored;
+      - AdamW's per-parameter state (exp_avg, exp_avg_sq, step) is carried
+        by parameter name for every parameter that is in a group in both;
+        a parameter that trains only now starts from empty state;
+      - the groups keep this run's hyperparameters, and the LambdaLR is
+        rebuilt at the restored step, so the next update takes the lr
+        that this run's schedule gives at that step.
+    A checkpoint without group names whose groups differ raises: its
+    moments cannot be matched to parameters."""
     state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
-    state.scheduler.load_state_dict(payload["scheduler"])
+    saved = payload["optimizer"]
+    saved_names = payload.get("param_names")
+    names = param_names(state)
+    if saved_names is None:
+        shape = [(g.get("name"), len(g["params"]))
+                 for g in saved["param_groups"]]
+        if shape != [(g, len(n)) for g, n in names.items()]:
+            raise ValueError(
+                f"the checkpoint's optimizer groups {shape} differ from this "
+                f"run's {[(g, len(n)) for g, n in names.items()]} and it "
+                "holds no parameter names (written before ROADMAP Queue 3 "
+                "F1 was repaired), so its AdamW moments cannot be carried: "
+                "resume it with the training.freeze it was written with")
+        saved_names = names
     state.step = int(payload["step"])
+    if saved_names == names:
+        state.optimizer.load_state_dict(saved)
+        state.scheduler.load_state_dict(payload["scheduler"])
+        return
+    by_name = {}
+    for g in saved["param_groups"]:
+        for i, n in zip(g["params"], saved_names[g["name"]]):
+            if i in saved["state"]:
+                by_name[n] = saved["state"][i]
+    order = [n for g in names.values() for n in g]  # this run's indices
+    fresh = state.optimizer.state_dict()
+    fresh["state"] = {i: by_name[n] for i, n in enumerate(order)
+                      if n in by_name}
+    state.optimizer.load_state_dict(fresh)
+    state.scheduler = torch.optim.lr_scheduler.LambdaLR(
+        state.optimizer, state.scheduler.lr_lambdas,
+        last_epoch=state.step - 1)
 
 
 @torch.no_grad()

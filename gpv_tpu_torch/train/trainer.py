@@ -11,6 +11,16 @@ selection metric is refexp mAP, eval runs every `eval_every` epochs, and
 resuming does not restore step or epoch (:268-278). A rolling `last`
 checkpoint every `ckpt_step` steps, and `auto_resume` from it.
 
+Two-phase resume (`scripts/train.sh`): phase 1 trains with
+`training.freeze` and `model.pretr_detr`, so its frozen DETR parameters are
+in no AdamW group; phase 2 resumes its `ckpts/model` with the freeze off.
+`train.checkpoint.load_into` then loads the model strictly, restores the
+step (and, here, the epoch), carries AdamW's moments and per-parameter
+step by parameter name for every parameter that trained in phase 1,
+starts the newly unfrozen parameters from empty state, and rebuilds the
+lr schedule at the restored step. (The JAX package cannot resume this
+step at all: its orbax restore refuses the changed optimizer tree.)
+
 The model trains on the card unless `device` says otherwise
 (`engine.resolve_device`). Parameters stay fp32; `tpu.dtype: bfloat16`
 runs the forward under bf16 autocast. In-train eval and visualisation go

@@ -1,8 +1,10 @@
 """The port's offline-eval data and metrics against `gpv_tpu`, on the CPU:
-every COCO task dataset (eval and training, both host resizes), the PTB
+every COCO task dataset (eval and training, every host resize, the fused
+C++ jitter and its numpy reference), the PTB
 rules, BLEU, CIDEr-D, VOC AP and the five evaluators under each novelty
 split, on the same seeded inputs.
 """
+import functools
 import json
 from collections import Counter
 from pathlib import Path
@@ -72,6 +74,15 @@ def _configs(data_dir, resize, split="gpv_split"):
             load_config(ROOT / "configs", "exp/gpv", over))
 
 
+def _pin_jitter(monkeypatch, native: bool):
+    """Both packages' ColorJitter and RandomGrayscale on the fused C++
+    jitter (`native`) or on numpy."""
+    monkeypatch.setattr(jax_transforms, "_NATIVE", None if native else False)
+    for cls in (transforms.ColorJitter, transforms.RandomGrayscale):
+        monkeypatch.setattr(cls, "__call__", functools.partialmethod(
+            cls.__call__, native=native))
+
+
 def _same_item(got, want):
     assert sorted(got) == sorted(want)
     for key, w in want.items():
@@ -83,14 +94,15 @@ def _same_item(got, want):
             assert g == w, key
 
 
-@pytest.mark.parametrize("resize", ["pil", "exact"])
+@pytest.mark.parametrize("native", [True, False], ids=["cxx", "numpy"])
+@pytest.mark.parametrize("resize", ["pil", "exact", "native"])
 @pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("name", sorted(TASK_CONFIG))
-def test_dataset_items_match_jax(name, training, resize, data_dir,
+def test_dataset_items_match_jax(name, training, resize, native, data_dir,
                                  monkeypatch):
     """`get(i, RandomState(i))`: bit-equal pixels, equal boxes, answers
-    and the other fields (the JAX package on its numpy jitter)."""
-    monkeypatch.setattr(jax_transforms, "_NATIVE", False)
+    and the other fields, both packages on the same jitter path."""
+    _pin_jitter(monkeypatch, native)
     split = "original_split" if name in TEST_SPLITS else "gpv_split"
     jcfg, cfg = _configs(data_dir, resize, split)
     node = TASK_CONFIG[name]
@@ -108,9 +120,10 @@ def test_dataset_items_match_jax(name, training, resize, data_dir,
                    want_ds.get(i, np.random.RandomState(i)))
 
 
-def test_multitask_dataset_matches_jax(data_dir, monkeypatch):
-    monkeypatch.setattr(jax_transforms, "_NATIVE", False)
-    jcfg, cfg = _configs(data_dir, "pil")
+@pytest.mark.parametrize("native", [True, False], ids=["cxx", "numpy"])
+def test_multitask_dataset_matches_jax(data_dir, native, monkeypatch):
+    _pin_jitter(monkeypatch, native)
+    jcfg, cfg = _configs(data_dir, "native" if native else "pil")
     want = jax_coco.CocoMultitaskDataset(jcfg.learning_datasets,
                                          jcfg.task_configs, "train", True)
     got = coco.CocoMultitaskDataset(cfg.learning_datasets, cfg.task_configs,
@@ -154,12 +167,13 @@ def test_load_pixels_is_the_only_pixel_source(data_dir):
                        base.get(i, np.random.RandomState(i)))
 
 
+@pytest.mark.parametrize("native", [True, False], ids=["cxx", "numpy"])
 @pytest.mark.parametrize("task", ["CocoDetection", "CocoClassification",
                                   "CocoVqa"])
-def test_train_transforms_match_jax(task, monkeypatch):
+def test_train_transforms_match_jax(task, native, monkeypatch):
     """The jitter stacks on a 3-channel float image, over 20 seeds: the
     same draws in the same order give the same values."""
-    monkeypatch.setattr(jax_transforms, "_NATIVE", False)
+    _pin_jitter(monkeypatch, native)
     img = np.random.RandomState(3).randint(0, 256, (24, 32, 3)).astype(
         np.uint8)
     for seed in range(20):

@@ -214,3 +214,29 @@ def test_misaligned_view_is_refused():
     q = flat[1:].view(2, 9, 2, 8)  # contiguous, 2 bytes off the boundary
     with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
         port_attn.fused_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [1, 20])
+def test_torch_ops_equal_the_direct_wrappers(dtype, Tq):
+    """`torch.ops.gpv.*` (what exported programs call) on the card: bit
+    for bit the direct wrapper's result, and one launch counted a call."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    mk = lambda T, H, Dh: torch.randn(2, T, H, Dh, device="cuda",  # noqa
+                                      generator=g).to(dtype)
+    q, k, v = mk(Tq, 8, 96), mk(20, 8, 96), mk(20, 8, 96)
+    kv = torch.arange(20, device="cuda").expand(2, 20) < 12
+    with torch.inference_mode():
+        want = port_attn.fused_attention(q, k, v, kv.contiguous(), False)
+        n = port_attn.fused_attention.launches
+        got = torch.ops.gpv.fused_attention(q, k, v, kv.contiguous(), False)
+        assert port_attn.fused_attention.launches == n + 1
+        assert torch.equal(got, want)
+        xs = [mk(T, 16, 48) for T in (20, 20, 20, 100, 100, 100)]
+        want2 = port_attn.fused_biattention(*xs, kv.contiguous(), None)
+        n = port_attn.fused_biattention.launches
+        got2 = torch.ops.gpv.fused_biattention(*xs, kv.contiguous(), None)
+        assert port_attn.fused_biattention.launches == n + 1
+        assert all(torch.equal(a, b) for a, b in zip(got2, want2))

@@ -185,6 +185,20 @@ def test_launch_counts_lose_no_update_across_threads():
         w.launches, w.variant_launches = saved
 
 
+def test_native_sources_ship_as_package_data():
+    """Every C++ source the native runtime compiles is matched by the
+    package-data globs, so an installed package can still build it."""
+    import tomllib
+
+    from gpv_tpu_torch.native import build
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["package-data"]
+    pkg = ROOT / "gpv_tpu_torch" / "native"
+    shipped = {p for g in data["gpv_tpu_torch.native"] for p in pkg.glob(g)}
+    for name in build.SOURCES:
+        assert pkg / name in shipped
+
+
 def test_data_files_ship_as_package_data():
     """The COCO synonyms behind the classification masks are matched by
     the package-data globs."""

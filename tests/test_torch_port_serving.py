@@ -481,9 +481,11 @@ class TestHttp:
 
 
 def test_bundle_mode_is_refused():
+    """`bundle=` serves an exported bundle (tests/test_torch_port_export.py);
+    a directory that holds none is refused before anything listens."""
     from gpv_tpu_torch.cli.serve_http import main
-    with pytest.raises(NotImplementedError, match="export slice"):
-        main(["bundle=/nonexistent"])
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
+        main(["bundle=/nonexistent", "device=cpu"])
 
 
 # ------------------------------------------------- vocab masks, embedding
