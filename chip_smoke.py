@@ -75,7 +75,12 @@ Phases, each printing one JSON line:
              frozen parameters bit-unchanged and every other leaf moved,
              K1 12 launches a step at the dedup's rows, the eval's keys
              finite and its launches by variant, the restored state equal
-             to the saved one, every shape a `kernels` case. Then the
+             to the saved one, every shape a `kernels` case. Then an
+             async round (`async`): a save with async_write, 2 steps
+             while it writes, the join and a resume, which must restore
+             the state at the save (model and AdamW bit for bit), and a
+             second async save on the path (buffers reused): blocking
+             ms, in-flight step s, join s. Then the
              two-phase recipe (`two_phase`): phase 1 frozen from a seeded
              pretrained DETR, 2 steps, saved; phase 2 resumes it unfrozen:
              model and carried AdamW state equal to the saved ones, the
@@ -89,12 +94,31 @@ Phases, each printing one JSON line:
   train_e2e  one train step in fp32 (TF32 off) on the card and on the CPU
              from the same weights at dropout 0, B=4, 480x640: losses
              within 1e-4 relative, the assignment equal, the clipped
-             gradients within 1e-3 x max(1, max|g|) per leaf.
+             gradients within 1e-3 x max(1, max|g|) per leaf;
+  data_prep  offline data preparation on a seeded raw tree in COCO 2014 /
+             VQA v2 schema (`write_raw_coco`: 1000 train2014 and 500
+             val2014 images, cut from COCO's 82,783 / 40,504): the port's
+             preprocess, SCE split (seed 0, train_frac 0.9) and stats CLIs
+             in-process, seconds per stage, samples by task and subset
+             kept and discarded, the vocab's size, the SCE assignment's
+             samples/s. Gates: every count what the raw tree implies, the
+             category split 40/10/30 with person shared, no train/val
+             sample with an unseen category, train and val images
+             disjoint, test from val2014, the vocab sorted with its four
+             special tokens. Then `Trainer` on the prepared gpv_split and
+             vocab.json (B=120, bf16, 8 forked workers,
+             training.async_checkpoint, a `last` save after each of 2
+             steps): losses finite, K1 launches as train_step_launches
+             gives them at each batch's dedup rows, ckpts/last's model the
+             trainer's at that save bit for bit; and `build_engine(ckpt=
+             <exp>/ckpts/last)` predicting a B=20 val batch: launches as
+             path_launches gives them, answers, boxes and relevance equal
+             to the trainer's weights in memory (`GPVEngine.load_weights`).
 Then one `kernels` line (each kernel of the paths: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
 predict_beam, embed_vocab, the whole serve run, the whole eval phase, one
-train step, the in-train eval and the exported bundle's B=20 predict
-under `paths`), and
+train step, the in-train eval, the exported bundle's B=20 predict, and
+data_prep's two train steps and its predict under `paths`), and
 last `{"ok": true,
 "device": {...}}`. Any failed phase exits non-zero before that line;
 without a CUDA device, or without the package beside this file, it exits
@@ -106,6 +130,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -147,7 +172,8 @@ TRAIN_TASKS = ("CocoCaptioning", "CocoDetection", "CocoClassification",
 TRAIN_B, TRAIN_ACCUM = 120, (1, 2, 4, 8)  # batch, grad_accum_steps tried
 TRAIN_SAMPLES, TRAIN_VAL = 240, 40  # a task: 8 batches of 120; val
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_RESIDENT = 2, 5, 3
-TRAIN_DEDUP_ROWS = 16   # U: 7 distinct queries padded to one bucket
+# every U the dedup emits at TRAIN_B: multiples of its bucket (16), capped
+DEDUP_ROWS = tuple(range(16, TRAIN_B, 16)) + (TRAIN_B,)
 E2E_TRAIN_B = 4
 TRAIN_LOSS_KEYS = {"loss_caption", "loss_vqa", "loss_cls", "loss_ce",
                    "loss_bbox", "loss_giou", "cardinality_error",
@@ -378,16 +404,17 @@ def path_launches(path: str, steps: int, batch: int = B, beam: int = BEAM,
 
 def path_cases() -> list:
     """Every shape of every call this script makes, once each: predict
-    and predict_beam at B, embed_vocab, and both paths at each serving
-    bucket; then the teacher-forced causal shape (training's, on no path
-    here)."""
+    and predict_beam at B, embed_vocab, both paths at each serving bucket,
+    and a train step at every row count the query dedup can emit (the
+    prepared data's batches take any of them); then the teacher-forced
+    causal shape (training's, on no path here)."""
     calls = [path_launches("predict", 0), path_launches("predict_beam", 0),
              path_launches("embed_vocab", 0)]
     for b in SERVE_BUCKETS:
         calls += [path_launches("predict", 0, b),
                   path_launches("predict_beam", 0, b, SERVE_BEAM)]
-    calls += [train_step_launches(TRAIN_DEDUP_ROWS, True),
-              train_step_launches(TRAIN_B, False),
+    calls += [train_step_launches(rows, True) for rows in DEDUP_ROWS]
+    calls += [train_step_launches(TRAIN_B, False),
               train_step_launches(E2E_TRAIN_B, False)]
     return list(dict.fromkeys(c for counts in calls for c in counts)) + [
         Case("teacher_forced_causal", B, 20, 20, 8, 96, None, True)]
@@ -1074,6 +1101,153 @@ def eval_samples(task: str, n: int = EVAL_SAMPLES) -> list:
     return out
 
 
+# COCO 2014's 80 categories in the order of their ids (COCO_IDS)
+COCO_NAMES = (
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella",
+    "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard",
+    "sports ball", "kite", "baseball bat", "baseball glove", "skateboard",
+    "surfboard", "tennis racket", "bottle", "wine glass", "cup", "fork",
+    "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange",
+    "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
+    "couch", "potted plant", "bed", "dining table", "toilet", "tv",
+    "laptop", "mouse", "remote", "keyboard", "cell phone", "microwave",
+    "oven", "toaster", "sink", "refrigerator", "book", "clock", "vase",
+    "scissors", "teddy bear", "hair drier", "toothbrush")
+COCO_IDS = (list(range(1, 12)) + list(range(13, 26)) + [27, 28]
+            + list(range(31, 45)) + list(range(46, 66)) + [67, 70]
+            + list(range(72, 83)) + list(range(84, 91)))
+# the raw tree of data_prep: COCO 2014 cut from 82,783 / 40,504 images
+RAW_TRAIN_IMAGES, RAW_VAL_IMAGES = 1000, 500
+RAW_FILLER = ("a", "the", "is", "on", "in", "with", "near", "next", "to",
+              "sitting", "standing", "white", "red", "large", "small",
+              "some", "there", "field", "street", "room", "picture")
+RAW_COLORS = ("red", "white", "black", "blue", "green", "orange", "brown")
+# captions and answers that reach the special cases of the SCE split
+RAW_SPECIAL = ("a man eating a hot dog at a table",
+               "a teddy bear sitting on a bed",
+               "an orange cat lying on a couch",
+               "people watch the game on tv",
+               "a man wearing a gold watch",
+               "two oranges in a bowl",
+               "a wine glass next to a cup")
+
+
+def write_raw_coco(data_dir: Path, n_train: int = RAW_TRAIN_IMAGES,
+                   n_val: int = RAW_VAL_IMAGES, seed: int = 0) -> dict:
+    """A seeded raw tree in COCO 2014 / VQA v2 schema under `data_dir`, in
+    the layout of `configs/data/preprocess_*.yaml`: instances (the 80
+    categories under their COCO ids, about 7.3 boxes an image over about
+    2.9 categories), 5 captions an image, and about 5.4 VQA questions an
+    image with 10 answers each, for `n_train` train2014 and `n_val` val2014
+    images. The text mixes category synonyms (hot dog, teddy bear, orange
+    as a colour, watch as a verb) with filler words. Returns, per image id,
+    its subset and its (image, category) pairs, captions and questions."""
+    from gpv_tpu_torch.evaluation.vocab_mask import coco_synonyms
+    syn = coco_synonyms()
+    if set(syn) != set(COCO_NAMES):
+        fail("the synonym table's keys are not COCO's 80 categories")
+    rng = np.random.RandomState(seed)
+    ann_dir = data_dir / "learning_phase_data/coco/annotations"
+    vqa_dir = data_dir / "learning_phase_data/vqa"
+    for d in (ann_dir, vqa_dir / "questions", vqa_dir / "anno"):
+        d.mkdir(parents=True, exist_ok=True)
+    cats = [{"id": i, "name": n, "supercategory": "thing"}
+            for i, n in zip(COCO_IDS, COCO_NAMES)]
+    weight = np.where(np.asarray(COCO_NAMES) == "person", 10.0, 1.0)
+    ids = rng.choice(np.arange(1, 600000), n_train + n_val, replace=False)
+    truth, ann_id, cap_id = {}, 1, 1
+
+    def phrase(names):
+        return str(rng.choice(syn[names[rng.randint(len(names))]]))
+
+    for subset, image_ids in (("train2014", ids[:n_train]),
+                              ("val2014", ids[n_train:])):
+        images, annos, caps, qs, qannos = [], [], [], [], []
+        for image_id in map(int, image_ids):
+            h, w = COCO_SIZES[image_id % len(COCO_SIZES)]
+            images.append({"id": image_id, "height": h, "width": w,
+                           "file_name": f"COCO_{subset}_{image_id:012d}.jpg"})
+            k = min(1 + rng.poisson(1.9), 8)
+            names = [COCO_NAMES[i] for i in rng.choice(
+                80, k, replace=False, p=weight / weight.sum())]
+            for name in names:
+                for _ in range(1 + rng.poisson(1.5)):
+                    x, y = rng.uniform(0, 0.8 * w), rng.uniform(0, 0.8 * h)
+                    annos.append({
+                        "id": ann_id, "image_id": image_id, "iscrowd": 0,
+                        "category_id": COCO_IDS[COCO_NAMES.index(name)],
+                        "bbox": [round(x, 2), round(y, 2),
+                                 round(rng.uniform(4, w - x), 2),
+                                 round(rng.uniform(4, h - y), 2)]})
+                    ann_id += 1
+            for _ in range(5):
+                if rng.rand() < 0.15:
+                    text = str(rng.choice(RAW_SPECIAL))
+                else:
+                    text = " ".join([str(rng.choice(RAW_FILLER)),
+                                     phrase(names),
+                                     str(rng.choice(RAW_FILLER)),
+                                     str(rng.choice(RAW_FILLER)),
+                                     phrase(names)])
+                caps.append({"id": cap_id, "image_id": image_id,
+                             "caption": text.capitalize() + "."})
+                cap_id += 1
+            n_q = 5 + int(rng.rand() < 0.4)
+            for q in range(n_q):
+                kind = rng.randint(6)
+                noun = phrase(names)
+                if kind == 0:
+                    text, ans, atype = (f"what color is the {noun}?",
+                                        str(rng.choice(RAW_COLORS)), "other")
+                elif kind == 1:
+                    text, ans, atype = (f"how many {noun} are there?",
+                                        str(rng.randint(1, 6)), "number")
+                elif kind == 2:
+                    text, ans, atype = (f"is there a {noun} in the picture?",
+                                        str(rng.choice(("yes", "no"))),
+                                        "yes/no")
+                elif kind == 3:
+                    text, ans, atype = ("what is the man holding?", noun,
+                                        "other")
+                elif kind == 4:
+                    text, ans, atype = ("do they watch the game?",
+                                        str(rng.choice(("yes", "no"))),
+                                        "yes/no")
+                else:
+                    text, ans, atype = ("what is on the plate?", str(
+                        rng.choice(("hot dog", "orange", "pizza", "cake"))),
+                        "other")
+                qid = image_id * 10 + q
+                qs.append({"image_id": image_id, "question": text,
+                           "question_id": qid})
+                others = [str(rng.choice(RAW_FILLER)) for _ in range(3)]
+                answers = [ans] * (7 + rng.randint(4))
+                answers += others[:10 - len(answers)]
+                qannos.append({
+                    "question_id": qid, "image_id": image_id,
+                    "question_type": " ".join(text.split()[:3]),
+                    "answer_type": atype, "multiple_choice_answer": ans,
+                    "answers": [{"answer": a, "answer_confidence": "yes",
+                                 "answer_id": j + 1}
+                                for j, a in enumerate(answers)]})
+            truth[image_id] = {"subset": subset, "pairs": len(names),
+                               "captions": 5, "questions": n_q}
+        short = subset[:-4]
+        (ann_dir / f"instances_{subset}.json").write_text(json.dumps(
+            {"images": images, "annotations": annos, "categories": cats}))
+        (ann_dir / f"captions_{subset}.json").write_text(json.dumps(
+            {"images": images, "annotations": caps}))
+        (vqa_dir / f"questions/v2_OpenEnded_mscoco_{subset}_questions.json"
+         ).write_text(json.dumps({"data_subtype": subset, "questions": qs}))
+        (vqa_dir / f"anno/v2_mscoco_{subset}_annotations.json").write_text(
+            json.dumps({"data_subtype": subset, "annotations": qannos,
+                        "split": short}))
+    return truth
+
+
 class _SeededPixels:
     """A task dataset whose pixels are seeded uint8 at the image's COCO
     size, made from the image id: no JPEG files and no PIL. Crop, resize,
@@ -1391,9 +1565,11 @@ def seeded_pixel_datasets():
         coco.DATASET_CLASSES.update(saved)
 
 
-def train_config(data_dir: Path, vocab_path: Path, *extra):
-    """`configs/exp/gpv.yaml` for the train phases, and the seeded train
-    and val samples of each task written where it reads them."""
+def train_config(data_dir: Path, vocab_path: Path, *extra,
+                 samples: bool = True):
+    """`configs/exp/gpv.yaml` for the train phases, and (`samples`) the
+    seeded train and val samples of each task written where it reads
+    them."""
     from gpv_tpu_torch.utils.config import load_config
     cfg = load_config(ROOT / "configs", "exp/gpv", [
         f"data_dir={data_dir}", f"output_dir={data_dir / 'exp'}",
@@ -1404,7 +1580,7 @@ def train_config(data_dir: Path, vocab_path: Path, *extra):
         "training.num_val_samples={coco_vqa: %d, coco_cap: %d, "
         "coco_det: %d, coco_cls: %d}" % ((TRAIN_VAL,) * 4),
         "device=cuda"] + list(extra))
-    for task in TRAIN_TASKS:
+    for task in TRAIN_TASKS if samples else ():
         samples = cfg.task_configs[EVAL_TASKS[task]].samples
         for subset, n in (("train", TRAIN_SAMPLES), ("val", TRAIN_VAL)):
             path = Path(samples[subset])
@@ -1617,11 +1793,61 @@ def phase_train(vocab_path: Path, tmp: Path, checked: set):
                                    torch.as_tensor(v)):
                     fail(f"train: resumed optimizer state {i}.{k} differs")
         rec["resume_equal"] = True
+        rec["async"] = _async_round(trainer, cfg, batch)
         del trainer, model, saved, back
     torch.cuda.empty_cache()
     rec["eval"] = ev
     rec["seconds"] = time.perf_counter() - t_phase
     return rec, one_step, ev, ev_counts, batch, costs
+
+
+def _async_round(trainer, cfg, batch) -> dict:
+    """An async save on the released-width state, 2 steps at once while
+    the write is in flight, the join, then a resume: the restored model
+    and AdamW state must be the state at the save, not after the steps.
+    Then a second async save on the path (its host buffers reused)."""
+    import torch
+    from gpv_tpu_torch.train.checkpoint import save_checkpoint, wait_for_saves
+
+    out, saved = {}, _state_copy(trainer.state)
+    t0 = time.perf_counter()
+    save_checkpoint(cfg.ckpt_dir, trainer.state, {"epoch": 0}, name="async",
+                    async_write=True)
+    out["blocking_ms_first"] = 1e3 * (time.perf_counter() - t0)
+    out["inflight_step_s"] = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        out["inflight_step_s"].append(time.perf_counter() - t0)
+    moved = _state_copy(trainer.state)
+    if all(torch.equal(moved[0][k], v) for k, v in saved[0].items()):
+        fail("train: the steps during the async save moved nothing")
+    t0 = time.perf_counter()
+    wait_for_saves()
+    out["join_s"] = time.perf_counter() - t0
+    trainer._resume(Path(cfg.ckpt_dir) / "async")
+    back = _state_copy(trainer.state)
+    if back[2] != saved[2] or any(
+            not torch.equal(back[0][k], v) for k, v in saved[0].items()):
+        fail("train: the async save restored another model than the one "
+             "at the save")
+    for i, st in saved[1].items():
+        for k, v in st.items():
+            if not torch.equal(torch.as_tensor(back[1][i][k]),
+                               torch.as_tensor(v)):
+                fail(f"train: async-saved optimizer state {i}.{k} is not "
+                     "the state at the save")
+    out["restored_state_at_save"] = True
+    t0 = time.perf_counter()
+    save_checkpoint(cfg.ckpt_dir, trainer.state, {"epoch": 0}, name="async",
+                    async_write=True)
+    out["blocking_ms_reused"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    wait_for_saves()
+    out["write_s_reused"] = time.perf_counter() - t0
+    out["bytes"] = (Path(cfg.ckpt_dir) / "async").stat().st_size
+    return out
 
 
 @contextlib.contextmanager
@@ -1992,6 +2218,231 @@ def phase_train_e2e(vocab_path: Path, tmp: Path, batch: dict) -> dict:
     return rec
 
 
+DATA_PREP_STEPS = 2
+SCE_LINE = re.compile(r"^(\w+)/(\w+): kept (\d+), discarded (\d+)$")
+PREP_TASKS = {"coco_detection": "pairs", "coco_classification": "pairs",
+              "coco_captions": "captions", "coco_vqa": "questions"}
+
+
+def _run_cli(main, argv) -> tuple:
+    """(printed text, seconds) of one CLI's `main(argv)`, run from the
+    root of the checkout (the CLIs read `configs/`)."""
+    import io
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.chdir(ROOT), contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def _prepare(data: Path) -> dict:
+    """The raw tree, then the port's preprocess, SCE split and stats CLIs
+    on it; the record and its gates (module docstring)."""
+    from gpv_tpu_torch.cli import data_stats, make_sce_split, preprocess
+    from gpv_tpu_torch.data import vocab_builder
+    from gpv_tpu_torch.text.vocab import SPECIAL_TOKENS
+
+    secs = {}
+    t0 = time.perf_counter()
+    truth = write_raw_coco(data)
+    secs["raw_tree"] = time.perf_counter() - t0
+    vocab_s, saved = [], (vocab_builder.build_vocab, vocab_builder.write_vocab)
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                vocab_s.append(time.perf_counter() - t)
+        return run
+    vocab_builder.build_vocab, vocab_builder.write_vocab = map(timed, saved)
+    try:
+        printed, t = _run_cli(preprocess.main, [f"data_dir={data}"])
+    finally:
+        vocab_builder.build_vocab, vocab_builder.write_vocab = saved
+    secs["preprocess"], secs["vocab"] = t - sum(vocab_s), sum(vocab_s)
+    sce, secs["sce_split"] = _run_cli(make_sce_split.main, [
+        f"data_dir={data}", "seed=0", "train_frac=0.9"])
+    stats, secs["stats"] = _run_cli(data_stats.main, [
+        f"data_dir={data}", "split=gpv_split"])
+
+    lp = data / "learning_phase_data"
+    load = lambda p: json.loads((lp / p).read_text())  # noqa: E731
+    ids = {s: {i for i, t in truth.items() if t["subset"] == s}
+           for s in ("train2014", "val2014")}
+    for task, field in PREP_TASKS.items():  # the original split
+        for subset, sub in (("train", "train2014"), ("val", "val2014")):
+            n = len(load(f"{task}/original_split/{subset}.json"))
+            want = sum(truth[i][field] for i in ids[sub])
+            if n != want:
+                fail(f"data_prep: {task}/original_split/{subset} holds {n} "
+                     f"samples, the raw tree {want}")
+    image_splits = load("coco_sce/image_splits.json")
+    split_ids = {s: set(image_splits[s]["image_ids"])
+                 for s in ("train", "val")}
+    split_ids["test"] = set(image_splits["test"]["image_ids"])
+    if split_ids["train"] & split_ids["val"] or \
+            split_ids["train"] | split_ids["val"] != ids["train2014"] or \
+            split_ids["test"] != ids["val2014"]:
+        fail("data_prep: train/val are not a partition of train2014, or "
+             "test is not val2014")
+    samples = {}
+    for ln in sce.splitlines():
+        m = SCE_LINE.match(ln)
+        if not m:
+            continue
+        task, subset, kept, dropped = m.groups()
+        kept, dropped = int(kept), int(dropped)
+        samples[f"{task}/{subset}"] = {"kept": kept, "discarded": dropped}
+        want = sum(truth[i][PREP_TASKS[task]] for i in split_ids[subset])
+        if kept + dropped != want or (subset == "test" and dropped):
+            fail(f"data_prep: {task}/{subset} kept {kept} + discarded "
+                 f"{dropped}, the raw tree gives {want}")
+        rows = load(f"{task}/gpv_split/{subset}.json")
+        image_ids = {r["image"]["image_id"] for r in rows}
+        if len(rows) != kept or not image_ids <= split_ids[subset]:
+            fail(f"data_prep: {task}/gpv_split/{subset} holds other "
+                 "samples than its split's")
+        if subset == "test" and {r["image"]["subset"] for r in rows} != {
+                "val2014"}:
+            fail(f"data_prep: {task} test samples not from val2014")
+        if subset != "test" and any(r["coco_categories"]["unseen"]
+                                    for r in rows):
+            fail(f"data_prep: a {task}/{subset} sample carries an unseen "
+                 "category")
+    if len(samples) != 12:
+        fail(f"data_prep: the SCE split printed {sorted(samples)}")
+    split = load("coco_sce/category_split.json")
+    sizes = [len(split[g]) for g in ("shared", "held_from_vqa",
+                                     "held_from_det")]
+    if sizes != [40, 10, 30] or split["shared"][0]["name"] != "person":
+        fail(f"data_prep: category split {sizes}, shared first "
+             f"{split['shared'][0]['name']}")
+    vocab = load("vocab/vocab.json")
+    if vocab != sorted(vocab) or not set(SPECIAL_TOKENS) <= set(vocab):
+        fail("data_prep: the vocab is not sorted or lacks a special token")
+    assigned = sum(v["kept"] + v["discarded"] for v in samples.values())
+    return {"raw_images": {s: len(v) for s, v in ids.items()},
+            "seconds_by_stage": secs, "samples": samples,
+            "vocab_size": len(vocab), "vocab_printed": printed.strip(),
+            "sce_samples_assigned": assigned,
+            "sce_samples_per_s": assigned / secs["sce_split"],
+            "stats_lines": len(stats.splitlines())}
+
+
+def phase_data_prep(tmp: Path, checked: set):
+    """Offline data preparation on a seeded raw COCO/VQA tree, a short
+    training run on what it prepared with async checkpoints, and a predict
+    from the trained checkpoint through the config entry point (module
+    docstring). Returns the record, the train steps' {Case: launches} and
+    the predict's."""
+    import torch
+    from gpv_tpu_torch.infer.build import build_engine
+    from gpv_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                wait_for_saves)
+    from gpv_tpu_torch.train.trainer import Trainer
+    from gpv_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    data = tmp / "data_prep"
+    rec = {"phase": "data_prep", **_prepare(data)}
+    vocab_path = data / "learning_phase_data/vocab/vocab.json"
+    cfg = train_config(data, vocab_path, "training.async_checkpoint=true",
+                       "training.ckpt_step=1", samples=False)
+    with seeded_pixel_datasets():
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)
+        rec["train_setup_s"] = time.perf_counter() - t0
+        rec["train_samples"] = len(trainer.datasets["train"])
+        batches = iter(trainer.loaders["train"])
+        waits, steps, blocking, rows, losses = [], [], [], [], []
+        _reset_counts()
+        for _ in range(DATA_PREP_STEPS):
+            t0 = time.perf_counter()
+            batch = next(batches)
+            waits.append(1e3 * (time.perf_counter() - t0))
+            rows.append(len(batch["query_uniq_ids"]))
+            t0 = time.perf_counter()
+            losses.append(_finite_losses("data_prep", trainer.train_step(
+                trainer.state, batch)))
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t0))
+            trainer.step += 1
+            t0 = time.perf_counter()
+            trainer.save_last(0)
+            blocking.append(1e3 * (time.perf_counter() - t0))
+        _, train_var = _read_counts()
+        at_save = {k: v.detach().clone()
+                   for k, v in trainer.model.state_dict().items()}
+        batches.close()
+        t0 = time.perf_counter()
+        wait_for_saves()
+        join_s = time.perf_counter() - t0
+        train_counts = Counter()
+        for u in rows:
+            train_counts.update(train_step_launches(u, True))
+        _check_counts("data_prep train", train_var, train_counts)
+        if {c.name for c in train_counts} - checked:
+            fail("data_prep: a train step's shape is not a kernels case")
+        ckpt = Path(cfg.ckpt_dir) / "last"
+        payload, meta = restore_checkpoint(ckpt.parent, ckpt.name)
+        if payload["step"] != DATA_PREP_STEPS or set(payload["model"]) != \
+                set(at_save) or any(not torch.equal(payload["model"][k],
+                                                    v.cpu())
+                                    for k, v in at_save.items()):
+            fail("data_prep: ckpts/last is not the model at its save")
+        del payload, at_save
+
+        # the trained checkpoint through the entry point, against the
+        # trainer's weights in memory
+        items = [trainer.datasets["val"].get(i, np.random.RandomState(i))
+                 for i in range(B)]
+        images = np.stack([it["image"] for it in items])
+        queries = [it["query"] for it in items]
+        t0 = time.perf_counter()
+        eng = build_engine(load_config(ROOT / "configs", "exp/gpv_inference", [
+            f"ckpt={ckpt}", "tpu.dtype=bfloat16", f"model.vocab={vocab_path}",
+            "device=cuda"]))
+        rec["engine_build_s"] = time.perf_counter() - t0
+        _reset_counts()
+        got = eng.predict(images, queries)
+        torch.cuda.synchronize()
+        _, pred_var = _read_counts()
+        decode_steps = eng.last_decode_steps
+        pred_counts = path_launches("predict", decode_steps)
+        _check_counts("data_prep predict", pred_var, pred_counts)
+        if {c.name for c in pred_counts} - checked:
+            fail("data_prep: a predict shape is not a kernels case")
+        _check_boxes(got)
+        # the trainer's weights in memory, taken as build_engine takes a
+        # checkpoint's: BN folded on the host (a fold on the card rounds
+        # otherwise), then cast and moved
+        trainer.engine.load_weights(trainer.model.cpu())
+        ref = trainer.engine.predict(images, queries)
+        for a, b in zip(got, ref):
+            if a["answer"] != b["answer"] or not np.array_equal(
+                    a["boxes"], b["boxes"]) or not np.array_equal(
+                        a["relevance"], b["relevance"]):
+                fail("data_prep: the engine built from ckpts/last answers "
+                     "otherwise than the trainer's weights in memory")
+        del trainer, eng
+    torch.cuda.empty_cache()
+    rec.update({
+        "train": {"batch": TRAIN_B, "steps": DATA_PREP_STEPS,
+                  "workers": int(cfg.training.num_workers),
+                  "dedup_rows": rows, "step_ms": steps,
+                  "loader_wait_ms": waits, "losses": losses,
+                  "async_save_blocking_ms": blocking, "join_s": join_s,
+                  "checkpoint_bytes": ckpt.stat().st_size,
+                  "launches_by_variant": train_var},
+        "predict": {"batch": B, "decode_steps": decode_steps,
+                    "launches_by_variant": pred_var,
+                    "engine_equals_in_memory": True},
+        "seconds": time.perf_counter() - t_phase})
+    return rec, train_counts, pred_counts
+
+
 EXPORT_BUCKETS, EXPORT_FP32_B, EXPORT_PAD_N = SERVE_BUCKETS, 4, 5
 EXPORT_CLIENTS, EXPORT_REQUESTS = 10, 10
 # run in a fresh process: load the bundle without the model code, predict
@@ -2280,6 +2731,9 @@ def main() -> None:
             emit(rec)
         records.append(phase_train_e2e(vocab_path, Path(tmp), batch))
         emit(records[-1])
+        prep, prep_train, prep_pred = phase_data_prep(Path(tmp), checked)
+        records.append(prep)
+        emit(prep)
     line = kernels_line(kern, {
         "predict": (sl, sl_counts), "predict_beam": (beam, beam_counts),
         "embed_vocab": (ve, ve_counts), "serve": (serve, serve_counts),
@@ -2287,7 +2741,9 @@ def main() -> None:
         "train_step": ({"launches_by_variant": by_variant(tr_counts)},
                        tr_counts),
         "train_eval": (tr_eval, tr_eval_counts),
-        "export": (ex, ex_counts)})
+        "export": (ex, ex_counts),
+        "data_prep_train": (prep["train"], prep_train),
+        "data_prep_predict": (prep["predict"], prep_pred)})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

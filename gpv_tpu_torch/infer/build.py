@@ -11,7 +11,7 @@ import torch
 from ..engine import GPVEngine
 from ..text.vocab import AnswerVocab
 from ..text.wordpiece import WordPieceTokenizer
-from ..weights import load_torch_state_dict
+from ..weights import load_torch_state_dict, orbax_refusal
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -19,12 +19,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def build_engine(cfg) -> GPVEngine:
     """Composed `exp/gpv[_inference]` config -> `GPVEngine`.
 
-    Honours `ckpt` (a reference torch `.pth`, its names loaded strictly;
-    null for seeded random weights; a missing path raises), `tpu.dtype`
-    (bfloat16 or float32), `model.vocab` / `model.bert_vocab` (null: the
-    debug vocabularies) and `device` (null: the CUDA card). An orbax
-    checkpoint directory and `tpu.infer_data_parallel != 1` raise: the
-    port reads no orbax without JAX, and runs on one card (ROADMAP).
+    Honours `ckpt` (null for seeded random weights; a missing path
+    raises; else any file `weights.load_torch_state_dict` reads, its names
+    loaded strictly: a reference `.pth`, a bare state dict, or the
+    trainer's own `ckpts/model` / `ckpts/last`, whatever the file's name),
+    `tpu.dtype` (bfloat16 or float32), `model.vocab` / `model.bert_vocab`
+    (null: the debug vocabularies) and `device` (null: the CUDA card). A
+    directory (an orbax checkpoint of the JAX package) and
+    `tpu.infer_data_parallel != 1` raise: the port reads no orbax (convert
+    it with `convert_orbax_checkpoint.py`), and runs on one card (ROADMAP).
     """
     vocab = (AnswerVocab.load(cfg.model.vocab) if cfg.model.get("vocab")
              else AnswerVocab.debug())
@@ -50,12 +53,8 @@ def build_engine(cfg) -> GPVEngine:
             raise FileNotFoundError(
                 f"checkpoint not found: {ckpt} (pass ckpt=<path to a "
                 "reference model.pth>, or ckpt=null for random init)")
-        if path.suffix != ".pth":
-            raise NotImplementedError(
-                f"ckpt={ckpt}: gpv_tpu_torch loads reference torch .pth "
-                "checkpoints only; an orbax checkpoint of the JAX package "
-                "cannot be read without JAX (ROADMAP Queue 1: orbax "
-                "restore)")
+        if path.is_dir():
+            raise NotImplementedError(orbax_refusal(path))
         state_dict = load_torch_state_dict(path)
     return GPVEngine.from_config(cfg.model, vocab, tokenizer, state_dict,
                                  dtype=DTYPES[name],

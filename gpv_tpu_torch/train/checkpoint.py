@@ -16,21 +16,47 @@ The names let a run whose optimizer groups differ from the saved ones
 resume: phase 2 of the two-phase recipe (`scripts/train.sh`) unfreezes the
 DETR parameters that phase 1 left out of every group (`load_into`).
 
-Not here: an orbax directory of the JAX package cannot be read without JAX
-(ROADMAP Queue 1 item 19), and `training.async_checkpoint` is refused
-(item 28).
+Async saves (`training.async_checkpoint`, `save_checkpoint(...,
+async_write=True)`), with the semantics of the JAX package's:
+  - The AdamW here updates parameters, moments and steps in place, so the
+    writer never holds a live tensor: before `save_checkpoint` returns,
+    every tensor of the model's, the optimizer's and the schedule's state
+    is copied into host buffers (pinned for a card's tensors), kept per
+    path and reused by its next save. Only the disk write (`torch.save` to
+    `.<name>.writing`, the rename, then the meta) runs on the writer thread.
+  - A save or restore on a path first joins the save in flight on it;
+    saves under different names write at once. `wait_for_saves()` joins
+    them all. A failed write raises at its join, leaves the previous
+    checkpoint whole and is dropped, so later saves go on.
+  - Fork rule: a fork while the writer thread holds a lock could leave
+    that lock held in the child, so the trainer joins every save in flight
+    before a loader forks its workers (each epoch's loop, each in-train
+    eval). Only the rolling `last` saves inside an epoch overlap steps.
+
+An orbax directory of the JAX package is read once converted
+(`convert_orbax_checkpoint.py` at the repository root, where JAX is
+installed). Its output holds no schedule state: `load_into` then keeps this
+run's schedule at the restored step, as the JAX package resumes.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Set, Tuple
 
 import torch
 from torch import nn
 
-from ..weights import load_torch_state_dict
+from ..weights import load_torch_state_dict, orbax_refusal
+
+# async saves in flight: resolved path -> (writer thread, its outcome)
+_INFLIGHT: Dict[str, Tuple[threading.Thread, dict]] = {}
+_INFLIGHT_LOCK = threading.Lock()
+# per path: the host buffers of its last async save, reused by the next
+_BUFFERS: Dict[str, Dict[str, torch.Tensor]] = {}
 
 
 def param_names(state) -> Dict[str, List[str]]:
@@ -41,21 +67,92 @@ def param_names(state) -> Dict[str, List[str]]:
             for g in state.optimizer.param_groups}
 
 
-def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
-                    name: str = "model") -> Path:
-    """Write `state` (a `parallel.train_step.TrainState`) to
-    ckpt_dir/name, then ckpt_dir/name.meta.json."""
-    path = Path(ckpt_dir) / name
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f".{name}.writing")
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict(),
-                "step": int(state.step),
-                "param_names": param_names(state)}, tmp)
+def wait_for_saves(path=None) -> None:
+    """Join the async saves in flight: all of them (path None), or the one
+    on `path`. A failed write raises here, once: its entry is dropped
+    either way, and the previous checkpoint at its path is untouched."""
+    with _INFLIGHT_LOCK:
+        if path is None:
+            pending = list(_INFLIGHT.items())
+        else:
+            key = str(Path(path).resolve())
+            pending = [(key, _INFLIGHT[key])] if key in _INFLIGHT else []
+    for key, entry in pending:
+        thread, outcome = entry
+        try:
+            thread.join()
+            if "error" in outcome:
+                raise outcome["error"]
+        finally:
+            with _INFLIGHT_LOCK:
+                if _INFLIGHT.get(key) is entry:
+                    del _INFLIGHT[key]
+
+
+def _host_copy(obj, key: str, buffers: Dict[str, torch.Tensor]):
+    """`obj` with every tensor copied into `buffers[<its key>]` (made or
+    remade when absent or of another shape; pinned for a card's tensor),
+    and every other value deep-copied."""
+    if isinstance(obj, torch.Tensor):
+        buf = buffers.get(key)
+        if buf is None or buf.shape != obj.shape or buf.dtype != obj.dtype:
+            buf = torch.empty(obj.shape, dtype=obj.dtype,
+                              pin_memory=obj.is_cuda)
+            buffers[key] = buf
+        buf.copy_(obj.detach(), non_blocking=obj.is_cuda)
+        return buf
+    if isinstance(obj, dict):
+        return {k: _host_copy(v, f"{key}/{k}", buffers)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v, f"{key}/{i}", buffers)
+                         for i, v in enumerate(obj))
+    return copy.deepcopy(obj)
+
+
+def _write(payload: dict, path: Path, metadata: Dict[str, Any]) -> None:
+    """The payload to `.<name>.writing`, renamed into place, then the
+    meta: a write cut short leaves the previous checkpoint whole."""
+    tmp = path.with_name(f".{path.name}.writing")
+    torch.save(payload, tmp)
     os.replace(tmp, path)
-    (path.parent / f"{name}.meta.json").write_text(
+    (path.parent / f"{path.name}.meta.json").write_text(
         json.dumps(metadata, default=float))
+
+
+def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
+                    name: str = "model", async_write: bool = False) -> Path:
+    """Write `state` (a `parallel.train_step.TrainState`; its scheduler may
+    be None) to ckpt_dir/name, then ckpt_dir/name.meta.json. With
+    `async_write` the state is first copied to host buffers and the write
+    runs on a thread of its own; join it with `wait_for_saves` (module
+    docstring)."""
+    path = Path(ckpt_dir).resolve() / name
+    wait_for_saves(path)  # never two writers on one path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {"model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict(),
+               "scheduler": (state.scheduler.state_dict()
+                             if state.scheduler is not None else None),
+               "step": int(state.step),
+               "param_names": param_names(state)}
+    if not async_write:
+        _write(payload, path, dict(metadata))
+        return path
+    payload = _host_copy(payload, "", _BUFFERS.setdefault(str(path), {}))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()  # the copies land before a step can run
+    outcome: dict = {}
+
+    def run():
+        try:
+            _write(payload, path, dict(metadata))
+        except BaseException as e:  # raised again at the join
+            outcome["error"] = e
+    thread = threading.Thread(target=run, name=f"save {name}")
+    with _INFLIGHT_LOCK:
+        _INFLIGHT[str(path)] = (thread, outcome)
+    thread.start()
     return path
 
 
@@ -64,12 +161,9 @@ def restore_checkpoint(ckpt_dir: str | Path,
     """(payload, metadata) of ckpt_dir/name: the payload's tensors on the
     CPU, the metadata {} when its file is absent."""
     path = Path(ckpt_dir) / name
+    wait_for_saves(path)  # a save just issued lands first
     if path.is_dir():
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint of the JAX "
-            "package): gpv_tpu_torch cannot read orbax without JAX "
-            "(ROADMAP Queue 1 item 19); resume from a checkpoint this "
-            "package wrote or a reference .pth")
+        raise NotImplementedError(orbax_refusal(path))
     payload = torch.load(path, map_location="cpu", weights_only=True)
     meta_path = Path(ckpt_dir) / f"{name}.meta.json"
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
@@ -90,8 +184,11 @@ def load_into(state, payload: dict) -> None:
       - the groups keep this run's hyperparameters, and the LambdaLR is
         rebuilt at the restored step, so the next update takes the lr
         that this run's schedule gives at that step.
-    A checkpoint without group names whose groups differ raises: its
-    moments cannot be matched to parameters."""
+    A checkpoint without schedule state (`convert_orbax_checkpoint.py`'s)
+    takes the second way whatever its groups: this run's hyperparameters
+    and schedule at the restored step, as the JAX package resumes. A
+    checkpoint without group names whose groups differ raises: its moments
+    cannot be matched to parameters."""
     state.model.load_state_dict(payload["model"], strict=True)
     saved = payload["optimizer"]
     saved_names = payload.get("param_names")
@@ -108,7 +205,7 @@ def load_into(state, payload: dict) -> None:
                 "resume it with the training.freeze it was written with")
         saved_names = names
     state.step = int(payload["step"])
-    if saved_names == names:
+    if saved_names == names and payload.get("scheduler") is not None:
         state.optimizer.load_state_dict(saved)
         state.scheduler.load_state_dict(payload["scheduler"])
         return

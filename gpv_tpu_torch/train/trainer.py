@@ -26,9 +26,13 @@ The model trains on the card unless `device` says otherwise
 runs the forward under bf16 autocast. In-train eval and visualisation go
 through a `GPVEngine` that takes the current weights each time
 (`GPVEngine.load_weights`: a folded copy; the training model stays
-unfolded). One card only: a mesh over several devices or processes,
-`tpu.remat` and `training.async_checkpoint` are refused (ROADMAP Queue 1
-items 26, 27 and 28).
+unfolded). One card only: a mesh over several devices or processes and
+`tpu.remat` are refused (ROADMAP Queue 1 items 26 and 27).
+
+`training.async_checkpoint` writes both saves on a thread of their own
+(`train.checkpoint`): every save in flight is joined before a loader forks
+its workers (each epoch's loop, each in-train eval) and before `train()`
+returns.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ from ..utils.visualize import save_vis, vis_sample
 from ..weights import init_random, load_torch_state_dict
 from . import metrics as train_metrics
 from .checkpoint import (load_imagenet_backbone, load_into, load_pretr_detr,
-                         restore_checkpoint, save_checkpoint)
+                         restore_checkpoint, save_checkpoint, wait_for_saves)
 from .optimizer import build_optimizer
 
 
@@ -84,10 +88,6 @@ def check_one_card(cfg) -> None:
             "tpu.infer_data_parallel != 1: in-train eval runs on the one "
             "training card (multi-card inference is ROADMAP Queue 1 item "
             "20)")
-    if cfg.training.get("async_checkpoint"):
-        raise NotImplementedError(
-            "training.async_checkpoint=True is not ported (ROADMAP Queue 1 "
-            "item 28); checkpoints are written synchronously")
 
 
 class Trainer:
@@ -95,6 +95,8 @@ class Trainer:
         check_one_card(cfg)
         self.cfg = cfg
         self.finetune = finetune
+        self.async_checkpoint = bool(cfg.training.get("async_checkpoint",
+                                                      False))
         self.device = resolve_device(cfg.get("device"))
         name = str(cfg.tpu.dtype)
         if name not in DTYPES:
@@ -302,7 +304,14 @@ class Trainer:
                 "model_selection_metric":
                     results.get("model_selection_metric", 0.0)}
         meta.update(results)
-        save_checkpoint(self.cfg.ckpt_dir, self.state, meta)
+        save_checkpoint(self.cfg.ckpt_dir, self.state, meta,
+                        async_write=self.async_checkpoint)
+
+    def save_last(self, epoch: int):
+        """The rolling checkpoint `last`, for preemption recovery."""
+        save_checkpoint(self.cfg.ckpt_dir, self.state,
+                        {"epoch": epoch, "step": self.step}, name="last",
+                        async_write=self.async_checkpoint)
 
     # ------------------------------------------------------------------
 
@@ -317,6 +326,7 @@ class Trainer:
             run_eval = (epoch % eval_every == 0) or (epoch == num_epochs - 1)
             if run_eval and (not launch
                              or cfg.training.get("run_eval_at_launch", True)):
+                wait_for_saves()  # before the eval's loader forks
                 results = self.evaluate("val")
                 if self.writer:
                     for k, v in results.items():
@@ -338,6 +348,7 @@ class Trainer:
             profile_step = cfg.training.get("profile_step")
             trace_dir = cfg.get("tb_dir") or Path(cfg.exp_dir) / "tb_logs"
             prof = None
+            wait_for_saves()  # before the loader forks its workers
             for it, batch in enumerate(loader):
                 timer.tick()
                 if profile_step is not None:
@@ -364,15 +375,14 @@ class Trainer:
                 if self.step % int(cfg.training.vis_step) == 0:
                     self.visualize("train", self.step)
                 if self.step % int(cfg.training.ckpt_step) == 0:
-                    # rolling checkpoint for preemption recovery
-                    save_checkpoint(cfg.ckpt_dir, self.state,
-                                    {"epoch": epoch, "step": self.step},
-                                    name="last")
+                    self.save_last(epoch)
             if prof is not None:
                 stop_trace(prof, trace_dir)
 
+        wait_for_saves()
         results = self.evaluate("val")
         if (results["model_selection_metric"] > self.best_metric
                 or self.best_epoch < 0):
             self.save(num_epochs - 1, results)
+        wait_for_saves()  # every write lands before the run returns
         return results

@@ -275,6 +275,16 @@ def load_torch_state_dict(path: str | Path) -> StateDict:
     return strip_ddp_prefix(dict(ckpt.get("model", ckpt)))
 
 
+def orbax_refusal(path) -> str:
+    """The message for a checkpoint directory: an orbax checkpoint of the
+    JAX package, which this package reads only once converted."""
+    return (f"{path} is a directory, an orbax checkpoint of the JAX package: "
+            "gpv_tpu_torch reads it once converted, where JAX is installed: "
+            "python convert_orbax_checkpoint.py exp_dir=<JAX run> "
+            f"name={Path(path).name} out=<dir>; then pass <dir>/"
+            f"{Path(path).name}")
+
+
 def load_bert_weights(bert: nn.Module, sd: StateDict) -> nn.Module:
     """Load an HF-named BERT state dict (`<prefix>embeddings.*` and
     `<prefix>encoder.layer.*`, the prefix found from the word embedding,

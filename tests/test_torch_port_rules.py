@@ -1,8 +1,10 @@
 """Rules of the PyTorch port that no parity test sees.
 
 - Nothing under gpv_tpu_torch/ and no line of chip_smoke.py imports jax,
-  flax or gpv_tpu (the port keeps its own copies), nor PIL or h5py when
-  it is imported (the card machine has neither).
+  flax, optax, orbax or gpv_tpu (the port keeps its own copies), nor PIL,
+  h5py or nltk when it is imported (the card machine has none of them).
+  Of the port's files outside its package and the tests, only the orbax
+  converter imports gpv_tpu.
 - Entry points run on the card unless asked: an engine built without a
   device raises where CUDA is absent.
 - CPU tensors take the plain versions and leave the launch counters at 0;
@@ -27,7 +29,8 @@ from gpv_tpu_torch.text.vocab import AnswerVocab
 from gpv_tpu_torch.text.wordpiece import WordPieceTokenizer
 
 ROOT = Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "flax", "gpv_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "gpv_tpu")
+AT_USE_ONLY = ("PIL", "h5py", "nltk")  # absent on the card machine
 
 
 def _imports(path: Path):
@@ -80,12 +83,38 @@ def test_import_time_imports_skip_function_bodies():
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_pil_or_h5py_at_import_time(path):
-    """The card machine has neither: every module the card run imports
-    must load without them, so they are imported where they are used."""
+    """The card machine has none of PIL, h5py and nltk: every module the
+    card run imports must load without them, so they are imported where
+    they are used."""
     tree = ast.parse(path.read_text(), str(path))
     for name in _import_time_imports(tree):
-        assert name.split(".")[0] not in ("PIL", "h5py"), \
+        assert name.split(".")[0] not in AT_USE_ONLY, \
             f"{path.name} imports {name} at import time"
+
+
+def test_scan_covers_the_data_preparation_modules():
+    """The scans above read every module of the offline data preparation
+    and its CLIs."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("data/morphy", "data/pos_gate", "data/synonyms",
+                "data/splits", "data/preprocess", "data/vocab_builder",
+                "data/index", "data/download", "utils/io", "cli/preprocess",
+                "cli/make_sce_split", "cli/data_stats", "cli/download"):
+        assert f"gpv_tpu_torch/{mod}.py" in names, mod
+
+
+def test_only_the_converter_imports_gpv_tpu():
+    """Of the files outside gpv_tpu_torch/ and tests/ that import the
+    port, only convert_orbax_checkpoint.py (run where JAX is installed)
+    also imports the JAX package."""
+    files = sorted(ROOT.glob("*.py")) + sorted((ROOT / "scripts").rglob(
+        "*.py"))
+    port = [p for p in files if any(
+        n.split(".")[0] == "gpv_tpu_torch" for n in _imports(p))]
+    both = [p.name for p in port if any(
+        n.split(".")[0] == "gpv_tpu" for n in _imports(p))]
+    assert ROOT / "chip_smoke.py" in port
+    assert both == ["convert_orbax_checkpoint.py"]
 
 
 def test_kernel_sources_ship_as_package_data():
