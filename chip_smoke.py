@@ -113,7 +113,36 @@ Phases, each printing one JSON line:
              trainer's at that save bit for bit; and `build_engine(ckpt=
              <exp>/ckpts/last)` predicting a B=20 val batch: launches as
              path_launches gives them, answers, boxes and relevance equal
-             to the trainer's weights in memory (`GPVEngine.load_weights`).
+             to the trainer's weights in memory (`GPVEngine.load_weights`);
+  infer_dp   (after export) `tpu.infer_data_parallel=-1` on the one card
+             builds the plain engine, bit-equal to it; an engine over
+             cuda:0, cuda:0 against the one-device engine on a ragged
+             batch of INFER_DP_N in fp32 (answers equal, boxes 1e-3), its
+             bf16 launches by shard and images/s beside the engine's (a, b,
+             b, a); export_engine refuses it;
+  stem_s2d   `model.detr.stem_s2d`: fp32 predict against the plain stem
+             (answers equal, boxes 2e-4, relevance 5e-4), bf16 images/s
+             both ways (a, b, b, a), the stem's device ms both ways;
+  ddp        (after train_e2e) (a) one NCCL rank through
+             `initialize_distributed` and DDP, fp32 at global B=DDP_B,
+             against the plain step (losses 1e-5 relative, parameters
+             1e-5); (b) two gloo ranks on the one card, spawned as fresh
+             processes of this script (`--rank-task step`), the same
+             batch as 2 x DDP_B/2 against (a) (losses 1e-4 relative,
+             gradients 1e-3 x max(1, max|g|), the assignment equal, the
+             ranks' parameters bit-equal); (c) the same ranks timed at the
+             global TRAIN_B in bf16 (step ms, images/s, the gloo
+             all-reduce of the trainable gradients, peak memory a rank:
+             two ranks on one card measure the mechanism, not 2-card
+             scaling); (d) `cli.train` as two ranks (`--rank-task cli`):
+             2 steps, rank 0's in-train eval and async `last` saves, then
+             a relaunch that resumes `ckpts/last` on both ranks (the
+             restored state is each rank's state at its last save, and
+             the ranks agree); each rank has a RANK_TIMEOUT_S timeout;
+  remat      B=TRAIN_B bf16 steps with `tpu.remat` off and on (peak memory,
+             step ms); fp32 at REMAT_CHECK_B, dropout on, deterministic
+             algorithms: every gradient with remat equal to no-remat's
+             within 1e-5 of the leaf's largest.
 Then one `kernels` line (each kernel of the paths: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
 predict_beam, embed_vocab, the whole serve run, the whole eval phase, one
@@ -130,6 +159,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -143,6 +173,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"  # the card; the ranks a phase spawns take theirs from it
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}  # dense tensor core
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max(1, |plain| max)
@@ -175,6 +206,13 @@ TRAIN_WARMUP, TRAIN_STEPS, TRAIN_RESIDENT = 2, 5, 3
 # every U the dedup emits at TRAIN_B: multiples of its bucket (16), capped
 DEDUP_ROWS = tuple(range(16, TRAIN_B, 16)) + (TRAIN_B,)
 E2E_TRAIN_B = 4
+# data parallelism: the fp32 check's global batch, timed bf16 steps, a
+# rank's hard timeout, and cli.train's samples a task (2 global batches)
+DDP_B, DDP_TIMED_STEPS, RANK_TIMEOUT_S = 24, 5, 600
+DDP_CLI_SAMPLES, DDP_CLI_VAL = 60, 20
+REMAT_STEPS, REMAT_CHECK_B = 3, 8
+INFER_DP_N = 23  # a ragged batch over two shards (12 + 11, padded to 24)
+STEM_REPS = 20
 TRAIN_LOSS_KEYS = {"loss_caption", "loss_vqa", "loss_cls", "loss_ce",
                    "loss_bbox", "loss_giou", "cardinality_error",
                    "total_loss"}  # gpv_tpu's gpv_criterion keys
@@ -405,17 +443,22 @@ def path_launches(path: str, steps: int, batch: int = B, beam: int = BEAM,
 def path_cases() -> list:
     """Every shape of every call this script makes, once each: predict
     and predict_beam at B, embed_vocab, both paths at each serving bucket,
-    and a train step at every row count the query dedup can emit (the
-    prepared data's batches take any of them); then the teacher-forced
-    causal shape (training's, on no path here)."""
+    a train step at every row count the query dedup can emit (the
+    prepared data's batches take any of them) and at each batch a rank or
+    a check takes whole (ddp, remat), the multi-device engine's shards;
+    then the teacher-forced causal shape (training's, on no path here)."""
     calls = [path_launches("predict", 0), path_launches("predict_beam", 0),
              path_launches("embed_vocab", 0)]
     for b in SERVE_BUCKETS:
         calls += [path_launches("predict", 0, b),
                   path_launches("predict_beam", 0, b, SERVE_BEAM)]
     calls += [train_step_launches(rows, True) for rows in DEDUP_ROWS]
-    calls += [train_step_launches(TRAIN_B, False),
-              train_step_launches(E2E_TRAIN_B, False)]
+    calls += [train_step_launches(rows, False) for rows in (
+        TRAIN_B, E2E_TRAIN_B, DDP_B, DDP_B // 2, TRAIN_B // 2,
+        REMAT_CHECK_B)]
+    # the multi-device engine's shards: fp32 INFER_DP_N over two, bf16 B
+    calls += [path_launches("predict", 0, -(-INFER_DP_N // 2)),
+              path_launches("predict", 0, B // 2)]
     return list(dict.fromkeys(c for counts in calls for c in counts)) + [
         Case("teacher_forced_causal", B, 20, 20, 8, 96, None, True)]
 
@@ -1565,27 +1608,42 @@ def seeded_pixel_datasets():
         coco.DATASET_CLASSES.update(saved)
 
 
-def train_config(data_dir: Path, vocab_path: Path, *extra,
-                 samples: bool = True):
-    """`configs/exp/gpv.yaml` for the train phases, and (`samples`) the
-    seeded train and val samples of each task written where it reads
-    them."""
-    from gpv_tpu_torch.utils.config import load_config
-    cfg = load_config(ROOT / "configs", "exp/gpv", [
+def train_overrides(data_dir: Path, vocab_path: Path, *extra,
+                    val: int = TRAIN_VAL) -> list:
+    """The overrides of `configs/exp/gpv.yaml` for the train phases."""
+    return [
         f"data_dir={data_dir}", f"output_dir={data_dir / 'exp'}",
         "exp_name=train", "learning_datasets=all",
         "task_configs.host_resize=exact", f"model.vocab={vocab_path}",
         f"training.batch_size={TRAIN_B}", "training.query_dedup=true",
         "training.run_vis_at_launch=false", "tb_dir=null",
         "training.num_val_samples={coco_vqa: %d, coco_cap: %d, "
-        "coco_det: %d, coco_cls: %d}" % ((TRAIN_VAL,) * 4),
-        "device=cuda"] + list(extra))
-    for task in TRAIN_TASKS if samples else ():
+        "coco_det: %d, coco_cls: %d}" % ((val,) * 4),
+        f"device={DEVICE}"] + list(extra)
+
+
+def write_train_samples(cfg, n_train: int = TRAIN_SAMPLES,
+                        n_val: int = TRAIN_VAL) -> None:
+    """The seeded train and val samples of each task, where `cfg` reads
+    them."""
+    for task in TRAIN_TASKS:
         samples = cfg.task_configs[EVAL_TASKS[task]].samples
-        for subset, n in (("train", TRAIN_SAMPLES), ("val", TRAIN_VAL)):
+        for subset, n in (("train", n_train), ("val", n_val)):
             path = Path(samples[subset])
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(eval_samples(task, n)))
+
+
+def train_config(data_dir: Path, vocab_path: Path, *extra,
+                 samples: bool = True):
+    """`configs/exp/gpv.yaml` for the train phases, and (`samples`) the
+    seeded train and val samples of each task written where it reads
+    them."""
+    from gpv_tpu_torch.utils.config import load_config
+    cfg = load_config(ROOT / "configs", "exp/gpv",
+                      train_overrides(data_dir, vocab_path, *extra))
+    if samples:
+        write_train_samples(cfg)
     return cfg
 
 
@@ -2624,6 +2682,803 @@ def phase_export(eng, vocab_path: Path, tmp: Path, checked: set):
     return rec, counts
 
 
+# ------------------------------------------------- data parallelism (ddp)
+
+
+def _sync() -> None:
+    import torch
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset() -> None:
+    import torch
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak() -> int:
+    import torch
+    return (torch.cuda.max_memory_allocated()
+            if torch.device(DEVICE).type == "cuda" else 0)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(task: str, directory: Path, world: int = 2,
+                timeout: float = RANK_TIMEOUT_S) -> list:
+    """Run `task` (RANK_TASKS) as `world` fresh processes of this script,
+    the ranks of one group on this host (the torchrun variables set), each
+    reading `directory/spec.json`. Every rank must exit 0 within `timeout`
+    s, else all are killed and the phase fails. Returns each rank's
+    record."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(directory / f"{task}_rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-task",
+             task, "--rank-dir", str(directory)], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + timeout
+    hung = None
+    try:
+        for r, (p, _) in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                hung = r
+                break
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r, (p, _) in enumerate(procs):
+        if hung is not None or p.returncode != 0:
+            tail = (directory / f"{task}_rank{r}.log").read_text()[-3000:]
+            print(f"--- {task} rank {r} (exit {p.returncode}):\n{tail}",
+                  file=sys.stderr, flush=True)
+    if hung is not None:
+        fail(f"{task}: rank {hung} did not finish in {timeout} s")
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"{task}: rank {r} exited {p.returncode}")
+    return [json.loads((directory / f"{task}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _digest(*objs) -> str:
+    """sha256 over every tensor (in key order) and scalar of nested dicts:
+    two states with one digest are bit-equal."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            h.update(o.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        elif isinstance(o, dict):
+            for k in sorted(o, key=str):
+                h.update(str(k).encode())
+                walk(o[k])
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+        else:
+            h.update(repr(o).encode())
+    for o in objs:
+        walk(o)
+    return h.hexdigest()
+
+
+def _state_digest(state) -> str:
+    return _digest(state.model.state_dict(),
+                   state.optimizer.state_dict()["state"], state.step)
+
+
+def _assignment(model, b) -> "torch.Tensor":
+    """The Hungarian assignment of a train forward on `b` (device
+    tensors), -1 where a target is not valid."""
+    import torch
+    from gpv_tpu_torch.ops.image import normalize_image
+    from gpv_tpu_torch.ops.matcher import hungarian_match
+    with torch.no_grad():
+        pred = model(normalize_image(b["image"].float() / 255.0),
+                     b["query_ids"], b["answer_ids"],
+                     query_valid=b["query_valid"], train=True)
+    valid = b["box_valid"] & b["has_boxes"][:, None]
+    q4t = hungarian_match(pred["pred_relevance_logits"], pred["pred_boxes"],
+                          b["box_labels"], b["boxes"], valid)
+    return torch.where(valid, q4t, -1).cpu()
+
+
+def _one_step(model, cfg, rows, dtype=None):
+    """One train step of `model` on `rows` (numpy): (losses, the clipped
+    gradients on the CPU, the launches by variant)."""
+    import torch
+    from gpv_tpu_torch.losses.criterion import LossConfig
+    from gpv_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from gpv_tpu_torch.train.optimizer import build_optimizer
+    opt, sched = build_optimizer(cfg.training, 10, model)
+    step = make_train_step(model, LossConfig.from_config(cfg.losses),
+                           float(cfg.training.clip_max_norm),
+                           dtype=dtype or torch.float32)
+    _reset_counts()
+    losses = step(TrainState(model, opt, sched), rows)
+    _sync()
+    return ({k: float(v) for k, v in losses.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}, _read_counts()[1])
+
+
+def _grad_err(got: dict, want: dict) -> tuple:
+    """The worst per-leaf error over max(1, max|want|), and its leaf."""
+    if set(got) != set(want):
+        fail("ddp: gradient leaves differ: "
+             f"{sorted(set(got) ^ set(want))[:4]}")
+    worst, name = 0.0, None
+    for n, w in want.items():
+        err = (got[n] - w).abs().max().item() / max(1.0,
+                                                    w.abs().max().item())
+        if err > worst:
+            worst, name = err, n
+    return worst, name
+
+
+def _loss_err(got: dict, want: dict) -> float:
+    return max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+
+
+def rank_step(spec: dict, d: Path) -> dict:
+    """A rank of ddp (b) and (c): one fp32 step (TF32 off) on its rows of
+    the global DDP_B batch against (a)'s step, the assignment on its rows,
+    a digest of its parameters; then DDP_TIMED_STEPS timed bf16 steps on
+    its rows of the global TRAIN_B batch, its peak memory and the gloo
+    all-reduce of the trainable fp32 gradients."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from gpv_tpu_torch.models.gpv import build_gpv
+    from gpv_tpu_torch.parallel import mesh
+    from gpv_tpu_torch.parallel.train_step import batch_to_device
+    from gpv_tpu_torch.utils.config import load_config
+    from gpv_tpu_torch.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cluster = mesh.initialize_distributed({}, spec["device"])
+    rank, world = cluster.rank, cluster.world
+    dev = mesh.rank_device(cluster, spec["device"])
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "backend": dist.get_backend()}
+    cfg = load_config(ROOT / "configs", "exp/gpv", spec["overrides"])
+    base = init_random(build_gpv(cfg.model, spec["vocab_size"]), seed=1)
+    batch = dict(np.load(d / "batch.npz"))
+    rows = mesh.shard_rows(len(batch["image"]), world, rank)
+    local = {k: v[rows] for k, v in batch.items()}
+    ref = torch.load(d / "ref.pt", weights_only=False)
+
+    model = copy.deepcopy(base).to(dev)
+    q4t = _assignment(model, batch_to_device(local, dev))
+    out["assignment_equal"] = bool(torch.equal(q4t, ref["q4t"][rows]))
+    losses, grads, out["launches_by_variant"] = _one_step(model, cfg, local)
+    out["losses"] = losses
+    out["loss_max_rel_err"] = _loss_err(losses, ref["losses"])
+    out["grad_max_err"], out["grad_worst_leaf"] = _grad_err(grads,
+                                                            ref["grads"])
+    out["params_digest"] = _digest(model.state_dict())
+    del model, grads
+    torch.cuda.empty_cache()
+
+    big = dict(np.load(d / "batch_big.npz"))
+    rows = mesh.shard_rows(len(big["image"]), world, rank)
+    resident = batch_to_device({k: v[rows] for k, v in big.items()}, dev)
+    model = copy.deepcopy(base).to(dev)
+    del base
+    from gpv_tpu_torch.losses.criterion import LossConfig
+    from gpv_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from gpv_tpu_torch.train.optimizer import build_optimizer
+    opt, sched = build_optimizer(cfg.training, 10, model)
+    state = TrainState(model, opt, sched)
+    step = make_train_step(model, LossConfig.from_config(cfg.losses),
+                           float(cfg.training.clip_max_norm),
+                           dtype=torch.bfloat16)
+    step(state, resident)  # warm-up
+    _sync()
+    _peak_reset()
+    mesh.host_barrier()
+    _reset_counts()
+    times = []
+    for _ in range(DDP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(state, resident)
+        _sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["timed"] = {"rows": len(rows), "step_ms": times,
+                    "launches_by_variant": _read_counts()[1],
+                    "peak_memory_bytes": _peak()}
+    n = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    flat = torch.zeros(n, device=dev)
+    dist.all_reduce(flat)
+    _sync()
+    ar = []
+    for _ in range(3):
+        mesh.host_barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        _sync()
+        ar.append(1e3 * (time.perf_counter() - t0))
+    out["timed"]["allreduce_ms"] = ar
+    out["timed"]["allreduce_bytes"] = 4 * n
+    return out
+
+
+def rank_cli(spec: dict, d: Path) -> dict:
+    """A rank of ddp (d): `gpv_tpu_torch.cli.train.main` on seeded pixels.
+    Records each `last` save's state digest and the train steps' launches
+    by variant; with `resume`, `train()` only records the state the
+    trainer restored (auto_resume from ckpts/last)."""
+    from gpv_tpu_torch.cli import train as cli
+    from gpv_tpu_torch.train import trainer as T
+
+    out = {"saves": [], "train_launches": {}}
+    save_last, make_step = T.Trainer.save_last, T.make_train_step
+
+    def recording_save_last(self, epoch):
+        save_last(self, epoch)
+        out["saves"].append({"step": self.step,
+                             "digest": _state_digest(self.state)})
+
+    def counted_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def run(state, batch, timings=None):
+            before = _read_counts()[1]
+            losses = step(state, batch, timings)
+            after = _read_counts()[1]
+            for w, variants in after.items():
+                acc = out["train_launches"].setdefault(
+                    w, dict.fromkeys(variants, 0))
+                for v, n in variants.items():
+                    acc[v] += n - before[w][v]
+            out["rows"] = len(batch["query_ids"])
+            return losses
+        return run
+
+    def restored(self):
+        out["restored"] = {"step": self.step, "epoch": self.last_epoch,
+                           "digest": _state_digest(self.state)}
+        return {}
+
+    T.Trainer.save_last = recording_save_last
+    T.make_train_step = counted_step
+    if spec["resume"]:
+        T.Trainer.train = restored
+    _reset_counts()
+    with seeded_pixel_datasets():
+        results = cli.main(spec["argv"])
+    out["launches_by_variant"] = _read_counts()[1]
+    out["results"] = {k: float(v) for k, v in (results or {}).items()}
+    return out
+
+
+RANK_TASKS = {"step": rank_step, "cli": rank_cli}
+
+
+def rank_main(task: str, directory: Path) -> None:
+    """Entry of a spawned rank: run RANK_TASKS[task] and write its record
+    to `<task>_rank<r>.json`."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+    global DEVICE
+    spec = json.loads((directory / "spec.json").read_text())
+    DEVICE = spec["device"]
+    rec = RANK_TASKS[task](spec, directory)
+    (directory / f"{task}_rank{os.environ['RANK']}.json").write_text(
+        json.dumps(rec))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _ddp_rows(batch: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in batch.items()
+            if not k.startswith("query_uniq") and k != "query_gather"}
+
+
+def phase_ddp(vocab_path: Path, tmp: Path, batch: dict, checked: set):
+    """Data parallelism (module docstring): (a) one NCCL rank through
+    `initialize_distributed` and DDP against the plain step; (b) and (c)
+    two gloo ranks on this card (`rank_step`); (d) `cli.train` as two
+    ranks, a resume from rank 0's `ckpts/last` (`rank_cli`). Returns the
+    record and {path: (record, {Case: launches})} for the kernels line."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from gpv_tpu_torch.models.gpv import build_gpv
+    from gpv_tpu_torch.parallel import mesh
+    from gpv_tpu_torch.parallel.train_step import batch_to_device
+    from gpv_tpu_torch.text.vocab import AnswerVocab
+    from gpv_tpu_torch.utils.config import load_config
+    from gpv_tpu_torch.weights import init_random
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = tmp / "ddp"
+    d.mkdir()
+    overrides = train_overrides(tmp / "train_data", vocab_path,
+                                "tpu.dtype=float32",
+                                "model.detr.dropout=0.0")
+    cfg = load_config(ROOT / "configs", "exp/gpv", overrides)
+    vocab_size = len(AnswerVocab.load(vocab_path))
+    base = init_random(build_gpv(cfg.model, vocab_size), seed=1)
+    rows = _ddp_rows(batch, DDP_B)
+    np.savez(d / "batch.npz", **rows)
+    np.savez(d / "batch_big.npz", **_ddp_rows(batch, TRAIN_B))
+    rec = {"phase": "ddp", "batch": DDP_B, "dtype": "float32"}
+
+    model = copy.deepcopy(base).to(DEVICE)
+    q4t = _assignment(model, batch_to_device(rows, DEVICE))
+    plain, plain_grads, _ = _one_step(model, cfg, rows)
+    plain_params = {k: v.detach().clone() for k, v in
+                    model.state_dict().items()}
+    del model
+
+    # (a) one rank, NCCL, through the config keys and DDP
+    cluster = mesh.initialize_distributed(
+        {"distributed": {"coordinator_address": f"127.0.0.1:{_free_port()}",
+                         "num_processes": 1, "process_id": 0}}, DEVICE)
+    model = copy.deepcopy(base).to(DEVICE)
+    del base
+    losses, grads, a_var = _one_step(model, cfg, rows)
+    a = {"backend": dist.get_backend(), "world": cluster.world,
+         "losses": losses, "launches_by_variant": a_var,
+         "loss_max_rel_err": _loss_err(losses, plain)}
+    a["param_max_abs_err"] = max(
+        (v - plain_params[k]).abs().max().item()
+        for k, v in model.state_dict().items())
+    dist.destroy_process_group()
+    if a["backend"] != ("nccl" if DEVICE == "cuda" else "gloo"):
+        fail(f"ddp (a): one rank on its own card joined over {a['backend']}")
+    if not (a["loss_max_rel_err"] <= 1e-5 and a["param_max_abs_err"] <= 1e-5):
+        fail(f"ddp (a): DDP step off the plain step: {a}")
+    want = by_variant(train_step_launches(DDP_B, False))
+    want["fused_attention"]["fp32"] = want["fused_attention"].pop("tile")
+    want["fused_attention"]["tile"] = 0
+    if a_var != want:
+        fail(f"ddp (a): launches {a_var} != {want}")
+    torch.save({"losses": losses, "grads": grads, "q4t": q4t}, d / "ref.pt")
+    rec["a"] = a
+    del model, grads, plain_grads, plain_params
+    torch.cuda.empty_cache()
+
+    # (b) and (c): two gloo ranks on this one card
+    (d / "spec.json").write_text(json.dumps(
+        {"device": DEVICE, "overrides": overrides,
+         "vocab_size": vocab_size}))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("step", d)
+    rec["ranks_s"] = time.perf_counter() - t0
+    half = DDP_B // 2
+    want = by_variant(train_step_launches(half, False))
+    want["fused_attention"]["fp32"] = want["fused_attention"].pop("tile")
+    want["fused_attention"]["tile"] = 0
+    timed_counts = Counter({c: DDP_TIMED_STEPS * n for c, n in
+                            train_step_launches(TRAIN_B // 2,
+                                                False).items()})
+    for r in ranks:
+        if r["backend"] != "gloo":
+            fail(f"ddp (b): two ranks on one card joined over {r['backend']}")
+        if not (r["loss_max_rel_err"] <= 1e-4 and r["grad_max_err"] <= 1e-3
+                and r["assignment_equal"]):
+            keys = ("loss_max_rel_err", "grad_max_err", "grad_worst_leaf",
+                    "assignment_equal")
+            fail(f"ddp (b): rank {r['rank']} off the one-rank step: "
+                 f"{ {k: r[k] for k in keys} }")
+        if r["launches_by_variant"] != want:
+            fail(f"ddp (b): rank {r['rank']} launches "
+                 f"{r['launches_by_variant']} != {want}")
+        _check_counts(f"ddp (c) rank {r['rank']}",
+                      r["timed"]["launches_by_variant"], timed_counts)
+    if ranks[0]["params_digest"] != ranks[1]["params_digest"]:
+        fail("ddp (b): the ranks' parameters differ after the step")
+    slowest = max(sum(r["timed"]["step_ms"]) for r in ranks) / 1e3
+    rec["b"] = [{k: r[k] for k in ("rank", "backend", "device", "losses",
+                                   "loss_max_rel_err", "grad_max_err",
+                                   "grad_worst_leaf", "assignment_equal",
+                                   "launches_by_variant")} for r in ranks]
+    rec["b_params_bit_equal"] = True
+    rec["c"] = {"global_batch": TRAIN_B, "dtype": "bfloat16",
+                "steps": DDP_TIMED_STEPS,
+                "images_per_s": DDP_TIMED_STEPS * TRAIN_B / slowest,
+                "ranks": [r["timed"] for r in ranks],
+                "note": "two ranks share one card: the mechanism, not "
+                        "2-card scaling"}
+
+    # (d) the entry point: cli.train as two ranks, then a resume
+    data = tmp / "ddp_data"
+    cli_over = train_overrides(
+        data, vocab_path, "exp_name=ddp", "training.query_dedup=false",
+        "training.num_epochs=1", "training.ckpt_step=1",
+        "training.async_checkpoint=true", "training.num_workers=4",
+        "eval.num_workers=4", f"eval.batch_size={B}", val=DDP_CLI_VAL)
+    write_train_samples(load_config(ROOT / "configs", "exp/gpv", cli_over),
+                        DDP_CLI_SAMPLES, DDP_CLI_VAL)
+    runs = {}
+    for name, extra, resume in (
+            ("train", [], False),
+            ("resume", ["training.num_epochs=2", "training.auto_resume=true"],
+             True)):
+        (d / "spec.json").write_text(json.dumps(
+            {"argv": cli_over + extra, "resume": resume,
+             "device": DEVICE}))
+        t0 = time.perf_counter()
+        runs[name] = spawn_ranks("cli", d)
+        runs[name + "_s"] = time.perf_counter() - t0
+        for r in range(2):
+            os.replace(d / f"cli_rank{r}.json", d / f"cli_{name}_{r}.json")
+    train, resumed = runs["train"], runs["resume"]
+    steps = len(TRAIN_TASKS) * DDP_CLI_SAMPLES // TRAIN_B
+    step_counts = Counter({c: steps * n for c, n in train_step_launches(
+        TRAIN_B // 2, False).items()})
+    for r, (t, s) in enumerate(zip(train, resumed)):
+        if [x["step"] for x in t["saves"]] != list(range(1, steps + 1)):
+            fail(f"ddp (d): rank {r} saved at {t['saves']}")
+        _check_counts(f"ddp (d) rank {r} train", t["train_launches"],
+                      step_counts)
+        if s["restored"]["step"] != steps or \
+                s["restored"]["digest"] != t["saves"][-1]["digest"]:
+            fail(f"ddp (d): rank {r} restored {s['restored']} != its state "
+                 f"at the last save {t['saves'][-1]}")
+    if train[0]["saves"] != train[1]["saves"]:
+        fail("ddp (d): the ranks' states differ at the saves")
+    if set(train[0]["results"]) != TRAIN_EVAL_KEYS or train[1]["results"]:
+        fail(f"ddp (d): rank 0's eval {train[0]['results']}, rank 1's "
+             f"{train[1]['results']}")
+    rec["d"] = {"steps": steps, "rank_batch": TRAIN_B // 2,
+                "train_s": runs["train_s"], "resume_s": runs["resume_s"],
+                "eval": train[0]["results"],
+                "launches_by_variant": [t["launches_by_variant"]
+                                        for t in train],
+                "train_launches_by_variant": [t["train_launches"]
+                                              for t in train],
+                "restored_equal": True}
+    checked_now = {c.name for counts in (
+        step_counts, timed_counts, train_step_launches(DDP_B, False),
+        train_step_launches(DDP_B // 2, False)) for c in counts}
+    if checked_now - checked:
+        fail(f"ddp: shapes not held in the kernels phase: "
+             f"{sorted(checked_now - checked)}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, {
+        "ddp_timed_rank0": ({"launches_by_variant":
+                             ranks[0]["timed"]["launches_by_variant"]},
+                            timed_counts),
+        "ddp_cli_rank0": ({"launches_by_variant":
+                           train[0]["train_launches"]}, step_counts),
+        "ddp_cli_rank1": ({"launches_by_variant":
+                           train[1]["train_launches"]}, step_counts)}
+
+
+# ------------------------------------------------- remat
+
+def phase_remat(vocab_path: Path, tmp: Path, batch: dict):
+    """`tpu.remat`: TRAIN_B bf16 steps on one resident batch without and
+    with remat (peak memory, step ms); then fp32 at REMAT_CHECK_B with
+    dropout on and cuDNN deterministic: every gradient of remat against
+    no-remat. Returns the record and the timed steps' {Case: launches}."""
+    import copy
+
+    import torch
+    from gpv_tpu_torch.losses.criterion import LossConfig, gpv_criterion
+    from gpv_tpu_torch.models.gpv import build_gpv
+    from gpv_tpu_torch.nn.layers import dropout_generator
+    from gpv_tpu_torch.ops.image import normalize_image
+    from gpv_tpu_torch.parallel.train_step import (TrainState,
+                                                   batch_to_device,
+                                                   make_train_step)
+    from gpv_tpu_torch.text.vocab import AnswerVocab
+    from gpv_tpu_torch.train.optimizer import build_optimizer, frozen_names
+    from gpv_tpu_torch.weights import init_random
+
+    t_phase = time.perf_counter()
+    cfg = train_config(tmp / "train_data", vocab_path, samples=False)
+    vocab_size = len(AnswerVocab.load(vocab_path))
+    base = init_random(build_gpv(cfg.model, vocab_size), seed=2)
+    resident = batch_to_device(_ddp_rows(batch, TRAIN_B), DEVICE)
+    rec = {"phase": "remat", "batch": TRAIN_B, "dtype": "bfloat16"}
+    counts = Counter({c: REMAT_STEPS * n for c, n in train_step_launches(
+        TRAIN_B, False).items()})
+    for remat in (False, True):
+        model = build_gpv(cfg.model, vocab_size, remat=remat)
+        model.load_state_dict(base.state_dict())
+        model.to(DEVICE)
+        opt, sched = build_optimizer(cfg.training, 10, model)
+        state = TrainState(model, opt, sched)
+        step = make_train_step(model, LossConfig.from_config(cfg.losses),
+                               float(cfg.training.clip_max_norm),
+                               dtype=torch.bfloat16)
+        step(state, resident)  # warm-up
+        _sync()
+        _peak_reset()
+        _reset_counts()
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            _finite_losses("remat", step(state, resident))
+            _sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        _, var = _read_counts()
+        _check_counts(f"remat={remat}", var, counts)
+        rec["remat" if remat else "plain"] = {
+            "step_ms": times,
+            "peak_memory_bytes": _peak(),
+            "launches_by_variant": var}
+        del model, opt, sched, state, step
+        torch.cuda.empty_cache()
+    rec["step_ms_ratio"] = (np.median(rec["remat"]["step_ms"])
+                            / np.median(rec["plain"]["step_ms"]))
+    rec["peak_memory_ratio"] = (rec["remat"]["peak_memory_bytes"]
+                                / max(1, rec["plain"]["peak_memory_bytes"]))
+
+    # gradients with dropout on, fp32, deterministic cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rows = batch_to_device(_ddp_rows(batch, REMAT_CHECK_B), DEVICE)
+    grads = {}
+    try:
+        for remat in (False, True):
+            model = build_gpv(cfg.model, vocab_size, remat=remat)
+            model.load_state_dict(base.state_dict())
+            model.to(DEVICE)
+            frozen = frozen_names(model)
+            for n, p in model.named_parameters():
+                p.requires_grad_(n not in frozen)
+            gen = torch.Generator(device=DEVICE).manual_seed(5)
+            with dropout_generator(gen):
+                out = model(normalize_image(rows["image"].float() / 255.0),
+                            rows["query_ids"], rows["answer_ids"],
+                            query_valid=rows["query_valid"], train=True)
+                total, _ = gpv_criterion(out, rows,
+                                         LossConfig.from_config(cfg.losses))
+            total.backward()
+            grads[remat] = {n: p.grad.detach().cpu()
+                            for n, p in model.named_parameters()
+                            if p.grad is not None}
+            del model, out, total
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+    if set(grads[True]) != set(grads[False]):
+        fail("remat: other gradient leaves with remat")
+    # relative to the leaf's largest gradient; a leaf whose gradient is 0
+    # must be 0 with remat too
+    worst, leaf = 0.0, None
+    for n, g in grads[False].items():
+        diff, scale = (grads[True][n] - g).abs().max().item(), \
+            g.abs().max().item()
+        err = diff / scale if scale else (0.0 if diff == 0 else np.inf)
+        if err > worst:
+            worst, leaf = err, n
+    rec["check"] = {"batch": REMAT_CHECK_B, "dtype": "float32",
+                    "dropout": float(cfg.model.detr.dropout),
+                    "leaves": len(grads[False]), "grad_max_rel_err": worst,
+                    "worst_leaf": leaf, "tol": 1e-5}
+    if not worst <= 1e-5:
+        fail(f"remat: gradient of {leaf} off no-remat's by {worst} relative")
+    del base, grads, resident, rows
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, counts
+
+
+# ------------------------------------------------- multi-device inference
+
+def _abba(calls: dict, n_iter: int = 5) -> dict:
+    """images/s of two B-row calls {a, b}, measured a, b, b, a (n_iter
+    calls each time), so that a drift of the machine falls on both."""
+    (a, fa), (b, fb) = calls.items()
+    out = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        out[name].append(_images_per_s(fn, n_iter))
+    return out
+
+
+def phase_infer_dp(eng, vocab_path: Path, tmp: Path, checked: set):
+    """`tpu.infer_data_parallel` and `GPVEngine(devices=...)` on the one
+    card: -1 builds the plain engine (F3), bit for bit; an engine over
+    cuda:0, cuda:0 against the one-device engine on a ragged batch of
+    INFER_DP_N in fp32, and its bf16 images/s beside the engine's;
+    export_engine refuses it. Returns the record and the bf16 two-shard
+    predict's {Case: launches}."""
+    import torch
+    from gpv_tpu_torch.engine import GPVEngine
+    from gpv_tpu_torch.export import export_engine
+    from gpv_tpu_torch.infer.build import build_engine
+    from gpv_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "infer_dp"}
+    images, queries = _batch(0, B)
+    auto = build_engine(load_config(ROOT / "configs", "exp/gpv_inference", [
+        "ckpt=null", "tpu.dtype=bfloat16", f"model.vocab={vocab_path}",
+        f"device={DEVICE}", "tpu.infer_data_parallel=-1"]))
+    if len(auto.devices) != 1:
+        fail(f"infer_dp: -1 on one card gave devices {auto.devices}")
+    for g, w in zip(auto.predict(images, queries),
+                    eng.predict(images, queries)):
+        if g["answer"] != w["answer"] or not np.array_equal(
+                g["boxes"], w["boxes"]) or not np.array_equal(
+                    g["relevance"], w["relevance"]):
+            fail("infer_dp: infer_data_parallel=-1 answers otherwise than "
+                 "the one-device engine")
+    rec["minus_one_equals_plain"] = True
+    del auto
+
+    cfg = load_config(ROOT / "configs", "exp/gpv_inference", [
+        "ckpt=null", f"model.vocab={vocab_path}"])
+    two = [f"{DEVICE}:0", f"{DEVICE}:0"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one32 = GPVEngine.from_config(cfg.model, eng.vocab, eng.tokenizer,
+                                  dtype=torch.float32, device=DEVICE)
+    two32 = GPVEngine.from_config(cfg.model, eng.vocab, eng.tokenizer,
+                                  dtype=torch.float32, devices=two)
+    ragged, rq = _batch(3, INFER_DP_N)
+    want = one32.predict(ragged, rq)
+    got = two32.predict(ragged, rq)
+    rec["fp32"] = {"rows": INFER_DP_N, "shards": len(two),
+                   "shard_steps": two32.last_shard_steps,
+                   "max_scaled_err": _agree("infer_dp fp32", got, want,
+                                            1e-3)}
+    try:
+        export_engine(two32, tmp / "infer_dp_export", batch_sizes=(2,))
+    except ValueError as e:
+        rec["export_refused"] = str(e)[:120]
+    else:
+        fail("infer_dp: export_engine took a multi-device engine")
+    del one32, two32
+    torch.cuda.empty_cache()
+
+    two16 = GPVEngine.from_config(cfg.model, eng.vocab, eng.tokenizer,
+                                  devices=two)
+    two16.predict(images, queries)  # warm-up
+    _sync()
+    _reset_counts()
+    got = two16.predict(images, queries)
+    _sync()
+    _, var = _read_counts()
+    counts = Counter()
+    for s in two16.last_shard_steps:
+        counts.update(path_launches("predict", s, B // len(two)))
+    _check_counts("infer_dp", var, counts)
+    _check_boxes(got)
+    if {c.name for c in counts} - checked:
+        fail("infer_dp: a shape is not a kernels case")
+    rec["bf16"] = {"batch": B, "shard_steps": two16.last_shard_steps,
+                   "launches_by_variant": var,
+                   "images_per_s": _abba(
+                       {"one_device": lambda: eng.predict(images, queries),
+                        "two_shards": lambda: two16.predict(images,
+                                                            queries)})}
+    del two16
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, counts
+
+
+# ------------------------------------------------- space-to-depth stem
+
+def _stem_device_ms(trunk, x) -> dict:
+    """Device ms of the stem conv alone, and of the whole stem input path
+    (space-to-depth and pad included for the s2d stem), from the profiler
+    over STEM_REPS calls each."""
+    import torch
+    import torch.nn.functional as F
+    from gpv_tpu_torch.ops.stem_s2d import STEM_PAD, space_to_depth
+
+    def prep(x):
+        return F.pad(space_to_depth(x), STEM_PAD) if trunk.stem_s2d else x
+
+    x = x.to(trunk.conv1.weight.dtype)
+    with torch.inference_mode():
+        xin = prep(x)
+        out = {}
+        for name, fn in (("conv_device_ms", lambda: trunk.conv1(xin)),
+                         ("stem_device_ms", lambda: trunk.conv1(prep(x)))):
+            for _ in range(3):
+                fn()
+            out[name] = _profiled_device_ms(fn, STEM_REPS)
+    return out
+
+
+def phase_stem_s2d(eng, vocab_path: Path, checked: set):
+    """`model.detr.stem_s2d` at released width: fp32 predict with the s2d
+    stem against the plain stem (answers equal, boxes 2e-4, relevance
+    5e-4), bf16 images/s at B both ways, and the stem's device ms both
+    ways. Returns the record and the bf16 s2d predict's {Case:
+    launches}."""
+    import torch
+    from gpv_tpu_torch.infer.build import build_engine
+    from gpv_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "stem_s2d", "batch": B}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def build(dtype, s2d):
+        return build_engine(load_config(
+            ROOT / "configs", "exp/gpv_inference",
+            ["ckpt=null", f"tpu.dtype={dtype}", f"model.vocab={vocab_path}",
+             f"device={DEVICE}", f"model.detr.stem_s2d={str(s2d).lower()}"]))
+
+    images, queries = _batch(4, B)
+    plain32, s2d32 = build("float32", False), build("float32", True)
+    if not s2d32.model.detr.trunk.stem_s2d:
+        fail("stem_s2d: the engine was built without the s2d stem")
+    want, got = plain32.predict(images, queries), s2d32.predict(images,
+                                                                queries)
+    worst = {"boxes": 0.0, "relevance": 0.0}
+    for g, w in zip(got, want):
+        if g["answer"] != w["answer"]:
+            fail(f"stem_s2d: answer {g['answer']!r} != {w['answer']!r}")
+        for key in worst:
+            worst[key] = max(worst[key], float(np.abs(
+                np.asarray(g[key]) - np.asarray(w[key])).max()))
+    rec["fp32_max_abs_err"] = worst
+    if not (worst["boxes"] <= 2e-4 and worst["relevance"] <= 5e-4):
+        fail(f"stem_s2d: fp32 s2d predict off the plain stem's: {worst}")
+    del plain32, s2d32
+    torch.cuda.empty_cache()
+
+    s2d16 = build("bfloat16", True)
+    x = torch.from_numpy(images).to(DEVICE).permute(0, 3, 1, 2)
+    for name, e in (("plain", eng), ("s2d", s2d16)):
+        e.predict(images, queries)  # warm-up
+        _sync()
+        _reset_counts()
+        out = e.predict(images, queries)
+        _sync()
+        _, var = _read_counts()
+        counts = path_launches("predict", e.last_decode_steps)
+        _check_counts(f"stem_s2d {name}", var, counts)
+        _check_boxes(out)
+        rec[name] = {
+            "launches_by_variant": var,
+            "conv1_weight_shape": list(e.model.detr.trunk.conv1.weight.shape),
+            **_stem_device_ms(e.model.detr.trunk, x)}
+    if {c.name for c in counts} - checked:
+        fail("stem_s2d: a shape is not a kernels case")
+    rec["images_per_s"] = _abba(
+        {"plain": lambda: eng.predict(images, queries),
+         "s2d": lambda: s2d16.predict(images, queries)})
+    rec["stem_device_ms_ratio"] = (rec["s2d"]["stem_device_ms"]
+                                   / rec["plain"]["stem_device_ms"])
+    del s2d16
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, ({"launches_by_variant": var}, counts)
+
+
 def kernels_line(kern: dict, runs: dict) -> dict:
     """One entry per kernel of the paths. Its top-level numbers are one
     predict's (the slice run): each bf16 shape's number times its
@@ -2683,10 +3538,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", type=Path, default=None,
                     help="also write every phase's record to this file")
+    ap.add_argument("--rank-task", choices=sorted(RANK_TASKS),
+                    help=argparse.SUPPRESS)  # a rank this script spawns
+    ap.add_argument("--rank-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (ROOT / "gpv_tpu_torch" / "csrc").is_dir():
         fail("gpv_tpu_torch/ not found beside chip_smoke.py: run it from a "
              "checkout of the repository")
+    if args.rank_task:
+        rank_main(args.rank_task, args.rank_dir)
+        return
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -2721,6 +3582,13 @@ def main() -> None:
         ex, ex_counts = phase_export(eng, vocab_path, Path(tmp), checked)
         records.append(ex)
         emit(ex)
+        idp, idp_counts = phase_infer_dp(eng, vocab_path, Path(tmp),
+                                         checked)
+        records.append(idp)
+        emit(idp)
+        st, st_run = phase_stem_s2d(eng, vocab_path, checked)
+        records.append(st)
+        emit(st)
         del eng
         tr, tr_counts, tr_eval, tr_eval_counts, batch, costs = phase_train(
             vocab_path, Path(tmp), checked)
@@ -2731,6 +3599,12 @@ def main() -> None:
             emit(rec)
         records.append(phase_train_e2e(vocab_path, Path(tmp), batch))
         emit(records[-1])
+        ddp, ddp_runs = phase_ddp(vocab_path, Path(tmp), batch, checked)
+        records.append(ddp)
+        emit(ddp)
+        rm, rm_counts = phase_remat(vocab_path, Path(tmp), batch)
+        records.append(rm)
+        emit(rm)
         prep, prep_train, prep_pred = phase_data_prep(Path(tmp), checked)
         records.append(prep)
         emit(prep)
@@ -2743,7 +3617,9 @@ def main() -> None:
         "train_eval": (tr_eval, tr_eval_counts),
         "export": (ex, ex_counts),
         "data_prep_train": (prep["train"], prep_train),
-        "data_prep_predict": (prep["predict"], prep_pred)})
+        "data_prep_predict": (prep["predict"], prep_pred),
+        "infer_dp": (idp["bf16"], idp_counts), "stem_s2d": st_run,
+        "remat": (rm["remat"], rm_counts), **ddp_runs})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

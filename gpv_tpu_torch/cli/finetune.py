@@ -7,7 +7,9 @@ Run from a checkout. Behavior spec: reference `python -m
 exp.gpv.finetune_distr` (`finetune_distr.py:443-460`): the trainer over
 refcocop data, selection metric refexp mAP, eval every
 `training.eval_every` epochs, and a checkpoint load that does not restore
-step or epoch.
+step or epoch. One process per card as `cli.train` (`python -m
+torch.distributed.run --nproc-per-node N -m gpv_tpu_torch.cli.finetune
+...`, or the `tpu.distributed.*` keys).
 """
 import sys
 from pathlib import Path

@@ -9,7 +9,9 @@ ids and, with query dedup, the batch's unique query rows. Batches are
 dropped to a fixed size (`drop_last`), so every step has one shape.
 
 `DataLoader` shuffles with a seeded per-epoch order, takes a shard's rows
-of each global batch, and assembles batches on forked worker processes,
+of each global batch (`parallel.mesh.shard_rows`: the shard's part of
+each accumulation microbatch), and assembles batches on forked worker
+processes,
 one batch per task. A worker runs `dataset.get` and the collator only
 (numpy, never torch or CUDA), so forking a process that has launched
 kernels is safe; it stacks the batch's images into one shared-memory block
@@ -23,6 +25,7 @@ from typing import Any, Dict, Iterator, List
 import numpy as np
 
 from ..losses.criterion import TASK_IDS
+from ..parallel.mesh import shard_rows
 from ..text.vocab import AnswerVocab
 from ..text.wordpiece import WordPieceTokenizer
 
@@ -165,14 +168,17 @@ class DataLoader:
     def __init__(self, dataset, collator: Collator, batch_size: int,
                  shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 8, seed: int = 0, prefetch: int = 4,
-                 num_shards: int = 1, shard_id: int = 0):
+                 num_shards: int = 1, shard_id: int = 0,
+                 grad_accum: int = 1):
         """`batch_size` is the global batch; with num_shards > 1 every
         shard iterates the same seeded global order and loads only its
-        contiguous `batch_size // num_shards` rows of each batch.
-        num_workers <= 1 assembles batches in this process."""
-        if batch_size % max(1, num_shards):
-            raise ValueError(f"global batch {batch_size} not divisible by "
-                             f"{num_shards} shards")
+        `batch_size // num_shards` rows of each batch: of each of the
+        `grad_accum` microbatches the step splits the global batch into,
+        the shard's contiguous part (`parallel.mesh.shard_rows`; with
+        grad_accum 1 one contiguous block). num_workers <= 1 assembles
+        batches in this process."""
+        self.rows = shard_rows(batch_size, max(1, num_shards), shard_id,
+                               grad_accum)
         if num_shards > 1 and not drop_last:
             raise ValueError("num_shards > 1 requires drop_last=True")
         self.dataset = dataset
@@ -203,9 +209,7 @@ class DataLoader:
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
         if self.num_shards > 1:
-            lb = self.batch_size // self.num_shards
-            batches = [b[self.shard_id * lb:(self.shard_id + 1) * lb]
-                       for b in batches]
+            batches = [b[self.rows] for b in batches]
         return batches
 
     def load_batch(self, bi: int, idxs: np.ndarray,
@@ -213,12 +217,11 @@ class DataLoader:
         """Batch `bi` of `epoch`: each item draws from a RandomState keyed
         by its row's position in the global batch, so a batch is the same
         whichever process or shard assembles it."""
-        lb = self.batch_size // self.num_shards
         base = (self.seed * 1000003 + epoch * 9973 + bi * 131071) % (2 ** 31)
+        rows = self.rows if self.num_shards > 1 else range(len(idxs))
         items = []
-        for j, i in enumerate(idxs):
-            row = self.shard_id * lb + j
-            rng = np.random.RandomState((base + row) % (2 ** 31))
+        for row, i in zip(rows, idxs):
+            rng = np.random.RandomState((base + int(row)) % (2 ** 31))
             items.append(self.dataset.get(int(i), rng))
         return self.collator(items)
 

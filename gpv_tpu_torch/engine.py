@@ -9,12 +9,27 @@ on one device. The output contract matches `inference.py:24-47`:
 
 The engine runs on the card unless the caller asks for the CPU:
 `device=None` means `cuda`, and without a CUDA device it raises.
+
+Data-parallel inference (the JAX engine's `mesh=`, `gpv_tpu/engine.py:
+31-61`): `devices=[...]` holds one folded replica of the weights per
+device and splits every batch's rows over the devices, in order; a batch
+whose size does not divide their number is padded by repeating its last
+row, and the outputs are sliced back. Each device's shard runs on a
+thread of its own, on a CUDA stream of its own: a plain loop over the
+devices would wait on each shard's greedy loop (a host sync every step)
+before launching the next. The threads share the interpreter lock, so
+the host work of the shards adds up: a host-bound predict gains nothing
+from them (PERF.md §6, PR 8). A list may repeat a device (its shards then
+share one replica). With one device the engine is the plain one-device
+engine.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
-from typing import List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,9 +39,13 @@ from .decode.greedy import greedy_decode
 from .models.gpv import GPV, build_gpv
 from .ops.fold_bn import fold_frozen_bn
 from .ops.image import normalize_image
+from .ops.stem_s2d import apply_stem_s2d
 from .text.vocab import AnswerVocab
 from .text.wordpiece import WordPieceTokenizer
 from .weights import StateDict, init_random
+
+
+STEM = "detr.backbone.0.body.conv1.weight"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,13 +77,20 @@ class GPVEngine:
     def __init__(self, model: GPV, vocab: AnswerVocab,
                  tokenizer: WordPieceTokenizer, max_query_len: int = 20,
                  fold_bn: bool = True, device=None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 devices: Optional[Sequence] = None):
         """Takes a copy of `model` with its weights: BN folded into the
         backbone convs (serving fold, on by default as in the JAX engine),
-        cast to `dtype` and moved to `device`. The caller's model is left
-        as it is; `load_weights` takes its weights again later."""
-        self.device = resolve_device(device)
+        cast to `dtype` and moved to `device`, or to each of `devices`
+        (module docstring; `device` is then ignored). The caller's model
+        is left as it is; `load_weights` takes its weights again later."""
+        self.devices = [resolve_device(d)
+                        for d in (devices if devices else [device])]
+        self.device = self.devices[0]
         self.fold_bn, self.dtype = fold_bn, dtype
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.devices] \
+            if len(self.devices) > 1 else [None]
         self.load_weights(model)
         self.vocab = vocab
         self.tokenizer = tokenizer
@@ -76,13 +102,22 @@ class GPVEngine:
         """Serve `model`'s current weights: a fresh copy, BN folded, cast
         and moved as at construction. The trainer calls it before every
         in-train eval and visualisation; `model` itself is not touched
-        (its BN stays unfolded)."""
+        (its BN stays unfolded). Each device of a multi-device engine
+        takes a replica."""
         model = copy.deepcopy(model).eval().requires_grad_(False)
         for p in model.parameters():
             p.grad = None
         if self.fold_bn:
             fold_frozen_bn(model.detr.trunk)
-        self.model = model.to(device=self.device, dtype=self.dtype)
+        distinct = list(dict.fromkeys(self.devices))
+        replicas = {d: (model if i == 0 else copy.deepcopy(model)).to(
+            device=d, dtype=self.dtype) for i, d in enumerate(distinct)}
+        self.replicas = [replicas[d] for d in self.devices]
+        self.model = self.replicas[0]
+        if len(self.devices) > 1:  # the shards' streams read the copies
+            for d in distinct:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
     @property
     def last_decode_steps(self) -> int:
@@ -95,40 +130,85 @@ class GPVEngine:
                     tokenizer: WordPieceTokenizer,
                     state_dict: Optional[StateDict] = None,
                     dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                    max_query_len: int = 20, device=None) -> "GPVEngine":
+                    max_query_len: int = 20, device=None,
+                    devices: Optional[Sequence] = None) -> "GPVEngine":
         """Build the model from the `model` config node (`build_gpv`),
-        with `state_dict` (reference names, loaded strictly) or, without
-        one, seeded random weights (`weights.init_random`)."""
+        with `state_dict` (reference names, loaded strictly; a 7x7 stem
+        is rewritten for `model.detr.stem_s2d`) or, without one, seeded
+        random weights (`weights.init_random`)."""
         model = build_gpv(model_cfg, vocab_size=len(vocab))
         if state_dict is None:
             init_random(model, seed)
         else:
+            if model.detr.trunk.stem_s2d and state_dict[STEM].shape[-1] == 7:
+                state_dict = apply_stem_s2d(state_dict)
             model.load_state_dict(state_dict, strict=True)
         return cls(model, vocab, tokenizer, max_query_len=max_query_len,
-                   device=device, dtype=dtype)
+                   device=device, dtype=dtype, devices=devices)
 
-    def _tensor(self, arr) -> Optional[torch.Tensor]:
+    @staticmethod
+    def _tensor(arr, device) -> Optional[torch.Tensor]:
         if arr is None:
             return None
         arr = np.ascontiguousarray(arr)
         if not arr.flags.writeable:  # e.g. np.asarray of a PIL image
             arr = arr.copy()
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(arr).to(device)
+
+    def _shards(self, run, rows: list, n: int) -> tuple:
+        """`run(k, *rows of shard k)` on every device, each tuple of numpy
+        outputs concatenated over the shards and sliced to the first `n`
+        rows; also the shards' decode steps (the `steps` each `run`
+        returns last). `rows`: arrays (or None) with n leading rows."""
+        D = len(self.devices)
+        if D == 1:
+            *out, steps = run(0, *rows)
+            return out, [steps]
+        pad = (-n) % D
+        per = (n + pad) // D
+        rows = [None if a is None else np.concatenate(
+            [a, np.repeat(a[-1:], pad, axis=0)]) for a in rows]
+
+        def shard(k):
+            stream = self._streams[k]
+            ctx = (torch.cuda.stream(stream) if stream is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                return run(k, *(None if a is None
+                                else a[k * per:(k + 1) * per] for a in rows))
+        with ThreadPoolExecutor(D, thread_name_prefix="gpv-shard") as pool:
+            outs = list(pool.map(shard, range(D)))
+        return ([np.concatenate(parts)[:n]
+                 for parts in list(zip(*outs))[:-1]], [o[-1] for o in outs])
 
     @torch.inference_mode()
-    def _encode(self, images_uint8, query_ids, query_valid,
-                image_valid=None):
-        return encode_sorted(self.model, images_uint8, query_ids,
-                             query_valid, image_valid)
+    def _greedy_shard(self, k, images, qids, qvalid, vocab_mask,
+                      image_valid=None):
+        dev, model = self.devices[k], self.replicas[k]
+        memory, mem_valid, boxes, rel = encode_sorted(
+            model, self._tensor(images, dev), self._tensor(qids, dev),
+            self._tensor(qvalid, dev), self._tensor(image_valid, dev))
+        tokens, _, steps = greedy_decode(model, memory, mem_valid,
+                                         self.vocab.cls_id,
+                                         self._tensor(vocab_mask, dev),
+                                         stop_id=self.vocab.stop_id)
+        return (tokens.cpu().numpy(), boxes.cpu().numpy(),
+                rel.cpu().numpy(), steps)
 
     def _greedy(self, images, qids, qvalid, vocab_mask, image_valid=None):
-        memory, mem_valid, boxes, rel = self._encode(images, qids, qvalid,
-                                                     image_valid)
-        tokens, _, steps = greedy_decode(self.model, memory, mem_valid,
-                                         self.vocab.cls_id, vocab_mask,
-                                         stop_id=self.vocab.stop_id)
-        self._local.steps = steps
-        return tokens.cpu().numpy(), boxes.cpu().numpy(), rel.cpu().numpy()
+        """Greedy prediction of host rows: (tokens, boxes, rel) numpy."""
+        (tokens, boxes, rel), steps = self._shards(
+            lambda k, *r: self._greedy_shard(k, *r[:3], vocab_mask, r[3]),
+            [np.asarray(images), qids, qvalid, image_valid], len(qids))
+        self._local.steps = max(steps)
+        self._local.shard_steps = steps
+        return tokens, boxes, rel
+
+    @property
+    def last_shard_steps(self) -> list:
+        """Each shard's decode steps in the calling thread's last
+        `predict*` call (one entry for a one-device engine)."""
+        return list(getattr(self._local, "shard_steps", []))
 
     def predict(self, images_uint8, queries: List[str],
                 vocab_mask: Optional[np.ndarray] = None):
@@ -142,9 +222,8 @@ class GPVEngine:
         """
         qids, qvalid = self.tokenizer.batch_encode(list(queries),
                                                    self.max_query_len)
-        tokens, boxes, rel = self._greedy(
-            self._tensor(images_uint8), self._tensor(qids),
-            self._tensor(qvalid), self._tensor(vocab_mask))
+        tokens, boxes, rel = self._greedy(images_uint8, qids, qvalid,
+                                          vocab_mask)
         answers = self.vocab.decode_ids(tokens)
         return [{"answer": answers[i], "boxes": boxes[i],
                  "relevance": rel[i]} for i in range(len(queries))]
@@ -174,10 +253,8 @@ class GPVEngine:
                 valid[j, :h, :w] = True
             qids, qvalid = self.tokenizer.batch_encode(
                 [queries[i] for i in idxs], self.max_query_len)
-            tokens, boxes, rel = self._greedy(
-                self._tensor(batch), self._tensor(qids),
-                self._tensor(qvalid), self._tensor(vocab_mask),
-                self._tensor(valid))
+            tokens, boxes, rel = self._greedy(batch, qids, qvalid,
+                                              vocab_mask, valid)
             answers = self.vocab.decode_ids(tokens)
             for j, i in enumerate(idxs):
                 results[i] = {"answer": answers[j], "boxes": boxes[j],
@@ -200,16 +277,24 @@ class GPVEngine:
         """
         qids, qvalid = self.tokenizer.batch_encode(list(queries),
                                                    self.max_query_len)
-        memory, mem_valid, boxes, rel = self._encode(
-            self._tensor(images_uint8), self._tensor(qids),
-            self._tensor(qvalid))
-        seqs, logp = beam_decode(self.model, memory, mem_valid,
-                                 self.vocab.cls_id, beam_size,
-                                 self._tensor(vocab_mask))
-        self._local.steps = seqs.shape[-1]
-        seqs = seqs.cpu().numpy()
-        probs = np.exp(logp.cpu().numpy())
-        boxes, rel = boxes.cpu().numpy(), rel.cpu().numpy()
+
+        @torch.inference_mode()
+        def run(k, images, qids, qvalid):
+            dev, model = self.devices[k], self.replicas[k]
+            memory, mem_valid, boxes, rel = encode_sorted(
+                model, self._tensor(images, dev), self._tensor(qids, dev),
+                self._tensor(qvalid, dev))
+            seqs, logp = beam_decode(model, memory, mem_valid,
+                                     self.vocab.cls_id, beam_size,
+                                     self._tensor(vocab_mask, dev))
+            return (seqs.cpu().numpy(), logp.cpu().numpy(),
+                    boxes.cpu().numpy(), rel.cpu().numpy(), seqs.shape[-1])
+
+        (seqs, logp, boxes, rel), steps = self._shards(
+            run, [np.asarray(images_uint8), qids, qvalid], len(qids))
+        self._local.steps = max(steps)
+        self._local.shard_steps = steps
+        probs = np.exp(logp)
         decode = (self.vocab.decode_beam_ids if reference_quirks
                   else self.vocab.decode_ids)
         return [{"answers": decode(seqs[i]),

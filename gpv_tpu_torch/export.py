@@ -111,7 +111,15 @@ def _export(body, weights, args, path: Path) -> float:
 def export_engine(engine, out_dir, batch_sizes: Sequence[int] = (1, 8, 20),
                   image_hw=(480, 640)) -> dict:
     """Write `engine`'s bundle (module docstring) to `out_dir`, for each
-    batch size, on the engine's device and dtype. Returns the manifest."""
+    batch size, on the engine's device and dtype. Returns the manifest.
+    A multi-device engine raises, as the JAX export does: its bundle would
+    pin the device topology."""
+    if len(getattr(engine, "devices", ())) > 1:
+        raise ValueError(
+            "export_engine requires a single-device engine: a multi-device "
+            f"engine ({len(engine.devices)} devices) would pin the device "
+            "topology into the bundle. Build the engine without devices= / "
+            "with tpu.infer_data_parallel=1 for export.")
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     model, dev = engine.model, engine.device

@@ -8,12 +8,32 @@ from pathlib import Path
 
 import torch
 
-from ..engine import GPVEngine
+from ..engine import GPVEngine, resolve_device
 from ..text.vocab import AnswerVocab
 from ..text.wordpiece import WordPieceTokenizer
 from ..weights import load_torch_state_dict, orbax_refusal
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def infer_devices(n_dp, device=None) -> list:
+    """`tpu.infer_data_parallel` -> the engine's devices, as
+    `gpv_tpu/infer/build.py:43-56` resolves it: N of this host's devices
+    of `device`'s type (the CUDA cards, or the one CPU), -1 all of them.
+    One device (N of 0, 1, or -1 on a host with one card or on the CPU)
+    gives `[device]`, the plain one-device engine; N above the local
+    count raises."""
+    n_dp = int(n_dp or 1)
+    dev = resolve_device(device)
+    local = ([torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())]
+             if dev.type == "cuda" else [dev])
+    n = len(local) if n_dp < 0 else n_dp
+    if n > len(local):
+        raise ValueError(
+            f"tpu.infer_data_parallel={n_dp} but only {len(local)} local "
+            f"devices are visible ({dev.type})")
+    return [dev] if n <= 1 else local[:n]
 
 
 def build_engine(cfg) -> GPVEngine:
@@ -24,10 +44,11 @@ def build_engine(cfg) -> GPVEngine:
     loaded strictly: a reference `.pth`, a bare state dict, or the
     trainer's own `ckpts/model` / `ckpts/last`, whatever the file's name),
     `tpu.dtype` (bfloat16 or float32), `model.vocab` / `model.bert_vocab`
-    (null: the debug vocabularies) and `device` (null: the CUDA card). A
-    directory (an orbax checkpoint of the JAX package) and
-    `tpu.infer_data_parallel != 1` raise: the port reads no orbax (convert
-    it with `convert_orbax_checkpoint.py`), and runs on one card (ROADMAP).
+    (null: the debug vocabularies), `device` (null: the CUDA card) and
+    `tpu.infer_data_parallel` (split every batch over N local cards, -1
+    all; `infer_devices`). A directory (an orbax checkpoint of the JAX
+    package) raises: the port reads no orbax (convert it with
+    `convert_orbax_checkpoint.py`).
     """
     vocab = (AnswerVocab.load(cfg.model.vocab) if cfg.model.get("vocab")
              else AnswerVocab.debug())
@@ -35,12 +56,8 @@ def build_engine(cfg) -> GPVEngine:
     tokenizer = (WordPieceTokenizer.load(bert_vocab) if bert_vocab
                  else WordPieceTokenizer.debug())
     tpu = cfg.get("tpu") or {}
-    n_dp = int(tpu.get("infer_data_parallel", 1) or 1)
-    if n_dp != 1:
-        raise ValueError(
-            f"tpu.infer_data_parallel={n_dp}: gpv_tpu_torch runs inference "
-            "on one card; multi-card inference is not ported yet (ROADMAP "
-            "Queue 1)")
+    devices = infer_devices(tpu.get("infer_data_parallel", 1),
+                            cfg.get("device"))
     name = str(tpu.get("dtype", "bfloat16"))
     if name not in DTYPES:
         raise ValueError(f"tpu.dtype={name!r}: one of {sorted(DTYPES)}")
@@ -57,5 +74,4 @@ def build_engine(cfg) -> GPVEngine:
             raise NotImplementedError(orbax_refusal(path))
         state_dict = load_torch_state_dict(path)
     return GPVEngine.from_config(cfg.model, vocab, tokenizer, state_dict,
-                                 dtype=DTYPES[name],
-                                 device=cfg.get("device"))
+                                 dtype=DTYPES[name], devices=devices)

@@ -15,12 +15,23 @@ Parity notes (as in the JAX package):
 - localization normalises by the batch's valid target boxes, at least 1;
 - labels CE uses torch's weighted-CE normalisation sum(w[y]·ce)/sum(w[y])
   with w = [1, eos_coef].
+
+Over several processes (`group`, a `torch.distributed` process group) the
+criterion computes each rank's part of the loss of the GLOBAL batch, as the
+JAX step computes one loss over its sharded batch: every normaliser (the
+answer-length bound, each task's sample count, the valid boxes, the
+weighted-CE denominator, the box-supervised samples) is all-reduced over
+the group, and each loss is scaled by the world size W, so that the mean
+over ranks (DDP's gradient average, the logged losses) is the global
+loss. DETR's reference normalises `num_boxes` the same way. With one
+process (`group` None) nothing is reduced or scaled.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.boxes import box_cxcywh_to_xyxy, elementwise_generalized_box_iou
@@ -71,14 +82,25 @@ def _safe_div(num, den):
     return num / torch.clamp(den, min=1.0)
 
 
+def _over(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`x` reduced over `group` (a new tensor), or `x` without a group."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
 def text_ce_losses(answer_logits: torch.Tensor, answer_ids: torch.Tensor,
                    answer_lens: torch.Tensor, task_id: torch.Tensor,
-                   has_answer: torch.Tensor) -> Dict[str, tuple]:
+                   has_answer: torch.Tensor,
+                   group=None) -> Dict[str, tuple]:
     """Per-task teacher-forced CE: {task: (loss, sample count)}.
 
     answer_logits (B,S-1,V) for positions 1..S-1; answer_ids (B,S) with
     the leading __cls__; answer_lens (B,) encoded lengths (cls..stop);
-    task_id (B,) ints, has_answer (B,) bool."""
+    task_id (B,) ints, has_answer (B,) bool. With `group`, the bound and
+    the counts are the group's (module docstring)."""
     logits = answer_logits.float()
     tgt = answer_ids[:, 1:].long()
     # CE as logsumexp minus the target logit: the (B,S-1,V) log-softmax is
@@ -87,13 +109,14 @@ def text_ce_losses(answer_logits: torch.Tensor, answer_ids: torch.Tensor,
         logits, -1, tgt[..., None])[..., 0]                      # (B,S-1)
     # the reference pads to the batch's longest answer: positions below
     # max(len) - 1 count
-    smax = torch.where(has_answer, answer_lens, 0).max()
+    smax = _over(torch.where(has_answer, answer_lens, 0).max(), group,
+                 dist.ReduceOp.MAX)
     pos_ok = torch.arange(tgt.shape[1], device=tgt.device)[None] < smax - 1
     per_sample = (ce * pos_ok).sum(1)
     out = {}
     for task in TEXT_TASKS:
         mask = (task_id == TASK_IDS[task]) & has_answer
-        cnt = mask.sum().float()
+        cnt = _over(mask.sum().float(), group)
         out[task] = (_safe_div((per_sample * mask).sum(), cnt), cnt)
     return out
 
@@ -102,20 +125,22 @@ def localization_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                         tgt_boxes: torch.Tensor, tgt_labels: torch.Tensor,
                         box_valid: torch.Tensor, has_boxes: torch.Tensor,
                         cfg: LossConfig,
-                        q4t: torch.Tensor | None = None) -> Dict[str, tuple]:
+                        q4t: torch.Tensor | None = None,
+                        group=None) -> Dict[str, tuple]:
     """DETR set losses over Hungarian-matched pairs: {name: (loss, count)}.
 
     pred_logits (B,Q,K+1), pred_boxes (B,Q,4) cxcywh; tgt_boxes (B,M,4),
     tgt_labels (B,M), box_valid (B,M) bool; has_boxes (B,) bool (the sample
     carries box supervision). `q4t` (B,M), the matching, is computed here
-    unless given."""
+    unless given. With `group`, the normalisers are the group's (module
+    docstring)."""
     B, Q, K1 = pred_logits.shape
     valid = box_valid & has_boxes[:, None]                        # (B,M)
     if q4t is None:
         q4t = hungarian_match(pred_logits.detach(), pred_boxes.detach(),
                               tgt_labels, tgt_boxes, valid, cfg.cost_class,
                               cfg.cost_bbox, cfg.cost_giou)
-    num_boxes = valid.sum().float().clamp(min=1.0)
+    num_boxes = _over(valid.sum().float(), group).clamp(min=1.0)
     logits, boxes = pred_logits.float(), pred_boxes.float()
 
     # labels CE: matched queries take their target's label, the rest the
@@ -129,7 +154,7 @@ def localization_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                        target_classes[..., None])[..., 0]
     w = torch.where(target_classes == cfg.num_classes, cfg.eos_coef, 1.0)
     w = w * has_boxes[:, None]
-    loss_ce = _safe_div((w * ce).sum(), w.sum())
+    loss_ce = _safe_div((w * ce).sum(), _over(w.sum(), group))
 
     # box losses over the matched pairs
     src = torch.gather(boxes, 1, q4t[..., None].expand(B, q4t.shape[1], 4))
@@ -139,7 +164,7 @@ def localization_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                                            box_cxcywh_to_xyxy(tgt))
     loss_giou = ((1.0 - giou) * valid).sum() / num_boxes
 
-    cnt = has_boxes.sum().float()
+    cnt = _over(has_boxes.sum().float(), group)
     card = ((pred_logits.argmax(-1) != K1 - 1).sum(-1)
             - valid.sum(-1)).abs() * has_boxes
     return {"loss_ce": (loss_ce, cnt), "loss_bbox": (loss_bbox, cnt),
@@ -150,12 +175,13 @@ def localization_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
 _LOC_TERMS = ("loss_ce", "loss_bbox", "loss_giou")
 
 
-def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig):
+def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig, group=None):
     """Total multitask loss (0-d tensor) and the loss dict.
 
     `batch`: answer_ids (B,S), answer_lens (B,), task_id (B,),
     has_answer (B,), boxes (B,M,4), box_labels (B,M), box_valid (B,M),
-    has_boxes (B,)."""
+    has_boxes (B,). With `group`, this rank's part of the global batch's
+    loss times the world size (module docstring)."""
     losses: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), device=outputs["pred_boxes"].device)
 
@@ -167,7 +193,7 @@ def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig):
     if "answer_logits" in outputs:
         text = text_ce_losses(outputs["answer_logits"], batch["answer_ids"],
                               batch["answer_lens"], batch["task_id"],
-                              batch["has_answer"])
+                              batch["has_answer"], group)
         for task, wt, name in (
                 ("CocoCaptioning", cfg.caption_wt, "loss_caption"),
                 ("CocoVqa", cfg.vqa_wt, "loss_vqa"),
@@ -179,7 +205,7 @@ def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig):
     loc = localization_losses(
         outputs["pred_relevance_logits"], outputs["pred_boxes"],
         batch["boxes"], batch["box_labels"], batch["box_valid"],
-        batch["has_boxes"], cfg)
+        batch["has_boxes"], cfg, group=group)
     for name in _LOC_TERMS:
         add(name, *loc[name], weights[name])
     losses["cardinality_error"] = loc["cardinality_error"][0]
@@ -191,9 +217,13 @@ def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig):
         for i in range(aux_l.shape[0]):
             loc_i = localization_losses(
                 aux_l[i], aux_b[i], batch["boxes"], batch["box_labels"],
-                batch["box_valid"], batch["has_boxes"], cfg)
+                batch["box_valid"], batch["has_boxes"], cfg, group=group)
             for name in _LOC_TERMS:
                 add(f"{name}_{i}", *loc_i[name], weights[name])
 
     losses["total_loss"] = total
+    if group is not None:
+        world = dist.get_world_size(group)
+        losses = {k: v * world for k, v in losses.items()}
+        total = losses["total_loss"]
     return total, losses

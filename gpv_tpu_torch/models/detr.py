@@ -15,7 +15,9 @@ query states alone). The RoI head runs at its released setting (7x7,
 sampling grid capped at 8). In training (`train=True`) the transformer
 applies its dropout and the training attention route; with `aux_loss` and
 not `last_layer_only` it also returns every earlier decoder layer's
-predictions for the aux losses.
+predictions for the aux losses. `stem_s2d` builds the space-to-depth stem
+(`ops.stem_s2d`); `remat` recomputes the backbone's stages and the
+transformer's layers in the backward.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ class DETR(nn.Module):
                  dilation: bool = False, pre_norm: bool = False,
                  roi_head: bool = True, position_embedding: str = "sine",
                  dropout: float = 0.1, aux_loss: bool = False,
-                 last_layer_only: bool = True):
+                 last_layer_only: bool = True, stem_s2d: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.aux_loss, self.last_layer_only = aux_loss, last_layer_only
         if position_embedding not in POSITION_EMBEDDINGS:
@@ -60,14 +63,15 @@ class DETR(nn.Module):
         self.hidden_dim = hidden_dim
         self.roi_head = roi_head
         self.backbone = nn.ModuleList(
-            [_Body(ResNet(backbone_layers, dilate_c5=dilation))])
+            [_Body(ResNet(backbone_layers, dilate_c5=dilation,
+                          stem_s2d=stem_s2d, remat=remat))])
         if position_embedding in ("learned", "v3"):
             self.backbone.append(LearnedPositionEmbedding2D(hidden_dim // 2))
         self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.transformer = DetrTransformer(
             hidden_dim, nheads, num_encoder_layers, num_decoder_layers,
-            dim_feedforward, pre_norm, dropout)
+            dim_feedforward, pre_norm, dropout, remat)
         self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3)
 

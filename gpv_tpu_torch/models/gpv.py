@@ -22,7 +22,10 @@ deterministic in every mode (it always takes K1). Variants the node can
 select: `answer_head:
 linear` (a Linear classifier in place of the vocab-embedding one),
 `roi_head: False`, `relevance_conditioning: False`, the learned DETR
-position embedding and any `backbone_layers`.
+position embedding, any `backbone_layers` and the space-to-depth stem
+(`model.detr.stem_s2d`, `ops.stem_s2d`). `remat` (`tpu.remat`) recomputes
+the backbone's stages, DETR's layers and each co-attention layer in the
+backward (`nn.layers.remat`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from torch import nn
 
 from ..nn.bert import BertEncoder
 from ..nn.coattention import CoAttentionLayer
+from ..nn.layers import remat as remat_region
 from ..nn.text_decoder import TextDecoder
 from ..ops.posenc import sine_position_encoding_1d
 from .detr import DETR, POSITION_EMBEDDINGS
@@ -79,9 +83,11 @@ class GPV(nn.Module):
                  detr_cfg: Optional[Dict[str, Any]] = None,
                  roi_head: bool = True, bert_layers: int = 12,
                  bert_hidden: int = 768, bert_heads: int = 12,
-                 bert_vocab_size: int = 30522, bert_max_len: int = 512):
+                 bert_vocab_size: int = 30522, bert_max_len: int = 512,
+                 remat: bool = False):
         super().__init__()
         detr_cfg = dict(detr_cfg or {})
+        self.remat = remat
         self.vocab_size, self.hidden_dim = vocab_size, hidden_dim
         self.max_text_len = max_text_len
         self.text_pos_enc = text_pos_enc
@@ -89,7 +95,7 @@ class GPV(nn.Module):
         self.mask_query_pads = mask_query_pads
         self.linear_answer_head = answer_head == "linear"
         self.bert_max_len = bert_max_len
-        self.detr = DETR(roi_head=roi_head, **detr_cfg)
+        self.detr = DETR(roi_head=roi_head, remat=remat, **detr_cfg)
         # query states (+ the 2048-d RoI features)
         self.detr_joiner = nn.Linear(
             detr_cfg.get("hidden_dim", 256) + (2048 if roi_head else 0),
@@ -148,7 +154,12 @@ class GPV(nn.Module):
         # semantics (PARITY.md #12)
         fusion_valid = query_valid if self.mask_query_pads else None
         for layer in self.co_att_transformer:
-            lv_hs, vl_hs = layer(lv_hs, vl_hs, fusion_valid, None, not train)
+            if self.remat and torch.is_grad_enabled():
+                lv_hs, vl_hs = remat_region(layer, lv_hs, vl_hs,
+                                            fusion_valid, None, not train)
+            else:
+                lv_hs, vl_hs = layer(lv_hs, vl_hs, fusion_valid, None,
+                                     not train)
         relevance = self.relevance_predictor(vl_hs)
         outputs["pred_relevance_logits"] = (
             outputs["pred_relevance_logits"] + relevance)
@@ -292,9 +303,10 @@ def _check_co_att(cfg):
     return intermediate, extra
 
 
-def build_gpv(cfg, vocab_size: int) -> GPV:
+def build_gpv(cfg, vocab_size: int, remat: bool = False) -> GPV:
     """Build from the `model` config node (configs/exp/gpv.yaml schema),
-    with the checks and messages of `gpv_tpu.models.gpv.build_gpv`."""
+    with the checks and messages of `gpv_tpu.models.gpv.build_gpv`;
+    `remat` is `tpu.remat`."""
     if cfg.detr.get("masks"):
         raise ValueError(
             "model.detr.masks=True (DETR segmentation head) is not part of "
@@ -320,11 +332,6 @@ def build_gpv(cfg, vocab_size: int) -> GPV:
             "trainable configuration (it crashes the reference at "
             "detr_roi_head.py:90-92); set last_layer_only=True or "
             "roi_head=False")
-    if cfg.detr.get("stem_s2d"):
-        raise NotImplementedError(
-            "model.detr.stem_s2d=True (space-to-depth stem rewrite) is not "
-            "ported to gpv_tpu_torch: ROADMAP Queue 1 item 21, on H100 "
-            "evidence only; unset it (the stem computes the same function)")
     detr_cfg = dict(
         num_queries=int(cfg.detr.num_queries),
         num_classes=int(cfg.detr.num_classes),
@@ -338,7 +345,10 @@ def build_gpv(cfg, vocab_size: int) -> GPV:
         position_embedding=pe,
         dropout=float(cfg.detr.dropout),
         aux_loss=bool(cfg.detr.aux_loss),
-        last_layer_only=bool(cfg.detr.last_layer_only))
+        last_layer_only=bool(cfg.detr.last_layer_only),
+        # the exact stem rewrite (ops/stem_s2d.py); pair it with
+        # apply_stem_s2d on the weights (GPVEngine.from_config does)
+        stem_s2d=bool(cfg.detr.get("stem_s2d", False)))
     if cfg.detr.get("backbone_layers"):
         # an explicit block spec wins over the backbone's name
         detr_cfg["backbone_layers"] = tuple(
@@ -400,4 +410,5 @@ def build_gpv(cfg, vocab_size: int) -> GPV:
         bert_hidden=int(bert_cfg.get("hidden", 768)),
         bert_heads=int(bert_cfg.get("heads", 12)),
         bert_vocab_size=int(bert_cfg.get("vocab_size", 30522)),
-        bert_max_len=int(bert_cfg.get("max_len", 512)))
+        bert_max_len=int(bert_cfg.get("max_len", 512)),
+        remat=remat)

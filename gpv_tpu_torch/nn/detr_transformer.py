@@ -9,7 +9,9 @@ Parameter names follow the reference (`encoder.layers.{i}.self_attn`,
 `decoder.layers.{i}.multihead_attn`, `decoder.norm`). Batch-first
 (B, T, D). Dropout (rate `dropout`, on the attention probabilities and
 after each sublayer, as the JAX layers place it) acts only when a forward
-is not `deterministic`; so does the training attention route.
+is not `deterministic`; so does the training attention route. `remat`
+recomputes each encoder and decoder layer in the backward
+(`nn.layers.remat`).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MultiHeadAttention, dropout
+from .layers import MultiHeadAttention, dropout, remat
 
 
 class EncoderLayer(nn.Module):
@@ -107,8 +109,9 @@ class DetrTransformer(nn.Module):
     def __init__(self, dim: int = 256, num_heads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  ffn_dim: int = 2048, pre_norm: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.encoder = _Stack(
             [EncoderLayer(dim, num_heads, ffn_dim, pre_norm, dropout)
              for _ in range(num_encoder_layers)],
@@ -121,17 +124,22 @@ class DetrTransformer(nn.Module):
                 deterministic: bool = True,
                 return_intermediate: bool = False):
         """src/pos: (B, HW, D); query_embed: (Q, D); key_valid: (B, HW)."""
+        def run(layer, *args):
+            if self.remat and torch.is_grad_enabled():
+                return remat(layer, *args)
+            return layer(*args)
+
         memory = src
         for layer in self.encoder.layers:
-            memory = layer(memory, pos, key_valid, deterministic)
+            memory = run(layer, memory, pos, key_valid, deterministic)
         if self.encoder.norm is not None:
             memory = self.encoder.norm(memory)
         query_pos = query_embed[None].expand(src.shape[0], -1, -1)
         tgt = torch.zeros_like(query_pos)
         states = []
         for layer in self.decoder.layers:
-            tgt = layer(tgt, memory, query_pos, pos, key_valid,
-                        deterministic)
+            tgt = run(layer, tgt, memory, query_pos, pos, key_valid,
+                      deterministic)
             if return_intermediate:
                 states.append(self.decoder.norm(tgt))
         if return_intermediate:

@@ -16,6 +16,8 @@
 - `dropout`: dropout drawing from the generator a train step installs with
   `dropout_generator` (seeded from the step count, as the JAX step folds
   the step into its key), or from torch's default generator.
+- `remat`: a region whose activations the backward recomputes
+  (`tpu.remat`, the JAX package's `nn.remat`), with the same dropout masks.
 - `MLP`: DETR's ReLU box-head MLP.
 - `FrozenBatchNorm`: BN with frozen statistics, NCHW.
 
@@ -31,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG, fused_attention
 
@@ -59,6 +62,37 @@ def dropout(x: torch.Tensor, rate: float,
     keep = torch.rand(x.shape, generator=getattr(_rng, "generator", None),
                       device=x.device) >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+def remat(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` with its activations dropped after the forward
+    and recomputed in the backward (`torch.utils.checkpoint`, the
+    non-reentrant form: the reentrant one needs an input that requires
+    grad, and the frozen stem and a frozen DETR give none).
+
+    `checkpoint` restores only torch's default generators for the
+    recompute, and the recompute runs on autograd's thread, where no
+    `dropout_generator` is installed. So the forward captures the state of
+    the installed generator, and the recompute draws from a generator
+    restored to it: the backward sees the forward's masks. The forward
+    itself draws from the installed generator, which advances as it would
+    without remat."""
+    gen = getattr(_rng, "generator", None)
+    if gen is None:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    state = gen.get_state()
+    calls = []
+
+    def run(*a, **kw):
+        if not calls:  # the forward
+            calls.append(1)
+            return fn(*a, **kw)
+        replay = torch.Generator(device=gen.device)
+        replay.set_state(state)
+        with dropout_generator(replay):
+            return fn(*a, **kw)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
 def attend_train(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,

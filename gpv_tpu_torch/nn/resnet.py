@@ -6,15 +6,20 @@ Torchvision's layout and parameter names (`conv1`, `bn1`, `layer{s}.{b}`,
 it is. Bottleneck: conv1x1 -> BN -> ReLU -> conv3x3(stride) -> BN -> ReLU ->
 conv1x1 -> BN; add identity/downsample; ReLU. The stride sits on the 3x3
 conv (torchvision v1.5 "ResNet B"). Returns C5 (2048 channels, stride 32).
+`stem_s2d` takes the space-to-depth stem (`ops.stem_s2d`: `conv1` is
+(64, 12, 4, 4) over 2x2-blocked input); `remat` recomputes each stage in
+the backward (`nn.layers.remat`, the JAX package's stage granularity).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import FrozenBatchNorm
+from ..ops.stem_s2d import STEM_PAD, space_to_depth
+from .layers import FrozenBatchNorm, remat
 
 
 class Bottleneck(nn.Module):
@@ -46,9 +51,12 @@ class ResNet(nn.Module):
     """ResNet-50/101 trunk: (B, 3, H, W) -> C5 (B, 2048, H/32, W/32)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
-                 dilate_c5: bool = False):
+                 dilate_c5: bool = False, stem_s2d: bool = False,
+                 remat: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.stem_s2d, self.remat = stem_s2d, remat
+        self.conv1 = (nn.Conv2d(12, 64, 4, bias=False) if stem_s2d else
+                      nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False))
         self.bn1 = FrozenBatchNorm(64)
         in_ch = 64
         for i, (n_blocks, planes) in enumerate(zip(layers,
@@ -64,8 +72,12 @@ class ResNet(nn.Module):
             in_ch = planes * 4
 
     def forward(self, x):
+        if self.stem_s2d:
+            x = F.pad(space_to_depth(x), STEM_PAD)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i in range(4):
-            x = getattr(self, f"layer{i + 1}")(x)
+            stage = getattr(self, f"layer{i + 1}")
+            x = (remat(stage, x) if self.remat and torch.is_grad_enabled()
+                 else stage(x))
         return x

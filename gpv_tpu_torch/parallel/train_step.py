@@ -1,5 +1,5 @@
-"""The multitask train step on one card (counterpart of
-`gpv_tpu/parallel/train_step.py`).
+"""The multitask train step, on one card or one rank of a data-parallel
+group (counterpart of `gpv_tpu/parallel/train_step.py`).
 
 Reference hot loop `exp/gpv/train_distr.py:399-471`: teacher-forced
 forward -> GPVCriterion -> backward -> clip the DETR gradients at 0.1 ->
@@ -20,17 +20,32 @@ host once and solves there (`ops.matcher`).
   and losses are averaged;
 - dropout draws from a generator seeded from (seed, step), as the JAX step
   folds the step into its key: one device, one seed and one step give one
-  loss.
+  loss. A rank folds its index in too, so that ranks draw different masks
+  for their rows, as the JAX global mask does.
+
+Data parallelism: in a joined process group (`parallel.mesh`) the model
+runs under `DistributedDataParallel` (the reference's DDP) on this rank's
+rows of the global batch (`datasets.loader`). The JAX step computes one
+loss over the global batch; the criterion gives each rank its part of it
+times the world size (global normalisers), so DDP's gradient mean is the
+global loss's gradient, microbatch by microbatch. Every microbatch but the
+last runs under `no_sync`, so the accumulated gradient is all-reduced once.
+Names (frozen parameters, the clip's groups, the optimizer's groups) are
+resolved on the inner module, whose names are the reference's; the
+returned losses are the mean over ranks, the global batch's.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ..losses.criterion import LossConfig, gpv_criterion
 from ..nn.layers import dropout_generator
@@ -96,7 +111,10 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
     box_valid (B,M); has_boxes (B,); optionally query_uniq_ids/valid
     (U,Tq) and query_gather (B,). `timings`, a dict, receives the ms of
     upload, query_encode, forward (with the matching), backward, clip
-    and adamw, each after a synchronisation."""
+    and adamw, each after a synchronisation.
+
+    In a joined process group the step runs as one rank of it under DDP
+    (module docstring): `batch` is then this rank's rows."""
     frozen = frozen_names(model, freeze_detr, frozen_detr_paths)
     for name, p in model.named_parameters():
         if name in frozen:
@@ -104,6 +122,24 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
     trainable = [p for p in model.parameters() if p.requires_grad]
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} < 1")
+    distributed = dist.is_initialized()
+    group, rank, world, forward = None, 0, 1, model
+    if distributed:
+        group, rank, world = (dist.group.WORLD, dist.get_rank(),
+                              dist.get_world_size())
+        device = next(model.parameters()).device
+        # The forward reaches every trainable leaf but one: with
+        # relevance_conditioning off, `relevance_tokens` is never read
+        # (tests/test_torch_port_ddp.py lists the unreached leaves of each
+        # variant). Only then must the reducer search for unused
+        # parameters. Frozen leaves (requires_grad False) are not
+        # registered at all; FrozenBN buffers never change, so nothing is
+        # broadcast.
+        forward = DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            broadcast_buffers=False,
+            find_unused_parameters=not getattr(
+                model, "relevance_conditioning", True))
 
     def step(state: TrainState, batch, timings: Optional[dict] = None):
         device = next(model.parameters()).device
@@ -113,7 +149,10 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
         b = batch_to_device(batch, device)
         mark("upload")
         gen = torch.Generator(device=device)
-        gen.manual_seed(seed * 1000003 + state.step)
+        # the CPU generator keeps 32 bits of a seed; a rank's offset (a
+        # 32-bit golden-ratio multiple) leaves rank 0's seed as it was
+        gen.manual_seed((seed * 1000003 + state.step + rank * 2654435761)
+                        % 2 ** 32)
         if "query_uniq_ids" in b:
             with autocast:
                 uniq = model.encode_queries(b.pop("query_uniq_ids"),
@@ -132,14 +171,20 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
             images = mb["image"]
             if images.dtype == torch.uint8:
                 images = normalize_image(images.float() / 255.0)
-            with dropout_generator(gen), autocast:
-                outputs = model(images, mb["query_ids"], mb["answer_ids"],
-                                image_valid=mb.get("image_valid"),
-                                query_valid=mb["query_valid"], train=True,
-                                query_enc=mb.get("query_enc"))
-                total, losses = gpv_criterion(outputs, mb, loss_cfg)
-            mark("forward")
-            (total / grad_accum).backward()
+            # DDP all-reduces the accumulated gradients once, at the last
+            sync = (forward.no_sync() if distributed and i < grad_accum - 1
+                    else contextlib.nullcontext())
+            with sync:
+                with dropout_generator(gen), autocast:
+                    outputs = forward(
+                        images, mb["query_ids"], mb["answer_ids"],
+                        image_valid=mb.get("image_valid"),
+                        query_valid=mb["query_valid"], train=True,
+                        query_enc=mb.get("query_enc"))
+                    total, losses = gpv_criterion(outputs, mb, loss_cfg,
+                                                  group)
+                mark("forward")
+                (total / grad_accum).backward()
             mark("backward")
             for k, v in losses.items():
                 total_losses[k] = total_losses.get(k, 0.0) + v.detach()
@@ -154,6 +199,11 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
         state.scheduler.step()
         state.step += 1
         mark("adamw")
-        return {k: v / grad_accum for k, v in total_losses.items()}
+        out = {k: v / grad_accum for k, v in total_losses.items()}
+        if distributed:  # the mean over ranks: the global batch's losses
+            flat = torch.stack([out[k] for k in out]).float()
+            dist.all_reduce(flat, group=group)
+            out = dict(zip(out, flat / world))
+        return out
 
     return step

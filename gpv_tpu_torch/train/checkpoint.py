@@ -33,6 +33,11 @@ async_write=True)`), with the semantics of the JAX package's:
     before a loader forks its workers (each epoch's loop, each in-train
     eval). Only the rolling `last` saves inside an epoch overlap steps.
 
+In a data-parallel group (`parallel.mesh`) rank 0 writes, sync or async,
+and every rank waits at a host barrier after each save, so no rank forks a
+loader or reads the file before rank 0 has issued its write; every rank
+restores on its own.
+
 An orbax directory of the JAX package is read once converted
 (`convert_orbax_checkpoint.py` at the repository root, where JAX is
 installed). Its output holds no schedule state: `load_into` then keeps this
@@ -50,6 +55,7 @@ from typing import Any, Dict, List, Set, Tuple
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from ..weights import load_torch_state_dict, orbax_refusal
 
 # async saves in flight: resolved path -> (writer thread, its outcome)
@@ -126,8 +132,17 @@ def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
     be None) to ckpt_dir/name, then ckpt_dir/name.meta.json. With
     `async_write` the state is first copied to host buffers and the write
     runs on a thread of its own; join it with `wait_for_saves` (module
-    docstring)."""
+    docstring). In a process group only rank 0 writes, and every rank
+    then waits at `mesh.host_barrier`."""
     path = Path(ckpt_dir).resolve() / name
+    if mesh.is_main():
+        _save(path, state, metadata, async_write)
+    mesh.host_barrier()
+    return path
+
+
+def _save(path: Path, state, metadata: Dict[str, Any],
+          async_write: bool) -> None:
     wait_for_saves(path)  # never two writers on one path
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = {"model": state.model.state_dict(),
@@ -138,7 +153,7 @@ def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
                "param_names": param_names(state)}
     if not async_write:
         _write(payload, path, dict(metadata))
-        return path
+        return
     payload = _host_copy(payload, "", _BUFFERS.setdefault(str(path), {}))
     if torch.cuda.is_available():
         torch.cuda.synchronize()  # the copies land before a step can run
@@ -149,11 +164,10 @@ def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
             _write(payload, path, dict(metadata))
         except BaseException as e:  # raised again at the join
             outcome["error"] = e
-    thread = threading.Thread(target=run, name=f"save {name}")
+    thread = threading.Thread(target=run, name=f"save {path.name}")
     with _INFLIGHT_LOCK:
         _INFLIGHT[str(path)] = (thread, outcome)
     thread.start()
-    return path
 
 
 def restore_checkpoint(ckpt_dir: str | Path,

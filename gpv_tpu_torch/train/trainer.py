@@ -1,5 +1,5 @@
-"""Multitask trainer on one card (counterpart of `gpv_tpu/train/trainer.py`
-without its multi-host barriers).
+"""Multitask trainer, on one card or as one rank of a data-parallel group
+(counterpart of `gpv_tpu/train/trainer.py`).
 
 Reference `exp/gpv/train_distr.py`: per-epoch in-train eval of the
 configured tasks, best-selection-metric checkpointing (the sum of VQA
@@ -23,11 +23,26 @@ step at all: its orbax restore refuses the changed optimizer tree.)
 
 The model trains on the card unless `device` says otherwise
 (`engine.resolve_device`). Parameters stay fp32; `tpu.dtype: bfloat16`
-runs the forward under bf16 autocast. In-train eval and visualisation go
-through a `GPVEngine` that takes the current weights each time
-(`GPVEngine.load_weights`: a folded copy; the training model stays
-unfolded). One card only: a mesh over several devices or processes and
-`tpu.remat` are refused (ROADMAP Queue 1 items 26 and 27).
+runs the forward under bf16 autocast; `tpu.remat` recomputes the backbone
+stages, the DETR layers and the co-attention layers in the backward. In-train
+eval and visualisation go through a `GPVEngine` that takes the current
+weights each time (`GPVEngine.load_weights`: a folded copy; the training
+model stays unfolded), over `tpu.infer_data_parallel` of the host's cards
+(`infer.build.infer_devices`).
+
+Data parallelism (`parallel.mesh`): one process per card, launched with
+`python -m torch.distributed.run --nproc-per-node N -m
+gpv_tpu_torch.cli.train ...` or with `tpu.distributed.*` set in each
+process. Each rank loads its rows of every global batch
+(`training.batch_size` stays global) and steps under DDP
+(`parallel.train_step`); `tpu.mesh.data` is -1 or the number of processes,
+and `tpu.mesh.model > 1` (tensor parallelism) is ROADMAP Queue 1 item 30.
+As in the JAX trainer, rank 0 alone evaluates, visualises, logs scalars
+and writes checkpoints (its in-train eval over its own host's cards), and
+the ranks meet at host barriers after each epoch's eval, each
+visualisation, each checkpoint and at the end; every rank restores a
+resumed checkpoint. Frozen-BERT query dedup with several processes
+raises, as in the JAX trainer.
 
 `training.async_checkpoint` writes both saves on a thread of their own
 (`train.checkpoint`): every save in flight is joined before a loader forks
@@ -48,9 +63,10 @@ import torch
 from ..datasets.coco import CocoMultitaskDataset
 from ..datasets.loader import Collator, DataLoader
 from ..engine import GPVEngine, resolve_device
-from ..infer.build import DTYPES
+from ..infer.build import DTYPES, infer_devices
 from ..losses.criterion import LossConfig
 from ..models.gpv import build_gpv
+from ..parallel import mesh as mesh_lib
 from ..parallel.train_step import TrainState, make_train_step
 from ..text.vocab import AnswerVocab
 from ..text.wordpiece import WordPieceTokenizer
@@ -64,40 +80,22 @@ from .checkpoint import (load_imagenet_backbone, load_into, load_pretr_detr,
 from .optimizer import build_optimizer
 
 
-def check_one_card(cfg) -> None:
-    """Refuse what the port does not run yet, naming its ROADMAP item."""
-    tpu = cfg.get("tpu") or {}
-    mesh = tpu.get("mesh") or {}
-    dist = tpu.get("distributed") or {}
-    data, model = int(mesh.get("data", -1)), int(mesh.get("model", 1))
-    if data not in (-1, 1) or model != 1 \
-            or int(dist.get("num_processes", 1) or 1) > 1 \
-            or dist.get("coordinator_address"):
-        raise NotImplementedError(
-            f"tpu.mesh data={data} model={model}, distributed "
-            f"{dict(dist)}: gpv_tpu_torch trains on one card (mesh data "
-            "-1 or 1, model 1, one process); data parallelism over several "
-            "cards is ROADMAP Queue 1 item 26")
-    if tpu.get("remat"):
-        raise NotImplementedError(
-            "tpu.remat=True: activation rematerialisation is not ported "
-            "(ROADMAP Queue 1 item 27); use training.grad_accum_steps to "
-            "fit a large batch")
-    if int(tpu.get("infer_data_parallel", 1) or 1) != 1:
-        raise NotImplementedError(
-            "tpu.infer_data_parallel != 1: in-train eval runs on the one "
-            "training card (multi-card inference is ROADMAP Queue 1 item "
-            "20)")
-
-
 class Trainer:
     def __init__(self, cfg, finetune: bool = False):
-        check_one_card(cfg)
         self.cfg = cfg
         self.finetune = finetune
         self.async_checkpoint = bool(cfg.training.get("async_checkpoint",
                                                       False))
-        self.device = resolve_device(cfg.get("device"))
+        tpu = cfg.get("tpu") or {}
+        # join the group before any card is touched; the mesh's checks
+        # (data -1 or the world size, model 1) then hold for it
+        cluster = mesh_lib.initialize_distributed(tpu, cfg.get("device"))
+        self.mesh = mesh_lib.mesh_from_config(tpu)
+        self.world, self.rank = mesh_lib.world_size(), \
+            mesh_lib.process_index()
+        self.is_main = self.rank == 0
+        self.device = resolve_device(mesh_lib.rank_device(cluster,
+                                                          cfg.get("device")))
         name = str(cfg.tpu.dtype)
         if name not in DTYPES:
             raise ValueError(f"tpu.dtype={name!r}: one of {sorted(DTYPES)}")
@@ -108,7 +106,8 @@ class Trainer:
         bert_vocab = cfg.model.get("bert_vocab")
         self.tokenizer = (WordPieceTokenizer.load(bert_vocab) if bert_vocab
                           else WordPieceTokenizer.debug())
-        self.model = init_random(build_gpv(cfg.model, len(self.vocab)), 0)
+        self.model = init_random(build_gpv(
+            cfg.model, len(self.vocab), remat=bool(tpu.get("remat"))), 0)
 
         self.datasets = {
             subset: CocoMultitaskDataset(cfg.learning_datasets,
@@ -121,6 +120,13 @@ class Trainer:
             max_target_boxes=int(cfg.model.get("max_target_boxes", 64)),
             answering_type=str(cfg.model.answering_type),
             dedup_queries=bool(cfg.training.get("query_dedup", False)))
+        if self.collator.dedup_queries and self.world > 1:
+            # ranks' unique-query counts differ (gpv_tpu trainer:106-113)
+            raise ValueError(
+                "training.query_dedup=true requires a single host process "
+                "(per-host unique-query buckets cannot be made consistent "
+                "across a sharded loader); unset it for multi-host runs")
+        grad_accum = int(cfg.training.get("grad_accum_steps", 1))
         freeze = bool(cfg.training.get("freeze", False))
         batch_size = int(cfg.training.batch_size)
         if freeze:
@@ -131,7 +137,9 @@ class Trainer:
         self.loaders = {
             s: DataLoader(d, self.collator, batch_size,
                           shuffle=(s == "train"),
-                          num_workers=int(cfg.training.num_workers), seed=0)
+                          num_workers=int(cfg.training.num_workers), seed=0,
+                          num_shards=self.world, shard_id=self.rank,
+                          grad_accum=grad_accum if s == "train" else 1)
             for s, d in self.datasets.items()}
 
         if cfg.model.vocab_embed:
@@ -167,12 +175,17 @@ class Trainer:
         self.state = TrainState(self.model, optimizer, scheduler)
         self.train_step = make_train_step(
             self.model, LossConfig.from_config(cfg.losses),
-            float(cfg.training.clip_max_norm),
-            grad_accum=int(cfg.training.get("grad_accum_steps", 1)),
+            float(cfg.training.clip_max_norm), grad_accum=grad_accum,
             freeze_detr=freeze, frozen_detr_paths=matched_detr,
             dtype=self.dtype)
+        # rank 0 evaluates over its host's cards; the other ranks never
+        # predict, and hold their engine on their own card
+        devices = infer_devices(tpu.get("infer_data_parallel", 1),
+                                self.device)
         self.engine = GPVEngine(self.model, self.vocab, self.tokenizer,
-                                device=self.device, dtype=self.dtype)
+                                dtype=self.dtype, devices=(
+                                    devices if self.is_main
+                                    else [self.device]))
 
         self.step = 0
         self.last_epoch = -1
@@ -180,7 +193,7 @@ class Trainer:
         self.best_epoch = -1
 
         self.writer = None
-        if cfg.get("tb_dir"):
+        if cfg.get("tb_dir") and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.writer = SummaryWriter(log_dir=str(cfg.tb_dir))
@@ -300,6 +313,7 @@ class Trainer:
         html.close()
 
     def save(self, epoch: int, results: Dict[str, float]):
+        """The best checkpoint `model` (rank 0 writes; every rank calls)."""
         meta = {"epoch": epoch, "step": self.step,
                 "model_selection_metric":
                     results.get("model_selection_metric", 0.0)}
@@ -308,12 +322,36 @@ class Trainer:
                         async_write=self.async_checkpoint)
 
     def save_last(self, epoch: int):
-        """The rolling checkpoint `last`, for preemption recovery."""
+        """The rolling checkpoint `last`, for preemption recovery (rank 0
+        writes; every rank calls)."""
         save_checkpoint(self.cfg.ckpt_dir, self.state,
                         {"epoch": epoch, "step": self.step}, name="last",
                         async_write=self.async_checkpoint)
 
     # ------------------------------------------------------------------
+
+    def _eval_and_save(self, epoch: int, final: bool = False):
+        """Rank 0 evaluates; every rank learns whether the selection
+        metric improved and, if so, takes part in the save."""
+        results = {}
+        if self.is_main:
+            wait_for_saves()  # before the eval's loader forks
+            results = self.evaluate("val")
+            if self.writer and not final:
+                for k, v in results.items():
+                    self.writer.add_scalar(f"val/{k}", v, self.step)
+            if not final:
+                print(f"epoch {epoch} eval: {results}")
+        better = mesh_lib.broadcast_from_main(
+            self.is_main and (results["model_selection_metric"]
+                              > self.best_metric or self.best_epoch < 0))
+        if better:
+            if not final:
+                self.best_metric = results.get("model_selection_metric",
+                                               0.0)
+                self.best_epoch = epoch
+            self.save(epoch, results)
+        return results
 
     def train(self):
         cfg = self.cfg
@@ -326,20 +364,15 @@ class Trainer:
             run_eval = (epoch % eval_every == 0) or (epoch == num_epochs - 1)
             if run_eval and (not launch
                              or cfg.training.get("run_eval_at_launch", True)):
-                wait_for_saves()  # before the eval's loader forks
-                results = self.evaluate("val")
-                if self.writer:
-                    for k, v in results.items():
-                        self.writer.add_scalar(f"val/{k}", v, self.step)
-                print(f"epoch {epoch} eval: {results}")
-                if (results["model_selection_metric"] > self.best_metric
-                        or self.best_epoch < 0):
-                    self.best_metric = results["model_selection_metric"]
-                    self.best_epoch = epoch
-                    self.save(epoch, results)
-            if launch and cfg.training.get("run_vis_at_launch", True):
+                self._eval_and_save(epoch)
+            if launch and cfg.training.get("run_vis_at_launch", True) \
+                    and self.is_main:
                 self.visualize("train", self.step)
             launch = False
+            # the ranks meet after rank 0's eval and visualisation (the
+            # JAX trainer's _sync): a gloo barrier whose timeout is
+            # tpu.distributed.barrier_timeout_min, as they may take long
+            mesh_lib.host_barrier()
 
             loader = self.loaders["train"]
             loader.set_epoch(epoch)
@@ -351,7 +384,7 @@ class Trainer:
             wait_for_saves()  # before the loader forks its workers
             for it, batch in enumerate(loader):
                 timer.tick()
-                if profile_step is not None:
+                if profile_step is not None and self.is_main:
                     if self.step == int(profile_step):
                         prof = start_trace()
                     elif prof is not None \
@@ -360,7 +393,8 @@ class Trainer:
                         prof = None
                 losses = self.train_step(self.state, batch)
                 self.step += 1
-                if self.step % int(cfg.training.log_step) == 0:
+                if self.step % int(cfg.training.log_step) == 0 \
+                        and self.is_main:
                     tl = float(losses["total_loss"])
                     dt = time.time() - t0
                     print(f"epoch {epoch} it {it} step {self.step} "
@@ -373,16 +407,16 @@ class Trainer:
                                                timer.steps_per_sec(),
                                                self.step)
                 if self.step % int(cfg.training.vis_step) == 0:
-                    self.visualize("train", self.step)
+                    if self.is_main:
+                        self.visualize("train", self.step)
+                    mesh_lib.host_barrier()
                 if self.step % int(cfg.training.ckpt_step) == 0:
-                    self.save_last(epoch)
+                    self.save_last(epoch)  # a barrier follows the save
             if prof is not None:
                 stop_trace(prof, trace_dir)
 
         wait_for_saves()
-        results = self.evaluate("val")
-        if (results["model_selection_metric"] > self.best_metric
-                or self.best_epoch < 0):
-            self.save(num_epochs - 1, results)
+        results = self._eval_and_save(num_epochs - 1, final=True)
         wait_for_saves()  # every write lands before the run returns
+        mesh_lib.host_barrier()
         return results

@@ -31,6 +31,8 @@ import torch
 from torch import nn
 
 from .nn.layers import FrozenBatchNorm
+from .nn.resnet import ResNet
+from .ops.stem_s2d import s2d_stem_kernel
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -223,13 +225,23 @@ def state_dict_from_jax(variables) -> StateDict:
     return sd
 
 
+def _s2d_stem(model: nn.Module, conv_name: str) -> bool:
+    """Whether `conv_name` is the conv1 of a ResNet with the s2d stem."""
+    parent, _, leaf = conv_name.rpartition(".")
+    trunk = model.get_submodule(parent)
+    return (leaf == "conv1" and isinstance(trunk, ResNet)
+            and trunk.stem_s2d)
+
+
 @torch.no_grad()
 def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and persistent buffer of `model` from a seeded
     generator: weight matrices and conv kernels N(0, 1/fan_in), biases 0,
     LayerNorm scales 1, embeddings and the GPV tokens N(0, 0.1^2), frozen-BN
     statistics near identity. The same seed gives the same weights whatever
-    the model's device."""
+    the model's device. A space-to-depth stem takes the 7x7 kernel the
+    plain stem would draw, rewritten (`ops.stem_s2d`), so both stems give
+    one function for one seed."""
     g = torch.Generator().manual_seed(seed)
 
     def randn(shape, std):
@@ -249,6 +261,10 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
             val = torch.ones(shape) if leaf == "weight" else torch.zeros(shape)
         elif leaf.endswith("bias"):
             val = torch.zeros(shape)
+        elif leaf == "weight" and _s2d_stem(model, owner_name):
+            c = shape[1] // 4
+            val = s2d_stem_kernel(randn((shape[0], c, 7, 7),
+                                        1.0 / math.sqrt(c * 49)))
         elif t.dim() >= 2 and not isinstance(owner, nn.Embedding) \
                 and leaf not in ("vocab_embed", "relevance_tokens"):
             val = randn(shape, 1.0 / math.sqrt(math.prod(shape[1:])))

@@ -190,8 +190,13 @@ def test_build_gpv_config_checks_match_jax(override, exc):
 
 
 def test_stem_s2d_is_refused_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 21"):
-        build_gpv(_model_cfg(["model.detr.stem_s2d=True"]), VOCAB)
+    """Item 21 is ported: `model.detr.stem_s2d=True` now builds the
+    space-to-depth stem (it was refused, naming the item, until then)."""
+    model = build_gpv(_model_cfg(["model.detr.stem_s2d=True"]), VOCAB)
+    trunk = model.detr.trunk
+    assert trunk.stem_s2d
+    assert tuple(trunk.conv1.weight.shape) == (64, 12, 4, 4)
+    assert not build_gpv(_model_cfg([]), VOCAB).detr.trunk.stem_s2d
 
 
 # ------------------------------------------------------------ build_engine
@@ -260,7 +265,8 @@ def test_build_engine_from_pth_predicts_as_jax(pth_pair):
 @pytest.mark.parametrize("extra,exc,match", [
     (["ckpt=/nonexistent/model.pth"], FileNotFoundError, "not found"),
     (["ckpt={tmp}"], NotImplementedError, "orbax"),
-    (["ckpt=null", "tpu.infer_data_parallel=2"], ValueError, "one card"),
+    (["ckpt=null", "tpu.infer_data_parallel=2"], ValueError,
+     "local devices"),
     (["ckpt=null", "tpu.dtype=float16"], ValueError, "tpu.dtype"),
 ], ids=["missing", "orbax_dir", "data_parallel", "dtype"])
 def test_build_engine_refuses(tmp_path, extra, exc, match):
