@@ -143,11 +143,50 @@ Phases, each printing one JSON line:
              step ms); fp32 at REMAT_CHECK_B, dropout on, deterministic
              algorithms: every gradient with remat equal to no-remat's
              within 1e-5 of the leaf's largest.
+  tp         (after remat) tensor parallelism over TP=2 ranks of a model
+             group, spawned as fresh processes of this script (`--rank-task
+             tp`, RANK_TIMEOUT_S each), gloo ranks sharing the one card:
+             (a) fp32 (TF32 off), dropout 0, global B=DDP_B as (data 1,
+             model 2) with the query dedup and as (data 2, model 2) on four
+             ranks, against the plain one-process step from the same
+             weights: losses 1e-4 relative, every gathered gradient 1e-3 x
+             max(1, max|g|), the assignment equal, gathered parameters
+             after AdamW 1e-5 where the plain gradient is determined (the
+             tests' rule; the largest error anywhere is reported); the
+             two steps differ by rounding, so an FFN unit whose ReLU input
+             lies within it of 0 at some token can take the other side of
+             the kink: the entries such a unit feeds (its linear1 row and
+             bias, its linear2 column) are found from both steps' ReLU
+             signs, left out of both gates and reported with their error,
+             replicated leaves bit-equal across each model group and shards
+             across data peers, launches by variant (K1 at 6 heads), and a
+             bf16 step's launches; (b) the deterministic fp32 forward at
+             B=TP_FWD_B (encode, teacher-forced answer logits, greedy) as
+             (1, 2) against the unsharded model: boxes 2e-4, relevance
+             logits 5e-4, answer logits and the first greedy step's 2e-3,
+             the ranks' outputs equal, launches by variant in fp32 and
+             bf16 (K1 at 4 / 6 / 4 heads, K2 at 8); (c) TP_TIMED_STEPS
+             bf16 steps at the global TRAIN_B with dedup as (1, 2): a
+             rank's step ms, combined images/s, peak memory, the model
+             group's all-reduces a step with their bytes and (one more
+             step, synchronised at each) ms, and the device ms of a step's
+             sharded dropout draws whole against a rank's share, beside
+             remat's one-process plain step (two ranks on one card measure
+             the mechanism, not 2-card scaling); (d) `cli.train` with
+             tpu.mesh.model=TP as two ranks (2 steps, rank 0's in-train
+             eval on the gathered weights, async `last` saves), then in
+             the same ranks a second launch that resumes the `train`
+             phase's one-process checkpoint (its gathered state is that
+             file's, bit for bit), and here a one-process `Trainer` that
+             resumes the TP run's `ckpts/last` (its state is the gathered
+             TP state at the save, bit for bit).
 Then one `kernels` line (each kernel of the paths: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
 predict_beam, embed_vocab, the whole serve run, the whole eval phase, one
-train step, the in-train eval, the exported bundle's B=20 predict, and
-data_prep's two train steps and its predict under `paths`), and
+train step, the in-train eval, the exported bundle's B=20 predict,
+data_prep's two train steps and its predict, and tp's bf16 step (a), bf16
+forward (b), timed steps (c) and cli.train rank 0's steps (d) under
+`paths`), and
 last `{"ok": true,
 "device": {...}}`. Any failed phase exits non-zero before that line;
 without a CUDA device, or without the package beside this file, it exits
@@ -211,6 +250,9 @@ E2E_TRAIN_B = 4
 DDP_B, DDP_TIMED_STEPS, RANK_TIMEOUT_S = 24, 5, 600
 DDP_CLI_SAMPLES, DDP_CLI_VAL = 60, 20
 REMAT_STEPS, REMAT_CHECK_B = 3, 8
+# tensor parallelism: the model axis, the forward check's batch and the
+# timed bf16 steps at the released global batch
+TP, TP_FWD_B, TP_TIMED_STEPS = 2, 4, 5
 INFER_DP_N = 23  # a ragged batch over two shards (12 + 11, padded to 24)
 STEM_REPS = 20
 TRAIN_LOSS_KEYS = {"loss_caption", "loss_vqa", "loss_cls", "loss_ce",
@@ -456,6 +498,13 @@ def path_cases() -> list:
     calls += [train_step_launches(rows, False) for rows in (
         TRAIN_B, E2E_TRAIN_B, DDP_B, DDP_B // 2, TRAIN_B // 2,
         REMAT_CHECK_B)]
+    # tensor parallelism (`tp`): a rank's heads at TP ranks, the dedup's
+    # rows at the check's batch and the released one, the (2, 2) ranks' and
+    # cli.train's undeduplicated rows, and the B=4 forward
+    calls += [tp_step_launches(rows, True) for rows in
+              dict.fromkeys((16, DDP_B) + DEDUP_ROWS)]
+    calls += [tp_step_launches(DDP_B // 2, False),
+              tp_step_launches(TRAIN_B, False), tp_forward_launches()]
     # the multi-device engine's shards: fp32 INFER_DP_N over two, bf16 B
     calls += [path_launches("predict", 0, -(-INFER_DP_N // 2)),
               path_launches("predict", 0, B // 2)]
@@ -471,6 +520,41 @@ def train_step_launches(rows: int, dedup: bool) -> Counter:
     name = (f"bert_self_train_u{rows}" if dedup
             else "bert_self_train" + ("" if rows == TRAIN_B else f"_b{rows}"))
     return Counter({Case(name, rows, 20, 20, 12, 64, "query"): 12})
+
+
+def tp_step_launches(rows: int, dedup: bool) -> Counter:
+    """`train_step_launches` of one rank of a model group of TP: frozen
+    BERT's K1 at its 12 / TP heads."""
+    name = f"bert_self_train_tp{TP}_{'u' if dedup else 'b'}{rows}"
+    return Counter({Case(name, rows, 20, 20, 12 // TP, 64, "query"): 12})
+
+
+def tp_forward_launches(batch: int = TP_FWD_B, steps: int = 19) -> Counter:
+    """{Case: launches} of one rank's deterministic forward under TP on
+    `batch` samples: DETR, BERT and co-attention at their heads / TP, the
+    teacher-forced text decoder (causal self-attention, cross-attention
+    over the memory) and `steps` greedy steps at 8 / TP heads."""
+    s, h = f"_tp{TP}_b{batch}", 8 // TP
+    return Counter({
+        Case("detr_encoder_self" + s, batch, 300, 300, h, 32, None): 6,
+        Case("detr_decoder_self" + s, batch, 100, 100, h, 32, None): 6,
+        Case("detr_decoder_cross" + s, batch, 100, 300, h, 32, None): 6,
+        Case("bert_self" + s, batch, 20, 20, 12 // TP, 64, "query"): 12,
+        Case("masks_10" + s, batch, 100, 20, 16 // TP, 48, "query"): 3,
+        Case("teacher_forced_causal" + s, batch, 20, 20, h, 96, None,
+             True): 3,
+        Case("teacher_forced_cross" + s, batch, 20, 120, h, 96,
+             "memory"): 3,
+        Case("decode_step_self" + s, batch, 1, 20, h, 96, "cache"):
+            3 * steps,
+        Case("decode_step_cross" + s, batch, 1, 120, h, 96, "memory"):
+            3 * steps})
+
+
+def fp32_variants(counts: Counter) -> dict:
+    """`by_variant` of an fp32 run: every launch takes the fp32 kernel."""
+    return {w: {v: sum(vs.values()) if v == "fp32" else 0 for v in vs}
+            for w, vs in by_variant(counts).items()}
 
 
 def k1_cases() -> list:
@@ -2783,11 +2867,6 @@ def _digest(*objs) -> str:
     return h.hexdigest()
 
 
-def _state_digest(state) -> str:
-    return _digest(state.model.state_dict(),
-                   state.optimizer.state_dict()["state"], state.step)
-
-
 def _assignment(model, b) -> "torch.Tensor":
     """The Hungarian assignment of a train forward on `b` (device
     tensors), -1 where a target is not valid."""
@@ -2823,18 +2902,25 @@ def _one_step(model, cfg, rows, dtype=None):
              if p.grad is not None}, _read_counts()[1])
 
 
-def _grad_err(got: dict, want: dict) -> tuple:
-    """The worst per-leaf error over max(1, max|want|), and its leaf."""
+def _grad_err(got: dict, want: dict, kinks: Optional[dict] = None) -> tuple:
+    """The worst per-leaf error over max(1, max|want|), and its leaf; with
+    `kinks` (`_kinks`), leaving out the entries a kinked unit feeds, whose
+    worst error over the same scale comes third."""
     if set(got) != set(want):
         fail("ddp: gradient leaves differ: "
              f"{sorted(set(got) ^ set(want))[:4]}")
-    worst, name = 0.0, None
+    worst, name, kinked = 0.0, None, 0.0
     for n, w in want.items():
-        err = (got[n] - w).abs().max().item() / max(1.0,
-                                                    w.abs().max().item())
+        diff = (got[n] - w).abs() / max(1.0, w.abs().max().item())
+        if kinks:
+            mask = _kink_mask(n, w, kinks)
+            if mask.any():
+                kinked = max(kinked, diff[mask].max().item())
+            diff = diff[~mask]
+        err = diff.max().item() if diff.numel() else 0.0
         if err > worst:
             worst, name = err, n
-    return worst, name
+    return (worst, name, kinked) if kinks is not None else (worst, name)
 
 
 def _loss_err(got: dict, want: dict) -> float:
@@ -2926,21 +3012,37 @@ def rank_step(spec: dict, d: Path) -> dict:
     return out
 
 
+def _saved_digest(state) -> str:
+    """`_digest` of the model, the AdamW state and the step that a save
+    writes: under tensor parallelism the whole state gathered over the
+    model group (every rank of it calls this), else the state itself."""
+    from gpv_tpu_torch.train.checkpoint import _payload
+    p = _payload(state)
+    return _digest(p["model"], p["optimizer"]["state"], p["step"])
+
+
 def rank_cli(spec: dict, d: Path) -> dict:
-    """A rank of ddp (d): `gpv_tpu_torch.cli.train.main` on seeded pixels.
-    Records each `last` save's state digest and the train steps' launches
-    by variant; with `resume`, `train()` only records the state the
-    trainer restored (auto_resume from ckpts/last)."""
+    """A rank of ddp (d) or tp (d): `gpv_tpu_torch.cli.train.main` on
+    seeded pixels. Records each `last` save's state digest (of the whole
+    state, gathered under TP), the train steps' launches by variant and
+    the state a resume restored; with `resume`, `train()` does nothing
+    after the restore (auto_resume from ckpts/last). `then_resume`: the
+    argv of a second launch in the same processes, after the first, that
+    only restores."""
+    import gc
+
+    import torch
     from gpv_tpu_torch.cli import train as cli
     from gpv_tpu_torch.train import trainer as T
 
     out = {"saves": [], "train_launches": {}}
     save_last, make_step = T.Trainer.save_last, T.make_train_step
+    resume = T.Trainer._resume
 
     def recording_save_last(self, epoch):
         save_last(self, epoch)
         out["saves"].append({"step": self.step,
-                             "digest": _state_digest(self.state)})
+                             "digest": _saved_digest(self.state)})
 
     def counted_step(*args, **kwargs):
         step = make_step(*args, **kwargs)
@@ -2958,24 +3060,28 @@ def rank_cli(spec: dict, d: Path) -> dict:
             return losses
         return run
 
-    def restored(self):
+    def recording_resume(self, path):
+        resume(self, path)
         out["restored"] = {"step": self.step, "epoch": self.last_epoch,
-                           "digest": _state_digest(self.state)}
-        return {}
+                           "digest": _saved_digest(self.state)}
 
     T.Trainer.save_last = recording_save_last
     T.make_train_step = counted_step
+    T.Trainer._resume = recording_resume
     if spec["resume"]:
-        T.Trainer.train = restored
+        T.Trainer.train = lambda self: {}
     _reset_counts()
     with seeded_pixel_datasets():
         results = cli.main(spec["argv"])
-    out["launches_by_variant"] = _read_counts()[1]
+        out["launches_by_variant"] = _read_counts()[1]
+        if spec.get("then_resume"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            T.Trainer.train = lambda self: {}
+            cli.main(spec["then_resume"])
     out["results"] = {k: float(v) for k, v in (results or {}).items()}
     return out
 
-
-RANK_TASKS = {"step": rank_step, "cli": rank_cli}
 
 
 def rank_main(task: str, directory: Path) -> None:
@@ -3288,6 +3394,593 @@ def phase_remat(vocab_path: Path, tmp: Path, batch: dict):
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_phase
     return rec, counts
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _tp_inputs(vocab_path: Path, n: int = TP_FWD_B) -> dict:
+    """Seeded inputs of tp (b): uint8 images at IMG_H x IMG_W, queries of
+    QUERY_TOKENS tokens padded to 20, 20 answer ids, the vocab's cls id."""
+    from gpv_tpu_torch.text.vocab import AnswerVocab
+    from gpv_tpu_torch.text.wordpiece import WordPieceTokenizer
+    rng = np.random.RandomState(4)
+    vocab = AnswerVocab.load(vocab_path)
+    ids, valid = WordPieceTokenizer.debug().batch_encode(_queries(n, rng), 20)
+    return {"image": rng.randint(0, 256, (n, IMG_H, IMG_W, 3)).astype(
+                np.uint8),
+            "query_ids": ids.astype(np.int64), "query_valid": valid,
+            "answer_ids": rng.randint(0, len(vocab), (n, 20)),
+            "cls_id": np.int64(vocab.cls_id)}
+
+
+def _tp_forward(model, f: dict, dev) -> dict:
+    """tp (b)'s deterministic forward of `model` on `_tp_inputs`: encode,
+    the teacher-forced answer logits, a greedy decode; outputs in fp32 on
+    the CPU."""
+    import torch
+    from gpv_tpu_torch.decode.greedy import greedy_decode
+    from gpv_tpu_torch.ops.image import normalize_image
+    t = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in f.items()
+         if k != "cls_id"}
+    with torch.inference_mode():
+        x = normalize_image(t["image"].float() / 255.0)
+        memory, mem_valid, out = model.encode(x, t["query_ids"].long(), None,
+                                              t["query_valid"])
+        logits = model.decode_text(model.embed_answer_tokens(
+            t["answer_ids"].long()), memory, mem_valid)
+        tokens, step_logits, steps = greedy_decode(model, memory, mem_valid,
+                                                   int(f["cls_id"]))
+    return {"boxes": out["pred_boxes"].float().cpu(),
+            "relevance_logits": out["pred_relevance_logits"].float().cpu(),
+            "answer_logits": logits.float().cpu(),
+            "logits0": step_logits[:, 0].float().cpu(),
+            "tokens": tokens.cpu(), "steps": steps}
+
+
+def _tp_dropout_shapes(rows: int) -> list:
+    """(shape, sharded dim) of every dropout mask a TP step draws for a
+    head- or width-sharded tensor at the released widths, `rows` rows:
+    attention probabilities (DETR 6+6 layers, co-attention both ways x3,
+    the text decoder x3) and the FFN hidden states (DETR, text decoder)."""
+    hw, q, t, s = 300, 100, 20, 20
+    return ([((rows, 8, hw, hw), 1), ((rows, hw, 2048), 2)] * 6
+            + [((rows, 8, q, q), 1), ((rows, 8, q, hw), 1),
+               ((rows, q, 2048), 2)] * 6
+            + [((rows, 16, q, t), 1), ((rows, 16, t, q), 1)] * 3
+            + [((rows, 8, s, s), 1), ((rows, 8, s, q + t), 1),
+               ((rows, s, 2048), 2)] * 3)
+
+
+def _tp_draw_ms(rows: int, dev) -> dict:
+    """Device ms of one step's sharded dropout draws (`_tp_dropout_shapes`)
+    drawn whole, as a rank draws them, against a rank's share alone
+    (CUDA events, the median of 3); not measured off the card."""
+    import torch
+    out = {"elements_whole": sum(int(np.prod(s)) for s, _ in
+                                 _tp_dropout_shapes(rows))}
+    if torch.device(dev).type != "cuda":
+        return dict(out, whole_ms=None, share_ms=None)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, div in (("whole_ms", 1), ("share_ms", TP)):
+        shapes = []
+        for shape, dim in _tp_dropout_shapes(rows):
+            shape = list(shape)
+            shape[dim] //= div
+            shapes.append(shape)
+        times = []
+        for _ in range(4):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            for shape in shapes:
+                torch.rand(shape, generator=gen, device=dev)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        out[name] = float(np.median(times[1:]))
+    return out
+
+
+@contextlib.contextmanager
+def _ffn_signs(model, signs: dict):
+    """Record into `signs` ({layer name: bool tensor on the CPU}), at the
+    first forward of each DETR and text-decoder FFN in the block, where
+    its ReLU's input is positive: (rows, tokens, this rank's units)."""
+    import torch
+    from gpv_tpu_torch.nn import detr_transformer, text_decoder
+    from gpv_tpu_torch.parallel.tensor_parallel import column_linear
+    names = {m: n for n, m in model.named_modules() if hasattr(m, "linear1")}
+    real = detr_transformer.ffn
+
+    def recording(layer, x, deterministic):
+        name = names.get(layer)
+        if name is not None and name not in signs:
+            with torch.no_grad():
+                signs[name] = (column_linear(x, layer.linear1, layer.ffn_tp)
+                               > 0).cpu()
+        return real(layer, x, deterministic)
+    detr_transformer.ffn = text_decoder.ffn = recording
+    try:
+        yield signs
+    finally:
+        detr_transformer.ffn = text_decoder.ffn = real
+
+
+def _kinks(model, signs: dict, plain: dict, rows) -> dict:
+    """{FFN layer: the units (whole-layer indices) whose ReLU takes the
+    other side of its kink here than in the plain step (`plain`, its
+    `_ffn_signs` over every row) at some row and token}, joined over every
+    rank (an all-reduce): there the two computations, which differ by
+    rounding, differentiate another function."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for name, mine in signs.items():
+        n = mine.shape[-1]
+        tp = model.get_submodule(name).ffn_tp
+        lo = 0 if tp is None else tp.rank * n
+        want = plain[name][torch.as_tensor(rows)][..., lo:lo + n]
+        flag = torch.zeros(plain[name].shape[-1], dtype=torch.int32,
+                           device=DEVICE)
+        flag[lo:lo + n] = (mine != want).flatten(0, -2).any(0).to(
+            flag.device, torch.int32)
+        dist.all_reduce(flag)
+        out[name] = flag.nonzero().flatten().tolist()
+    return out
+
+
+def _kink_mask(name: str, t, kinks: dict):
+    """True at the entries of leaf `name` (shape of `t`) that a kinked
+    unit of its FFN feeds: the unit's `linear1` row and bias entry and its
+    `linear2` column."""
+    import torch
+    mask = torch.zeros(t.shape, dtype=torch.bool)
+    layer, _, leaf = name.rpartition(".")
+    layer, _, lin = layer.rpartition(".")
+    units = kinks.get(layer) or []
+    if units and lin == "linear1":
+        mask[units] = True
+    elif units and lin == "linear2" and leaf == "weight":
+        mask[:, units] = True
+    return mask
+
+
+def _update_err(got: dict, want: dict, grads: dict,
+                kinks: Optional[dict] = None) -> tuple:
+    """Parameters after a step against the plain step's: the largest
+    error where the plain gradient is determined (above 1e-3 of its leaf's
+    largest and 1e-5; every entry of a leaf without a gradient), the rule
+    of tests/test_torch_port_train_step.py, and the largest anywhere. A
+    gradient that is zero up to rounding (the classifier transform's bias
+    takes sum_v (p_v - y_v) = 0) moves AdamW's first update by +-lr either
+    way. Entries a kinked unit feeds (`_kinks`) are not determined."""
+    sure_err, any_err = 0.0, 0.0
+    for k, v in got.items():
+        diff = (v.cpu() - want[k]).abs()
+        any_err = max(any_err, diff.max().item())
+        g = grads.get(k)
+        if g is not None:
+            keep = g.abs() > max(1e-3 * g.abs().max().item(), 1e-5)
+            diff = diff[keep & ~_kink_mask(k, g, kinks or {})]
+        if diff.numel():
+            sure_err = max(sure_err, diff.max().item())
+    return sure_err, any_err
+
+
+def rank_tp(spec: dict, d: Path) -> dict:
+    """A rank of tp (a)-(c) on a (spec data, TP) mesh, the model sharded
+    by `shard_params` from the phase's weights (`base.pt`): (a) one fp32
+    step (TF32 off) on its data index's rows of the global DDP_B batch,
+    against the plain step's losses, gradients and trained parameters in
+    `ref.pt` (gathered over the model group; frozen leaves against
+    `base.pt`), the assignment, digests of its replicated and
+    of its sharded leaves, the launches by variant; with data 1 also a
+    bf16 step on the same rows (the kernels line's launches); (b) with
+    data 1, the deterministic fp32 forward (`fwd_rank<r>.pt`) and a bf16
+    one, launches by variant; (c) with data 1, TP_TIMED_STEPS timed bf16
+    steps at the released batch (dropout as released), peak memory, the
+    TP all-reduces a step and their ms, and the dropout draws' ms."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from gpv_tpu_torch.losses.criterion import LossConfig
+    from gpv_tpu_torch.models.gpv import build_gpv, shard_params
+    from gpv_tpu_torch.parallel import mesh
+    from gpv_tpu_torch.parallel import tensor_parallel as tpl
+    from gpv_tpu_torch.parallel.train_step import (TrainState,
+                                                   batch_to_device,
+                                                   make_train_step)
+    from gpv_tpu_torch.train.optimizer import build_optimizer
+    from gpv_tpu_torch.utils.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cluster = mesh.initialize_distributed(
+        {"mesh": {"data": spec["data"], "model": TP}}, spec["device"])
+    g, mg = mesh.groups(), mesh.model_group()
+    dev = mesh.rank_device(cluster, spec["device"])
+    out = {"rank": cluster.rank, "data_index": g.data_index,
+           "model_index": g.model_index, "device": str(dev),
+           "backend": dist.get_backend()}
+    cfg = load_config(ROOT / "configs", "exp/gpv", spec["overrides"])
+    base = torch.load(d / "base.pt", weights_only=True, mmap=True)
+
+    def sharded(model_cfg=None):
+        model = build_gpv(model_cfg or cfg.model, spec["vocab_size"])
+        model.load_state_dict(base)
+        model.to(dev)
+        return model, shard_params(model, mg)
+
+    def make_step(model, dtype, train_cfg=cfg):
+        opt, sched = build_optimizer(train_cfg.training, 10, model)
+        return TrainState(model, opt, sched), make_train_step(
+            model, LossConfig.from_config(train_cfg.losses),
+            float(train_cfg.training.clip_max_norm), dtype=dtype)
+
+    # (a) one fp32 step against the plain step
+    batch = dict(np.load(d / "batch.npz"))
+    rows = mesh.shard_rows(len(batch["image"]), g.mesh.data, g.data_index)
+    local = (batch if g.mesh.data == 1 else
+             {k: v[rows] for k, v in _ddp_rows(batch, len(rows) *
+                                               g.mesh.data).items()})
+    ref = torch.load(d / "ref.pt", weights_only=False)
+    model, rules = sharded()
+    specs = rules.specs
+    q4t = _assignment(model, batch_to_device(_ddp_rows(local, len(rows)),
+                                             dev))
+    state, step = make_step(model, torch.float32)
+    _reset_counts()
+    tpl.STATS.reset()
+    with _ffn_signs(model, {}) as signs:
+        losses = {k: float(v) for k, v in step(state, local).items()}
+    _sync()
+    a = {"rows": len(rows), "uniq_rows": len(local.get("query_uniq_ids",
+                                                        ())),
+         "losses": losses, "launches_by_variant": _read_counts()[1],
+         "all_reduces": tpl.STATS.calls,
+         "all_reduces_by_kind": dict(tpl.STATS.by_kind),
+         "assignment_equal": bool(torch.equal(q4t, ref["q4t"][rows])),
+         "loss_max_rel_err": _loss_err(losses, ref["losses"]),
+         "sharded_leaves": len(specs),
+         "replicated_heads": list(rules.replicated_heads)}
+    kinks = _kinks(model, signs, ref["signs"], rows)
+    a["kinked_units"] = {k: v for k, v in kinks.items() if v}
+    grads = tpl.gather_shards({n: p.grad for n, p in
+                               model.named_parameters()
+                               if p.grad is not None}, specs, mg)
+    a["grad_max_err"], a["grad_worst_leaf"], a["kinked_grad_max_err"] = \
+        _grad_err({k: v.cpu() for k, v in grads.items()}, ref["grads"],
+                  kinks)
+    params = tpl.gather_shards(model.state_dict(), specs, mg)
+    a["param_max_abs_err"], a["param_max_abs_err_all"] = _update_err(
+        params, {**base, **ref["params"]}, ref["grads"], kinks)
+    own = model.state_dict()
+    a["replicated_digest"] = _digest({k: v for k, v in own.items()
+                                      if k not in specs})
+    a["shard_digest"] = _digest({k: v for k, v in own.items() if k in specs})
+    out["a"] = a
+    del model, state, step, grads, params, own, ref
+    torch.cuda.empty_cache()
+    if g.mesh.data > 1:
+        return out
+
+    # (a) again in bf16: the launches of the kernels line's tp_step
+    model, _ = sharded()
+    state, step = make_step(model, torch.bfloat16)
+    _reset_counts()
+    out["a_bf16"] = {"losses": {k: float(v) for k, v in
+                                step(state, local).items()}}
+    _sync()
+    out["a_bf16"]["launches_by_variant"] = _read_counts()[1]
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # (b) the deterministic forward, fp32 then bf16
+    f = dict(np.load(d / "fwd.npz"))
+    model, _ = sharded()
+    model.eval()
+    for name, dtype in (("b", torch.float32), ("b_bf16", torch.bfloat16)):
+        model.to(dtype)
+        _reset_counts()
+        tpl.STATS.reset()
+        res = _tp_forward(model, f, dev)
+        _sync()
+        out[name] = {"launches_by_variant": _read_counts()[1],
+                     "all_reduces": tpl.STATS.calls, "steps": res["steps"]}
+        if dtype == torch.float32:
+            torch.save(res, d / f"fwd_rank{cluster.rank}.pt")
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) timed bf16 steps at the released batch and dropout
+    big = batch_to_device(dict(np.load(d / "batch_big.npz")), dev)
+    timed_cfg = load_config(ROOT / "configs", "exp/gpv",
+                            spec["timed_overrides"])
+    model, _ = sharded(timed_cfg.model)
+    state, step = make_step(model, torch.bfloat16, timed_cfg)
+    step(state, big)  # warm-up
+    _sync()
+    _peak_reset()
+    mesh.host_barrier()
+    _reset_counts()
+    tpl.STATS.reset()
+    times = []
+    for _ in range(TP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        _finite_losses("tp (c)", step(state, big))
+        _sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    c = {"rows": len(big["query_ids"]),
+         "uniq_rows": len(big["query_uniq_ids"]), "step_ms": times,
+         "launches_by_variant": _read_counts()[1],
+         "peak_memory_bytes": _peak(),
+         "all_reduces_per_step": tpl.STATS.calls / TP_TIMED_STEPS,
+         "all_reduce_bytes_per_step": tpl.STATS.bytes / TP_TIMED_STEPS,
+         "all_reduces_by_kind_per_step": {
+             k: n / TP_TIMED_STEPS for k, n in tpl.STATS.by_kind.items()}}
+    mesh.host_barrier()
+    tpl.STATS.reset()
+    tpl.STATS.timed = True
+    t0 = time.perf_counter()
+    step(state, big)
+    _sync()
+    c["timed_all_reduce_step_ms"] = 1e3 * (time.perf_counter() - t0)
+    c["all_reduce_ms"] = tpl.STATS.ms
+    tpl.STATS.timed = False
+    c["dropout_draws"] = _tp_draw_ms(c["rows"], dev)
+    out["c"] = c
+    return out
+
+
+def phase_tp(vocab_path: Path, tmp: Path, batch: dict, checked: set,
+             remat: dict):
+    """Tensor parallelism (module docstring): (a)-(c) as ranks of this
+    script (`rank_tp`) against the plain step and forward run here, (d)
+    `cli.train` with tpu.mesh.model=TP and a TP resume of the `train`
+    phase's one-process checkpoint in the same ranks (`rank_cli`), and a
+    one-process resume of the TP checkpoint here.
+    `remat`: remat's record, whose plain step (c) is held beside. Returns
+    the record and {path: (record, {Case: launches})} for the kernels
+    line."""
+    import copy
+
+    import torch
+    from gpv_tpu_torch.datasets.loader import Collator
+    from gpv_tpu_torch.models.gpv import build_gpv
+    from gpv_tpu_torch.parallel.train_step import batch_to_device
+    from gpv_tpu_torch.text.vocab import AnswerVocab
+    from gpv_tpu_torch.train.checkpoint import restore_checkpoint
+    from gpv_tpu_torch.train.trainer import Trainer
+    from gpv_tpu_torch.utils.config import load_config
+    from gpv_tpu_torch.weights import init_random
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = tmp / "tp"
+    d.mkdir()
+    overrides = train_overrides(tmp / "train_data", vocab_path,
+                                "tpu.dtype=float32",
+                                "model.detr.dropout=0.0")
+    cfg = load_config(ROOT / "configs", "exp/gpv", overrides)
+    vocab_size = len(AnswerVocab.load(vocab_path))
+    base = init_random(build_gpv(cfg.model, vocab_size), seed=1)
+    torch.save(base.state_dict(), d / "base.pt")
+    if base.max_text_len != 20:
+        fail(f"tp: max_text_len {base.max_text_len}, the cases assume 20")
+    rows = _ddp_rows(batch, DDP_B)
+    rows.update(Collator.dedup_emission(rows["query_ids"],
+                                        rows["query_valid"],
+                                        Collator.DEDUP_BUCKET))
+    np.savez(d / "batch.npz", **rows)
+    np.savez(d / "batch_big.npz", **batch)
+    f = _tp_inputs(vocab_path)
+    np.savez(d / "fwd.npz", **f)
+    rec = {"phase": "tp", "model_axis": TP, "batch": DDP_B,
+           "dtype": "float32"}
+
+    # the plain one-process step and forward, here on the card
+    model = copy.deepcopy(base).to(DEVICE)
+    q4t = _assignment(model, batch_to_device(_ddp_rows(rows, DDP_B),
+                                             DEVICE))
+    with _ffn_signs(model, {}) as signs:
+        losses, grads, _ = _one_step(model, cfg, rows)
+    torch.save({"losses": losses, "grads": grads, "q4t": q4t,
+                "signs": signs,
+                "params": {k: v.detach().cpu() for k, v in
+                           model.state_dict().items() if k in grads}},
+               d / "ref.pt")
+    del model, grads
+    model = copy.deepcopy(base).to(DEVICE).eval()
+    ref_fwd = _tp_forward(model, f, DEVICE)
+    del model, base
+    torch.cuda.empty_cache()
+
+    spec = {"device": DEVICE, "overrides": overrides, "vocab_size":
+            vocab_size, "timed_overrides": train_overrides(
+                tmp / "train_data", vocab_path)}
+    ranks = {}
+    for data in (1, 2):
+        (d / "spec.json").write_text(json.dumps(dict(spec, data=data)))
+        t0 = time.perf_counter()
+        ranks[data] = spawn_ranks("tp", d, world=data * TP)
+        rec[f"ranks_{data}x{TP}_s"] = time.perf_counter() - t0
+    u = len(rows["query_uniq_ids"])
+    want = {1: fp32_variants(tp_step_launches(u, True)),
+            2: fp32_variants(tp_step_launches(DDP_B // 2, False))}
+    rec["a"] = {}
+    for data, rs in ranks.items():
+        for r in rs:
+            a = r["a"]
+            if r["backend"] != "gloo":
+                fail(f"tp (a): ranks sharing the card joined over "
+                     f"{r['backend']}")
+            if not (a["loss_max_rel_err"] <= 1e-4 and a["grad_max_err"]
+                    <= 1e-3 and a["assignment_equal"]
+                    and a["param_max_abs_err"] <= 1e-5):
+                keys = ("loss_max_rel_err", "grad_max_err",
+                        "grad_worst_leaf", "assignment_equal",
+                        "param_max_abs_err", "param_max_abs_err_all",
+                        "kinked_units", "kinked_grad_max_err")
+                fail(f"tp (a) {data}x{TP}: rank {r['rank']} off the plain "
+                     f"step: { {k: a[k] for k in keys} }")
+            if a["launches_by_variant"] != want[data]:
+                fail(f"tp (a) {data}x{TP}: rank {r['rank']} launches "
+                     f"{a['launches_by_variant']} != {want[data]}")
+            group = rs[r["rank"] - r["model_index"]]
+            peer = rs[r["model_index"]]  # data index 0, same model index
+            if a["replicated_digest"] != group["a"]["replicated_digest"]:
+                fail(f"tp (a) {data}x{TP}: rank {r['rank']}'s replicated "
+                     "leaves differ from its model group's")
+            if a["shard_digest"] != peer["a"]["shard_digest"]:
+                fail(f"tp (a) {data}x{TP}: rank {r['rank']}'s shards "
+                     "differ from its data peer's")
+        rec["a"][f"{data}x{TP}"] = [
+            {k: r["a"][k] for k in (
+                "rows", "uniq_rows", "losses", "loss_max_rel_err",
+                "grad_max_err", "grad_worst_leaf", "param_max_abs_err",
+                "param_max_abs_err_all", "kinked_units",
+                "kinked_grad_max_err", "assignment_equal",
+                "launches_by_variant", "all_reduces",
+                "all_reduces_by_kind", "sharded_leaves",
+                "replicated_heads")} for r in rs]
+    rec["a_bit_equal"] = True
+    r12 = ranks[1]
+    step_counts = tp_step_launches(u, True)
+    for r in r12:
+        _check_counts(f"tp (a) bf16 rank {r['rank']}",
+                      r["a_bf16"]["launches_by_variant"], step_counts)
+
+    # (b) the forward against the unsharded one
+    fwd = [torch.load(d / f"fwd_rank{r}.pt", weights_only=False)
+           for r in range(TP)]
+    b = {"batch": TP_FWD_B, "dtype": "float32",
+         "launches_by_variant": r12[0]["b"]["launches_by_variant"],
+         "bf16_launches_by_variant": r12[0]["b_bf16"]["launches_by_variant"],
+         "all_reduces": r12[0]["b"]["all_reduces"]}
+    for key, tol in (("boxes", 2e-4), ("relevance_logits", 5e-4),
+                     ("answer_logits", 2e-3), ("logits0", 2e-3)):
+        err = (fwd[0][key] - ref_fwd[key]).abs().max().item()
+        b[f"{key}_max_abs_err"], b[f"{key}_tol"] = err, tol
+        if not err <= tol:
+            fail(f"tp (b) {key}: max abs err {err} > {tol}")
+    b["greedy_token_agreement"] = (fwd[0]["tokens"] == ref_fwd["tokens"]) \
+        .float().mean().item()
+    for key in ("boxes", "answer_logits", "tokens"):
+        if not torch.equal(fwd[0][key], fwd[1][key]):
+            fail(f"tp (b): the ranks' {key} differ")
+    fwd_counts = tp_forward_launches(steps=fwd[0]["steps"])
+    for r in r12:
+        if r["b"]["launches_by_variant"] != fp32_variants(fwd_counts):
+            fail(f"tp (b): rank {r['rank']} launches "
+                 f"{r['b']['launches_by_variant']} != "
+                 f"{fp32_variants(fwd_counts)}")
+        _check_counts(f"tp (b) bf16 rank {r['rank']}",
+                      r["b_bf16"]["launches_by_variant"], fwd_counts)
+    rec["b"] = b
+
+    # (c) timed, beside remat's one-process plain step
+    timed_counts = Counter({c: TP_TIMED_STEPS * n for c, n in
+                            tp_step_launches(len(batch["query_uniq_ids"]),
+                                             True).items()})
+    for r in r12:
+        _check_counts(f"tp (c) rank {r['rank']}",
+                      r["c"]["launches_by_variant"], timed_counts)
+    slowest = max(sum(r["c"]["step_ms"]) for r in r12) / 1e3
+    rec["c"] = {"global_batch": TRAIN_B, "dtype": "bfloat16",
+                "steps": TP_TIMED_STEPS, "dedup": True,
+                "images_per_s": TP_TIMED_STEPS * TRAIN_B / slowest,
+                "ranks": [r["c"] for r in r12],
+                "one_process_plain_step_ms": remat["plain"]["step_ms"],
+                "one_process_peak_memory_bytes":
+                    remat["plain"]["peak_memory_bytes"],
+                "one_process_images_per_s": TRAIN_B / (np.median(
+                    remat["plain"]["step_ms"]) / 1e3),
+                "note": "two ranks share one card: the mechanism, not "
+                        "2-card scaling; remat's plain step has no dedup"}
+
+    # (d) cli.train under TP, then in the same ranks a TP resume of the
+    # one-process `train` phase's checkpoint; a one-process resume of the
+    # TP checkpoint, here
+    data = tmp / "ddp_data"  # ddp (d)'s seeded samples
+    cli_over = train_overrides(
+        data, vocab_path, "exp_name=tp", "training.query_dedup=false",
+        "training.num_epochs=1", "training.ckpt_step=1",
+        "training.async_checkpoint=true", "training.num_workers=4",
+        "eval.num_workers=4", f"eval.batch_size={B}", val=DDP_CLI_VAL)
+    one_ckpt = tmp / "train_data" / "exp" / "train" / "ckpts" / "model"
+    (d / "spec.json").write_text(json.dumps({
+        "argv": cli_over + [f"tpu.mesh.model={TP}",  # data -1: one group
+                            "training.run_eval_at_launch=false",
+                            "training.num_val_samples={coco_vqa: 8, "
+                            "coco_cap: 8, coco_det: 8, coco_cls: 8}"],
+        "then_resume": cli_over + [f"tpu.mesh.model={TP}", "exp_name=tp_back",
+                                   f"training.ckpt={one_ckpt}"],
+        "resume": False, "device": DEVICE}))
+    t0 = time.perf_counter()
+    train = spawn_ranks("cli", d, world=TP)
+    d_s = {"tp_ranks_s": time.perf_counter() - t0}
+    steps = len(TRAIN_TASKS) * DDP_CLI_SAMPLES // TRAIN_B
+    cli_counts = Counter({c: steps * n for c, n in tp_step_launches(
+        TRAIN_B, False).items()})
+    for r, t in enumerate(train):
+        if [x["step"] for x in t["saves"]] != list(range(1, steps + 1)):
+            fail(f"tp (d): rank {r} saved at {t['saves']}")
+        _check_counts(f"tp (d) rank {r} train", t["train_launches"],
+                      cli_counts)
+    if train[0]["saves"] != train[1]["saves"]:
+        fail("tp (d): the ranks gathered other states at the saves")
+    if set(train[0]["results"]) != TRAIN_EVAL_KEYS or train[1]["results"]:
+        fail(f"tp (d): rank 0's eval {train[0]['results']}, rank 1's "
+             f"{train[1]['results']}")
+    payload, _ = restore_checkpoint(one_ckpt.parent, one_ckpt.name)
+    want = _digest(payload["model"], payload["optimizer"]["state"],
+                   payload["step"])
+    del payload
+    for r, t in enumerate(train):
+        if t["restored"]["digest"] != want:
+            fail(f"tp (d): rank {r}'s gathered state after resuming the "
+                 "one-process checkpoint differs from it")
+    t0 = time.perf_counter()
+    tp_last = data / "exp" / "tp" / "ckpts" / "last"
+    with seeded_pixel_datasets():
+        one = Trainer(load_config(ROOT / "configs", "exp/gpv", cli_over + [
+            "exp_name=tp_one", f"training.ckpt={tp_last}"]))
+    restored = {"step": one.step, "digest": _saved_digest(one.state)}
+    del one
+    torch.cuda.empty_cache()
+    d_s["one_process_s"] = time.perf_counter() - t0
+    if restored != {"step": steps, "digest": train[0]["saves"][-1]["digest"]}:
+        fail(f"tp (d): one process restored {restored} != the TP state at "
+             f"its last save {train[0]['saves'][-1]}")
+    rec["d"] = {"steps": steps, "rank_batch": TRAIN_B, **d_s,
+                "eval": train[0]["results"],
+                "launches_by_variant": train[0]["launches_by_variant"],
+                "train_launches_by_variant": [t["train_launches"]
+                                              for t in train],
+                "tp_to_one_process_equal": True,
+                "one_process_to_tp_equal": True}
+
+    checked_now = {c.name for counts in (
+        step_counts, fwd_counts, timed_counts, cli_counts,
+        tp_step_launches(DDP_B // 2, False)) for c in counts}
+    if checked_now - checked:
+        fail(f"tp: shapes not held in the kernels phase: "
+             f"{sorted(checked_now - checked)}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, {
+        "tp_step": ({"launches_by_variant":
+                     r12[0]["a_bf16"]["launches_by_variant"]}, step_counts),
+        "tp_forward": ({"launches_by_variant":
+                        r12[0]["b_bf16"]["launches_by_variant"]},
+                       fwd_counts),
+        "tp_step_bf16": ({"launches_by_variant":
+                          r12[0]["c"]["launches_by_variant"]}, timed_counts),
+        "tp_cli": ({"launches_by_variant": train[0]["train_launches"]},
+                   cli_counts)}
+
+
+RANK_TASKS = {"step": rank_step, "cli": rank_cli, "tp": rank_tp}
 
 
 # ------------------------------------------------- multi-device inference
@@ -3605,6 +4298,9 @@ def main() -> None:
         rm, rm_counts = phase_remat(vocab_path, Path(tmp), batch)
         records.append(rm)
         emit(rm)
+        tp, tp_runs = phase_tp(vocab_path, Path(tmp), batch, checked, rm)
+        records.append(tp)
+        emit(tp)
         prep, prep_train, prep_pred = phase_data_prep(Path(tmp), checked)
         records.append(prep)
         emit(prep)
@@ -3619,7 +4315,7 @@ def main() -> None:
         "data_prep_train": (prep["train"], prep_train),
         "data_prep_predict": (prep["predict"], prep_pred),
         "infer_dp": (idp["bf16"], idp_counts), "stem_s2d": st_run,
-        "remat": (rm["remat"], rm_counts), **ddp_runs})
+        "remat": (rm["remat"], rm_counts), **ddp_runs, **tp_runs})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -15,7 +15,8 @@ unless `device=cpu`. On N cards, one process per card:
 
 or each process with `tpu.distributed.coordinator_address=host:port
 tpu.distributed.num_processes=N tpu.distributed.process_id=<rank>`
-(`parallel.mesh`).
+(`parallel.mesh`). `tpu.mesh.model=M` shards the model over M of one
+host's processes (tensor parallelism, `train.trainer`).
 """
 import sys
 from pathlib import Path

@@ -24,7 +24,10 @@ weighted-CE denominator, the box-supervised samples) is all-reduced over
 the group, and each loss is scaled by the world size W, so that the mean
 over ranks (DDP's gradient average, the logged losses) is the global
 loss. DETR's reference normalises `num_boxes` the same way. With one
-process (`group` None) nothing is reduced or scaled.
+process (`group` None) nothing is reduced or scaled. Under tensor
+parallelism `group` is the data group, and `replicas`, the model group,
+whose ranks compute the same outputs, must reach the same Hungarian
+assignment: it is checked, not broadcast.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 
 from ..ops.boxes import box_cxcywh_to_xyxy, elementwise_generalized_box_iou
 from ..ops.matcher import hungarian_match
+from ..parallel.tensor_parallel import check_replicated
 
 # task-id encoding shared by the datasets, the batches and the losses
 TASK_IDS = {
@@ -126,20 +130,22 @@ def localization_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                         box_valid: torch.Tensor, has_boxes: torch.Tensor,
                         cfg: LossConfig,
                         q4t: torch.Tensor | None = None,
-                        group=None) -> Dict[str, tuple]:
+                        group=None, replicas=None) -> Dict[str, tuple]:
     """DETR set losses over Hungarian-matched pairs: {name: (loss, count)}.
 
     pred_logits (B,Q,K+1), pred_boxes (B,Q,4) cxcywh; tgt_boxes (B,M,4),
     tgt_labels (B,M), box_valid (B,M) bool; has_boxes (B,) bool (the sample
     carries box supervision). `q4t` (B,M), the matching, is computed here
-    unless given. With `group`, the normalisers are the group's (module
-    docstring)."""
+    unless given (and checked equal over `replicas`). With `group`, the
+    normalisers are the group's (module docstring)."""
     B, Q, K1 = pred_logits.shape
     valid = box_valid & has_boxes[:, None]                        # (B,M)
     if q4t is None:
         q4t = hungarian_match(pred_logits.detach(), pred_boxes.detach(),
                               tgt_labels, tgt_boxes, valid, cfg.cost_class,
                               cfg.cost_bbox, cfg.cost_giou)
+        check_replicated(torch.where(valid, q4t, -1), replicas,
+                         "the Hungarian assignment")
     num_boxes = _over(valid.sum().float(), group).clamp(min=1.0)
     logits, boxes = pred_logits.float(), pred_boxes.float()
 
@@ -175,13 +181,15 @@ def localization_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
 _LOC_TERMS = ("loss_ce", "loss_bbox", "loss_giou")
 
 
-def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig, group=None):
+def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig, group=None,
+                  replicas=None):
     """Total multitask loss (0-d tensor) and the loss dict.
 
     `batch`: answer_ids (B,S), answer_lens (B,), task_id (B,),
     has_answer (B,), boxes (B,M,4), box_labels (B,M), box_valid (B,M),
     has_boxes (B,). With `group`, this rank's part of the global batch's
-    loss times the world size (module docstring)."""
+    loss times the world size; `replicas` as in `localization_losses`
+    (module docstring)."""
     losses: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), device=outputs["pred_boxes"].device)
 
@@ -205,7 +213,7 @@ def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig, group=None):
     loc = localization_losses(
         outputs["pred_relevance_logits"], outputs["pred_boxes"],
         batch["boxes"], batch["box_labels"], batch["box_valid"],
-        batch["has_boxes"], cfg, group=group)
+        batch["has_boxes"], cfg, group=group, replicas=replicas)
     for name in _LOC_TERMS:
         add(name, *loc[name], weights[name])
     losses["cardinality_error"] = loc["cardinality_error"][0]
@@ -217,7 +225,8 @@ def gpv_criterion(outputs: dict, batch: dict, cfg: LossConfig, group=None):
         for i in range(aux_l.shape[0]):
             loc_i = localization_losses(
                 aux_l[i], aux_b[i], batch["boxes"], batch["box_labels"],
-                batch["box_valid"], batch["has_boxes"], cfg, group=group)
+                batch["box_valid"], batch["has_boxes"], cfg, group=group,
+                replicas=replicas)
             for name in _LOC_TERMS:
                 add(f"{name}_{i}", *loc_i[name], weights[name])
 

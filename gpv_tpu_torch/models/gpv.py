@@ -25,7 +25,8 @@ linear` (a Linear classifier in place of the vocab-embedding one),
 position embedding, any `backbone_layers` and the space-to-depth stem
 (`model.detr.stem_s2d`, `ops.stem_s2d`). `remat` (`tpu.remat`) recomputes
 the backbone's stages, DETR's layers and each co-attention layer in the
-backward (`nn.layers.remat`).
+backward (`nn.layers.remat`). `shard_params` makes a whole model one
+rank's share of it under tensor parallelism.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ from ..nn.coattention import CoAttentionLayer
 from ..nn.layers import remat as remat_region
 from ..nn.text_decoder import TextDecoder
 from ..ops.posenc import sine_position_encoding_1d
+from ..parallel.sharding_rules import (ShardingRules, make_param_shardings,
+                                       shard_tensor)
 from .detr import DETR, POSITION_EMBEDDINGS
 
 
@@ -124,6 +127,9 @@ class GPV(nn.Module):
         self.relevance_tokens = nn.Parameter(torch.zeros(2, hidden_dim))
         self.register_buffer("pos_enc_table", sine_position_encoding_1d(
             hidden_dim, max_pos_enc_len), persistent=False)
+        # tensor parallelism (`shard_params`): the model group and rules
+        self.tp = None
+        self.tp_rules: Optional[ShardingRules] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -258,6 +264,40 @@ class GPV(nn.Module):
     def init_text_cache(self, batch: int, device):
         return self.text_decoder.init_cache(batch, self.max_text_len,
                                             self.dtype, device)
+
+
+# the block that holds each sharded leaf: (module attribute, the first
+# projection's weight under that module)
+_TP_BLOCKS = (("tp", "in_proj_weight"),            # MultiHeadAttention
+              ("tp", "query.weight"),              # BERT self-attention
+              ("tp", "query1.weight"),             # co-attention
+              ("ffn_tp", "linear1.weight"),        # DETR, text decoder
+              ("ffn_tp", "intermediate.dense.weight"),     # BERT
+              ("v_ffn_tp", "v_intermediate.dense.weight"),  # co-attention
+              ("t_ffn_tp", "t_intermediate.dense.weight"))
+
+
+@torch.no_grad()
+def shard_params(model: GPV, mg) -> ShardingRules:
+    """Make `model`, built whole with its weights, the share of rank
+    `mg.rank` of its model group `mg` (a `parallel.tensor_parallel.
+    ModelGroup`), in place (counterpart of `gpv_tpu.parallel.shard_params`):
+    each leaf the rules shard (`parallel.sharding_rules.
+    make_param_shardings`) keeps this rank's slice, the rest stay whole,
+    and every sharded block runs over `mg`. The parameters stay the same
+    objects, so build the optimizer after. Returns the rules."""
+    rules = make_param_shardings(model, mg.size)
+    for name, p in model.named_parameters():
+        spec = rules.specs.get(name)
+        if spec is not None:
+            p.data = shard_tensor(p.data, spec.dim, spec.chunks, mg.rank,
+                                  mg.size)
+    for name, m in model.named_modules():
+        for attr, first in _TP_BLOCKS:
+            if hasattr(m, attr) and f"{name}.{first}" in rules.specs:
+                setattr(m, attr, mg)
+    model.tp, model.tp_rules = mg, rules
+    return rules
 
 
 _BACKBONE_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),

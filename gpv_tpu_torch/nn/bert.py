@@ -7,7 +7,12 @@ goes through the fused kernel K1: 12 post-norm layers, 12 heads, GELU-erf
 FFN 3072, LayerNorm eps 1e-12, learned position and token-type embeddings,
 pad keys masked. Parameter names follow HF (`model.embeddings.*`,
 `model.encoder.layer.{i}.attention.self.query`, ...), so the reference's
-`bert.model.*` weights load as they are.
+`bert.model.*` weights load as they are. Sharded
+(`models.gpv.shard_params`), `attention.self.{query,key,value}` and
+`intermediate.dense` are column-parallel (this rank's heads and FFN
+columns) and `attention.output.dense` and `output.dense` row-parallel
+(`parallel.tensor_parallel`); BERT runs without a gradient, so only the
+forward's all-reduces run.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import column_linear, row_linear
 from .layers import attend_heads
 
 LN_EPS = 1e-12
@@ -44,15 +50,18 @@ class BertEmbeddings(nn.Module):
 class BertSelfAttention(nn.Module):
     def __init__(self, hidden: int, heads: int):
         super().__init__()
-        self.heads = heads
+        self.heads, self.head_dim = heads, hidden // heads
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
+        self.tp = None  # the model group once sharded
 
     def forward(self, x, valid=None):
-        split = lambda y: y.view(*y.shape[:-1], self.heads, -1)  # noqa: E731
-        return attend_heads(split(self.query(x)), split(self.key(x)),
-                            split(self.value(x)), valid)
+        def heads(layer):  # this rank's heads when sharded
+            y = column_linear(x, layer, self.tp)
+            return y.view(*y.shape[:-1], -1, self.head_dim)
+        return attend_heads(heads(self.query), heads(self.key),
+                            heads(self.value), valid)
 
 
 class _DenseNorm(nn.Module):
@@ -63,8 +72,8 @@ class _DenseNorm(nn.Module):
         self.dense = nn.Linear(d_in, hidden)
         self.LayerNorm = nn.LayerNorm(hidden, eps=LN_EPS)
 
-    def forward(self, h, residual):
-        return self.LayerNorm(residual + self.dense(h))
+    def forward(self, h, residual, tp=None):
+        return self.LayerNorm(residual + row_linear(h, self.dense, tp))
 
 
 class _Attention(nn.Module):
@@ -87,11 +96,14 @@ class BertLayer(nn.Module):
         self.attention = _Attention(hidden, heads)
         self.intermediate = _Dense(hidden, intermediate)
         self.output = _DenseNorm(intermediate, hidden)
+        self.ffn_tp = None  # the model group once sharded
 
     def forward(self, x, valid=None):
-        x = self.attention.output(self.attention.self(x, valid), x)
-        h = F.gelu(self.intermediate.dense(x))  # erf form
-        return self.output(h, x)
+        x = self.attention.output(self.attention.self(x, valid), x,
+                                  self.attention.self.tp)
+        h = F.gelu(column_linear(x, self.intermediate.dense,
+                                 self.ffn_tp))  # erf form
+        return self.output(h, x, self.ffn_tp)
 
 
 class BertModel(nn.Module):

@@ -14,6 +14,16 @@ one launch of the fused kernel K2 (`ops.attention.fused_biattention`);
 training calls take the differentiable `attend_train` per direction, with
 dropout on the probabilities and after the dense layers, as the JAX module
 places it.
+
+Sharded (`models.gpv.shard_params`): `biattention.{query,key,value}{1,2}`
+are column-parallel, so a rank runs both directions over its own heads
+(K2 at 16 / M heads); `{v,t}_intermediate.dense` are column-parallel and
+`{v,t}_output.dense` row-parallel. `biOutput.dense1` / `dense2` stay
+replicated, as in the JAX rules: the full context reaches them through
+`gather_from_model`, each rank's head columns written into a zero-filled
+buffer of the full width and the buffers summed over the model group
+(an all-reduce), and their backward takes each rank's columns of the
+replicated gradient (`parallel.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -21,7 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_biattention
-from .layers import attend_train, dropout
+from ..parallel.tensor_parallel import (column_linear, gather_from_model,
+                                        row_linear)
+from .layers import attend_train, dropout, enter_model
 
 LN_EPS = 1e-12
 ACTS = {"gelu": F.gelu, "relu": F.relu, "swish": F.silu}
@@ -34,26 +46,39 @@ class BiAttention(nn.Module):
     def __init__(self, dim: int = 768, num_heads: int = 16,
                  dropout: float = 0.0, dropout2: float | None = None):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, dim // num_heads
         # attention-probability dropout of ctx1 and of ctx2
         self.rates = (dropout, dropout if dropout2 is None else dropout2)
         for name in ("query", "key", "value"):
             for s in ("1", "2"):
                 setattr(self, name + s, nn.Linear(dim, dim))
+        self.tp = None  # the model group once sharded
 
     def forward(self, x1, x2, valid1=None, valid2=None,
                 deterministic: bool = True):
-        split = lambda y: y.view(*y.shape[:-1], self.num_heads, -1)  # noqa
+        """(ctx1, ctx2), whole also when sharded (module docstring)."""
+        tp = self.tp
+        x1, x2 = enter_model((x1, x2), tp)
+
+        def heads(layer, x):  # this rank's heads when sharded
+            w, b = layer.weight, layer.bias
+            if tp is not None:  # x entered the model group above
+                b = b[tp.rank * w.shape[0]:(tp.rank + 1) * w.shape[0]]
+            y = F.linear(x, w, b)
+            return y.view(*y.shape[:-1], -1, self.head_dim)
         q1, k1, v1, q2, k2, v2 = (
-            split(self.query1(x1)), split(self.key1(x1)),
-            split(self.value1(x1)), split(self.query2(x2)),
-            split(self.key2(x2)), split(self.value2(x2)))
+            heads(self.query1, x1), heads(self.key1, x1),
+            heads(self.value1, x1), heads(self.query2, x2),
+            heads(self.key2, x2), heads(self.value2, x2))
         if not deterministic:
-            return (attend_train(q2, k1, v1, valid1, rate=self.rates[0]),
-                    attend_train(q1, k2, v2, valid2, rate=self.rates[1]))
-        ctx1, ctx2 = fused_biattention(q1, k1, v1, q2, k2, v2, valid1,
-                                       valid2)
-        return ctx1.flatten(2), ctx2.flatten(2)
+            ctx1 = attend_train(q2, k1, v1, valid1, rate=self.rates[0],
+                                tp=tp)
+            ctx2 = attend_train(q1, k2, v2, valid2, rate=self.rates[1],
+                                tp=tp)
+        else:
+            ctx1, ctx2 = (c.flatten(2) for c in fused_biattention(
+                q1, k1, v1, q2, k2, v2, valid1, valid2))
+        return gather_from_model(ctx1, tp), gather_from_model(ctx2, tp)
 
 
 class _BiOutput(nn.Module):
@@ -103,6 +128,8 @@ class CoAttentionLayer(nn.Module):
         self.v_output = _Dense(intermediate, dim, norm=True)
         self.t_intermediate = _Dense(dim, inter2)
         self.t_output = _Dense(inter2, dim, norm=True)
+        # the model group of each stream's FFN once sharded
+        self.v_ffn_tp = self.t_ffn_tp = None
 
     def forward(self, x1, x2, valid1=None, valid2=None,
                 deterministic: bool = True):
@@ -118,9 +145,10 @@ class CoAttentionLayer(nn.Module):
         # stream 1 absorbs what it read from stream 2 (ctx2), and vice versa
         a1 = out.LayerNorm1(x1 + drop1(out.dense1(ctx2)))
         a2 = out.LayerNorm2(x2 + drop2(out.dense2(ctx1)))
-        h1 = drop1(self.v_output.dense(self.act1(
-            self.v_intermediate.dense(a1))))
-        h2 = drop2(self.t_output.dense(self.act2(
-            self.t_intermediate.dense(a2))))
+        tp1, tp2 = self.v_ffn_tp, self.t_ffn_tp
+        h1 = drop1(row_linear(self.act1(column_linear(
+            a1, self.v_intermediate.dense, tp1)), self.v_output.dense, tp1))
+        h2 = drop2(row_linear(self.act2(column_linear(
+            a2, self.t_intermediate.dense, tp2)), self.t_output.dense, tp2))
         return (self.v_output.LayerNorm(a1 + h1),
                 self.t_output.LayerNorm(a2 + h2))

@@ -11,7 +11,9 @@ Parameter names follow the reference (`encoder.layers.{i}.self_attn`,
 after each sublayer, as the JAX layers place it) acts only when a forward
 is not `deterministic`; so does the training attention route. `remat`
 recomputes each encoder and decoder layer in the backward
-(`nn.layers.remat`).
+(`nn.layers.remat`). Sharded (`models.gpv.shard_params`), a layer's
+attentions run this rank's heads and its FFN (`ffn_tp`) this rank's
+`linear1` columns and `linear2` rows (`parallel.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -19,7 +21,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import column_linear, row_linear
 from .layers import MultiHeadAttention, dropout, remat
+
+
+def ffn(layer, x, deterministic: bool):
+    """`linear2(dropout(relu(linear1(x))))`, dropped out again: the FFN of
+    a DETR or text-decoder layer, column/row-parallel over `ffn_tp`."""
+    tp = layer.ffn_tp
+    h = F.relu(column_linear(x, layer.linear1, tp))
+    h = dropout(h, layer.dropout, deterministic, tp)
+    return dropout(row_linear(h, layer.linear2, tp), layer.dropout,
+                   deterministic)
 
 
 class EncoderLayer(nn.Module):
@@ -32,24 +45,22 @@ class EncoderLayer(nn.Module):
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
+        self.ffn_tp = None  # the model group once sharded
 
     def forward(self, src, pos, key_valid=None, deterministic: bool = True):
         def drop(x):
             return dropout(x, self.dropout, deterministic)
-
-        def ffn(x):
-            return drop(self.linear2(drop(F.relu(self.linear1(x)))))
 
         if self.pre_norm:
             x = self.norm1(src)
             q = x + pos
             src = src + drop(self.self_attn(q, q, x, key_valid,
                                             deterministic=deterministic))
-            return src + ffn(self.norm2(src))
+            return src + ffn(self, self.norm2(src), deterministic)
         q = src + pos
         src = self.norm1(src + drop(self.self_attn(
             q, q, src, key_valid, deterministic=deterministic)))
-        return self.norm2(src + ffn(src))
+        return self.norm2(src + ffn(self, src, deterministic))
 
 
 class DecoderLayer(nn.Module):
@@ -64,14 +75,12 @@ class DecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
         self.norm3 = nn.LayerNorm(dim)
+        self.ffn_tp = None  # the model group once sharded
 
     def forward(self, tgt, memory, query_pos, mem_pos, mem_valid=None,
                 deterministic: bool = True):
         def drop(x):
             return dropout(x, self.dropout, deterministic)
-
-        def ffn(x):
-            return drop(self.linear2(drop(F.relu(self.linear1(x)))))
 
         if self.pre_norm:
             x = self.norm1(tgt)
@@ -82,14 +91,14 @@ class DecoderLayer(nn.Module):
             tgt = tgt + drop(self.multihead_attn(
                 x + query_pos, memory + mem_pos, memory, mem_valid,
                 deterministic=deterministic))
-            return tgt + ffn(self.norm3(tgt))
+            return tgt + ffn(self, self.norm3(tgt), deterministic)
         q = tgt + query_pos
         tgt = self.norm1(tgt + drop(self.self_attn(
             q, q, tgt, deterministic=deterministic)))
         ca = self.multihead_attn(tgt + query_pos, memory + mem_pos, memory,
                                  mem_valid, deterministic=deterministic)
         tgt = self.norm2(tgt + drop(ca))
-        return self.norm3(tgt + ffn(tgt))
+        return self.norm3(tgt + ffn(self, tgt, deterministic))
 
 
 class _Stack(nn.Module):

@@ -3,7 +3,10 @@
 - `MultiHeadAttention`: torch `nn.MultiheadAttention` parameter layout
   (packed `in_proj_weight`/`in_proj_bias`, `out_proj`), so the reference
   DETR and text-decoder state dicts load as they are. `project_q`,
-  `project_kv` and `attend` stay separate so decode can cache K/V.
+  `project_kv` and `attend` stay separate so decode can cache K/V. With
+  `tp` set (`models.gpv.shard_params`) it is one rank's share of the
+  block: q/k/v column-parallel by chunk (its heads), `out_proj`
+  row-parallel (`parallel.tensor_parallel`).
 - `attend_heads`: the one place where attention over (B, T, H, Dh) heads
   runs. Deterministic calls go to the fused kernel K1
   (`ops.attention.fused_attention`); training calls take `attend_train`.
@@ -15,7 +18,10 @@
   a fallback: the route is chosen by `deterministic` alone.
 - `dropout`: dropout drawing from the generator a train step installs with
   `dropout_generator` (seeded from the step count, as the JAX step folds
-  the step into its key), or from torch's default generator.
+  the step into its key), or from torch's default generator. Under tensor
+  parallelism a rank's head- or width-sharded tensor takes its slice of
+  the mask drawn for the whole tensor, so that the ranks of a model group
+  draw alike and the masks are those of the unsharded model.
 - `remat`: a region whose activations the backward recomputes
   (`tpu.remat`, the JAX package's `nn.remat`), with the same dropout masks.
 - `MLP`: DETR's ReLU box-head MLP.
@@ -36,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG, fused_attention
+from ..parallel.tensor_parallel import copy_to_model, row_linear
 
 _rng = threading.local()
 
@@ -52,15 +59,23 @@ def dropout_generator(generator: Optional[torch.Generator]):
         _rng.generator = saved
 
 
-def dropout(x: torch.Tensor, rate: float,
-            deterministic: bool = True) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
+            tp=None, dim: int = -1) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate). The identity when
-    `deterministic` or at rate 0."""
+    `deterministic` or at rate 0. With `tp` (a model group), `x` is this
+    rank's shard along `dim` of a tensor `tp.size` times as wide there,
+    and its mask is this rank's slice of the mask drawn for the whole."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=getattr(_rng, "generator", None),
+    shape = list(x.shape)
+    if tp is not None:
+        shape[dim] *= tp.size
+    keep = torch.rand(shape, generator=getattr(_rng, "generator", None),
                       device=x.device) >= rate
+    if tp is not None:
+        n = x.shape[dim]
+        keep = keep.narrow(dim, tp.rank * n, n)
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -97,9 +112,11 @@ def remat(fn, *args, **kwargs):
 
 def attend_train(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                  key_valid: Optional[torch.Tensor] = None,
-                 causal: bool = False, rate: float = 0.0) -> torch.Tensor:
+                 causal: bool = False, rate: float = 0.0,
+                 tp=None) -> torch.Tensor:
     """Differentiable attention: (B,Tq,H,Dh) x (B,Tk,H,Dh)^2 -> (B,Tq,H*Dh)
-    in the compute dtype (v's)."""
+    in the compute dtype (v's). With `tp`, the H heads are this rank's
+    share (`dropout`)."""
     B, Tq, H, Dh = qh.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", qh * (1.0 / Dh ** 0.5),
                           kh).float()
@@ -109,20 +126,29 @@ def attend_train(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         logits = logits + torch.where(keep, 0.0, NEG)
     if key_valid is not None:
         logits = torch.where(key_valid[:, None, None, :], logits, NEG)
-    probs = dropout(logits.softmax(-1).to(vh.dtype), rate, False)
+    probs = dropout(logits.softmax(-1).to(vh.dtype), rate, False, tp, 1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(B, Tq, H * Dh)
 
 
 def attend_heads(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                  key_valid: Optional[torch.Tensor] = None,
                  causal: bool = False, deterministic: bool = True,
-                 rate: float = 0.0) -> torch.Tensor:
+                 rate: float = 0.0, tp=None) -> torch.Tensor:
     """(B,Tq,H,Dh) x (B,Tk,H,Dh)^2 -> (B,Tq,H*Dh): through K1 when
     `deterministic`, else `attend_train` with attention dropout `rate`.
-    key_valid: (B,Tk) bool, True = valid key."""
+    key_valid: (B,Tk) bool, True = valid key. `tp` as in `attend_train`."""
     if deterministic:
         return fused_attention(qh, kh, vh, key_valid, causal).flatten(2)
-    return attend_train(qh, kh, vh, key_valid, causal, rate)
+    return attend_train(qh, kh, vh, key_valid, causal, rate, tp)
+
+
+def enter_model(xs, tp):
+    """`copy_to_model` of each distinct tensor of `xs` once (a block's
+    inputs are often one tensor twice)."""
+    if tp is None:
+        return tuple(xs)
+    seen = {}
+    return tuple(seen.setdefault(id(x), copy_to_model(x, tp)) for x in xs)
 
 
 class MultiHeadAttention(nn.Module):
@@ -137,12 +163,21 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
+        self.tp = None  # the model group once sharded
+
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank computes: all, or its share when sharded."""
+        return self.in_proj_weight.shape[0] // 3 // self.head_dim
 
     def _proj(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        d = self.dim
+        # the weight holds this rank's rows of each q/k/v chunk; the bias
+        # stays whole (replicated), so its rows are taken here
+        d = self.in_proj_weight.shape[0] // 3
+        off = i * self.dim + (0 if self.tp is None else self.tp.rank * d)
         y = F.linear(x, self.in_proj_weight[i * d:(i + 1) * d],
-                     self.in_proj_bias[i * d:(i + 1) * d])
-        return y.view(*x.shape[:-1], self.num_heads, self.head_dim)
+                     self.in_proj_bias[off:off + d])
+        return y.view(*x.shape[:-1], d // self.head_dim, self.head_dim)
 
     def project_q(self, q: torch.Tensor) -> torch.Tensor:
         return self._proj(q, 0)
@@ -153,11 +188,13 @@ class MultiHeadAttention(nn.Module):
     def attend(self, qh, kh, vh, key_valid=None, causal: bool = False,
                deterministic: bool = True):
         """qh: (B,Tq,H,Dh), kh/vh: (B,Tk,H,Dh) -> (B,Tq,D)."""
-        return self.out_proj(attend_heads(qh, kh, vh, key_valid, causal,
-                                          deterministic, self.dropout))
+        return row_linear(attend_heads(qh, kh, vh, key_valid, causal,
+                                       deterministic, self.dropout, self.tp),
+                          self.out_proj, self.tp)
 
     def forward(self, q, k, v, key_valid=None, causal: bool = False,
                 deterministic: bool = True):
+        q, k, v = enter_model((q, k, v), self.tp)
         kh, vh = self.project_kv(k, v)
         return self.attend(self.project_q(q), kh, vh, key_valid, causal,
                            deterministic)

@@ -13,14 +13,16 @@ kernel sees the same shapes at every step. The cache is written in place
 at position t (no copy of the whole cache per step) and masked by
 `arange(S) <= t`. Dropout (torch's `TransformerDecoderLayer` places, rate
 `dropout`) acts only in a teacher-forced forward that is not
-`deterministic`, which also takes the training attention route.
+`deterministic`, which also takes the training attention route. Sharded
+(`models.gpv.shard_params`), both attentions and the cache hold this
+rank's heads, and the FFN is column/row-parallel (`detr_transformer.ffn`).
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from .detr_transformer import ffn
 from .layers import MultiHeadAttention, dropout
 
 
@@ -36,12 +38,10 @@ class TextDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
         self.norm3 = nn.LayerNorm(dim)
+        self.ffn_tp = None  # the model group once sharded
 
     def _ffn(self, x, deterministic: bool = True):
-        def drop(y):
-            return dropout(y, self.dropout, deterministic)
-        return self.norm3(x + drop(self.linear2(drop(F.relu(
-            self.linear1(x))))))
+        return self.norm3(x + ffn(self, x, deterministic))
 
     def forward(self, tgt, memory, mem_valid=None,
                 deterministic: bool = True):
@@ -112,7 +112,8 @@ class TextDecoder(nn.Module):
         return tuple(layer.precompute_memory(memory) for layer in self.layers)
 
     def init_cache(self, batch: int, max_len: int, dtype, device):
-        shape = (batch, max_len, self.num_heads, self.dim // self.num_heads)
+        attn = self.layers[0].self_attn  # this rank's heads when sharded
+        shape = (batch, max_len, attn.local_heads, attn.head_dim)
         return tuple((torch.zeros(shape, dtype=dtype, device=device),
                       torch.zeros(shape, dtype=dtype, device=device))
                      for _ in self.layers)

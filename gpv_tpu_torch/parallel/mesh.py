@@ -23,8 +23,16 @@ checkpoint writes) wait at `host_barrier`, which runs on a gloo group of
 its own with the long `tpu.distributed.barrier_timeout_min`, so a long
 eval on rank 0 trips no NCCL collective timeout.
 
-The mesh is (data, model). `model > 1`, tensor parallelism, is not ported
-(ROADMAP Queue 1 item 30).
+The mesh is (data, model) over the processes, the JAX reshape of the
+devices: a model group is `model` consecutive ranks d·model ...
+d·model+model-1 (tensor parallelism, `parallel.tensor_parallel`), a data
+group the ranks that share a model index (data parallelism). Both kinds of
+group are made at the join, on every rank in one order (`new_group` is
+collective), with the rank's data and model index (`groups`). With model
+1 the data group is the whole world. As the JAX package refuses
+multi-host tensor parallelism (`gpv_tpu/parallel/mesh.py:
+validate_multihost_mesh`), `model > 1` runs over one host's processes
+only, as JAX's runs over one process's devices.
 """
 from __future__ import annotations
 
@@ -37,12 +45,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .tensor_parallel import ModelGroup
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 BARRIER_TIMEOUT_MIN = 720.0  # gpv_tpu/train/trainer.py:76-81
 
 _ENV_KEYS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _barrier_group = None  # the gloo group of host_barrier, made at the join
+_groups = None  # this rank's `Groups`, made at the join
 
 
 @dataclass(frozen=True)
@@ -59,14 +70,27 @@ class Cluster:
 
 @dataclass(frozen=True)
 class Mesh:
-    """The (data, model) mesh over the processes: `data` ranks, each with
-    a replica of the model."""
+    """The (data, model) mesh over the processes: `data` model groups,
+    each of `model` ranks that hold one replica of the model between
+    them."""
     data: int
     model: int = 1
 
     @property
     def shape(self) -> dict:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+
+@dataclass(frozen=True)
+class Groups:
+    """This rank's place on the mesh: its data and model index, the
+    process group of its data peers (the ranks of its model index; the
+    world with model 1) and of its model group (None with model 1)."""
+    mesh: Mesh
+    data_index: int
+    model_index: int
+    data_group: object
+    model_group: object
 
 
 def _node(cfg, key):
@@ -149,9 +173,12 @@ def initialize_distributed(tpu_cfg, device=None,
 
     A second trainer in one process does not join again: a group already
     joined must be the one the config describes."""
+    global _barrier_group, _groups
     cluster = cluster_from_config(tpu_cfg, environ)
     if cluster is None:
         return None
+    mesh = mesh_from_config(tpu_cfg, cluster.world)
+    validate_multihost_mesh(mesh, cluster)
     if dist.is_initialized():
         if (dist.get_world_size(), dist.get_rank()) != (cluster.world,
                                                         cluster.rank):
@@ -159,6 +186,11 @@ def initialize_distributed(tpu_cfg, device=None,
                 f"this process already joined a group as rank "
                 f"{dist.get_rank()} of {dist.get_world_size()}; the config "
                 f"asks for rank {cluster.rank} of {cluster.world}")
+        if _groups is None or _groups.mesh != mesh:
+            raise ValueError(
+                f"this process already joined the mesh "
+                f"{None if _groups is None else _groups.mesh}; the config "
+                f"asks for {mesh}")
         return cluster
     dev = rank_device(cluster, device)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
@@ -172,10 +204,60 @@ def initialize_distributed(tpu_cfg, device=None,
                             world_size=cluster.world, rank=cluster.rank)
     minutes = float(_node(tpu_cfg, "distributed").get(
         "barrier_timeout_min", BARRIER_TIMEOUT_MIN) or BARRIER_TIMEOUT_MIN)
-    global _barrier_group
     _barrier_group = dist.new_group(
         backend="gloo", timeout=datetime.timedelta(minutes=minutes))
+    _groups = _make_groups(mesh, cluster.rank)
     return cluster
+
+
+def _make_groups(mesh: Mesh, rank: int) -> Groups:
+    """This rank's `Groups`. Every rank makes every model group, then
+    every data group, in one order (`new_group` is collective)."""
+    m = mesh.model
+    if m == 1:
+        return Groups(mesh, rank, 0, dist.group.WORLD, None)
+    model_group = data_group = None
+    for d in range(mesh.data):
+        g = dist.new_group(list(range(d * m, (d + 1) * m)))
+        if rank // m == d:
+            model_group = g
+    for i in range(m):
+        g = dist.new_group(list(range(i, mesh.data * m, m)))
+        if rank % m == i:
+            data_group = g
+    return Groups(mesh, rank // m, rank % m, data_group, model_group)
+
+
+def validate_multihost_mesh(mesh: Mesh, cluster: Cluster) -> None:
+    """Refuse tensor parallelism over more than one host (a cluster whose
+    processes are not all on this host), as the JAX package refuses it
+    over more than one process, its unit of a host."""
+    if mesh.model > 1 and cluster.world != cluster.local_world:
+        raise ValueError(
+            f"tpu.mesh.model={mesh.model} with {cluster.world} processes on "
+            f"more than one host ({cluster.local_world} on this one): "
+            "multi-host tensor parallelism is not supported, as in the JAX "
+            "package (gpv_tpu/parallel/mesh.py: validate_multihost_mesh), "
+            "whose rank-0 checkpointing and eval assume parameters fully "
+            "replicated across hosts. Use tpu.mesh.model=1 for multi-host "
+            "runs (pure DP, the reference's strategy) or single-host TP.")
+
+
+def groups() -> Groups:
+    """This rank's `Groups`; for a process that joined nothing, the mesh
+    of one."""
+    if _groups is None or not dist.is_initialized():
+        return Groups(Mesh(1, 1), 0, 0, None, None)
+    return _groups
+
+
+def model_group():
+    """This rank's model group as a `tensor_parallel.ModelGroup`, or None
+    with model 1."""
+    g = groups()
+    if g.mesh.model == 1:
+        return None
+    return ModelGroup(g.model_group, g.model_index, g.mesh.model)
 
 
 def world_size() -> int:
@@ -211,20 +293,25 @@ def broadcast_from_main(obj):
 def make_mesh(data: int = -1, model: int = 1,
               world: Optional[int] = None) -> Mesh:
     """A (data, model) mesh over `world` processes (default: this group's
-    size). data -1 means all of them."""
+    size), one process per card: data·model must be the world; data -1
+    means world // model."""
     world = world_size() if world is None else int(world)
-    if model != 1:
-        raise NotImplementedError(
-            f"tpu.mesh.model={model}: tensor parallelism is not ported to "
-            "gpv_tpu_torch (ROADMAP Queue 1 item 30); use tpu.mesh.model=1 "
-            "(data parallelism, one process per card)")
-    if data == -1:
-        data = world
-    if data != world:
+    if model < 1:
+        raise ValueError(f"tpu.mesh.model={model} < 1")
+    if world % model:
         raise ValueError(
-            f"tpu.mesh.data={data} but {world} process(es) joined: the data "
-            "axis is one process per card (launch with torch.distributed.run "
-            "--nproc-per-node N, or set tpu.distributed.*), or -1")
+            f"tpu.mesh.model={model}: tensor parallelism runs one process "
+            f"per card, so it needs a multiple of {model} processes; "
+            f"{world} joined (launch with torch.distributed.run "
+            "--nproc-per-node N, or set tpu.distributed.*)")
+    if data == -1:
+        data = world // model
+    if data * model != world:
+        raise ValueError(
+            f"tpu.mesh.data={data} x model={model} but {world} process(es) "
+            "joined: the mesh is one process per card (launch with "
+            "torch.distributed.run --nproc-per-node N, or set "
+            "tpu.distributed.*), or data -1")
     return Mesh(data, model)
 
 

@@ -20,8 +20,9 @@ host once and solves there (`ops.matcher`).
   and losses are averaged;
 - dropout draws from a generator seeded from (seed, step), as the JAX step
   folds the step into its key: one device, one seed and one step give one
-  loss. A rank folds its index in too, so that ranks draw different masks
-  for their rows, as the JAX global mask does.
+  loss. A rank folds its data index in too, so that data peers draw
+  different masks for their rows, as the JAX global mask does, while the
+  ranks of a model group draw alike.
 
 Data parallelism: in a joined process group (`parallel.mesh`) the model
 runs under `DistributedDataParallel` (the reference's DDP) on this rank's
@@ -33,6 +34,21 @@ last runs under `no_sync`, so the accumulated gradient is all-reduced once.
 Names (frozen parameters, the clip's groups, the optimizer's groups) are
 resolved on the inner module, whose names are the reference's; the
 returned losses are the mean over ranks, the global batch's.
+
+Tensor parallelism (a model sharded by `models.gpv.shard_params`): the
+ranks of a model group take the same rows and compute one replica
+between them (`parallel.tensor_parallel`), as the JAX step with sharded
+parameters and replicated AdamW state (`gpv_tpu/parallel/train_step.py:
+195-211`). Data parallelism then runs over the data group (the ranks of
+one model index), and not at all with one model group: DDP, the
+criterion's normalisers and the mean losses are the data group's. After
+the backward the replicated column-parallel biases, of which a rank read
+its slice, sum their gradients over the model group, and the other
+replicated trainable leaves average theirs (`tensor_parallel.
+sync_replicated_grads`); the clip takes the
+whole gradient's norm (`train.optimizer.clip_detr_grads`); the Hungarian
+assignment, solved on every rank from the same costs, is checked equal
+over the group (`tensor_parallel.check_replicated`).
 """
 from __future__ import annotations
 
@@ -51,6 +67,8 @@ from ..losses.criterion import LossConfig, gpv_criterion
 from ..nn.layers import dropout_generator
 from ..ops.image import normalize_image
 from ..train.optimizer import clip_detr_grads, frozen_names
+from . import mesh
+from .tensor_parallel import sync_replicated_grads
 
 
 @dataclass
@@ -114,7 +132,8 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
     and adamw, each after a synchronisation.
 
     In a joined process group the step runs as one rank of it under DDP
-    (module docstring): `batch` is then this rank's rows."""
+    (module docstring): `batch` is then this rank's rows; under tensor
+    parallelism, its model group's rows."""
     frozen = frozen_names(model, freeze_detr, frozen_detr_paths)
     for name, p in model.named_parameters():
         if name in frozen:
@@ -122,11 +141,23 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
     trainable = [p for p in model.parameters() if p.requires_grad]
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} < 1")
-    distributed = dist.is_initialized()
-    group, rank, world, forward = None, 0, 1, model
+    tp = getattr(model, "tp", None)
+    groups = mesh.groups()
+    # replicated trainable leaves: the biases that column-parallel layers
+    # read a slice of, and the rest (`tensor_parallel` docstring)
+    params = dict(model.named_parameters())
+    specs = {} if tp is None else model.tp_rules.specs
+    sliced = {n[:-len("weight")] + "bias" for n, spec in specs.items()
+              if spec.dim == 0}  # `in_proj_weight` -> `in_proj_bias` too
+    replicated = [p for n, p in params.items() if p.requires_grad
+                  and n not in specs and n not in sliced]
+    sliced = [params[n] for n in sorted(sliced)
+              if n in params and params[n].requires_grad]
+    distributed = dist.is_initialized() and (tp is None
+                                             or groups.mesh.data > 1)
+    group, data_index, world, forward = None, groups.data_index, 1, model
     if distributed:
-        group, rank, world = (dist.group.WORLD, dist.get_rank(),
-                              dist.get_world_size())
+        group, world = groups.data_group, groups.mesh.data
         device = next(model.parameters()).device
         # The forward reaches every trainable leaf but one: with
         # relevance_conditioning off, `relevance_tokens` is never read
@@ -137,7 +168,7 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
         # broadcast.
         forward = DistributedDataParallel(
             model, device_ids=[device] if device.type == "cuda" else None,
-            broadcast_buffers=False,
+            process_group=group, broadcast_buffers=False,
             find_unused_parameters=not getattr(
                 model, "relevance_conditioning", True))
 
@@ -149,10 +180,10 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
         b = batch_to_device(batch, device)
         mark("upload")
         gen = torch.Generator(device=device)
-        # the CPU generator keeps 32 bits of a seed; a rank's offset (a
-        # 32-bit golden-ratio multiple) leaves rank 0's seed as it was
-        gen.manual_seed((seed * 1000003 + state.step + rank * 2654435761)
-                        % 2 ** 32)
+        # the CPU generator keeps 32 bits of a seed; a data index's offset
+        # (a 32-bit golden-ratio multiple) leaves index 0's seed as it was
+        gen.manual_seed((seed * 1000003 + state.step
+                         + data_index * 2654435761) % 2 ** 32)
         if "query_uniq_ids" in b:
             with autocast:
                 uniq = model.encode_queries(b.pop("query_uniq_ids"),
@@ -182,7 +213,7 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
                         query_valid=mb["query_valid"], train=True,
                         query_enc=mb.get("query_enc"))
                     total, losses = gpv_criterion(outputs, mb, loss_cfg,
-                                                  group)
+                                                  group, replicas=tp)
                 mark("forward")
                 (total / grad_accum).backward()
             mark("backward")
@@ -193,6 +224,7 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
         for p in trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        sync_replicated_grads(sliced, replicated, tp)
         clip_detr_grads(model, clip_max_norm)
         mark("clip")
         state.optimizer.step()
@@ -200,7 +232,7 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
         state.step += 1
         mark("adamw")
         out = {k: v / grad_accum for k, v in total_losses.items()}
-        if distributed:  # the mean over ranks: the global batch's losses
+        if distributed:  # the mean over data peers: the global batch's
             flat = torch.stack([out[k] for k in out]).float()
             dist.all_reduce(flat, group=group)
             out = dict(zip(out, flat / world))

@@ -38,6 +38,15 @@ and every rank waits at a host barrier after each save, so no rank forks a
 loader or reads the file before rank 0 has issued its write; every rank
 restores on its own.
 
+Under tensor parallelism (`models.gpv.shard_params`) the file is the one a
+model-1 trainer writes, the same names and whole shapes, as the JAX
+package saves full host arrays: before rank 0 writes, the ranks of its
+model group gather the sharded parameters and their AdamW `exp_avg` /
+`exp_avg_sq` (`parallel.tensor_parallel.gather_shards`; every rank
+calls `save_checkpoint`, ahead of any branch on the rank). `load_into`
+takes each rank's slices of a whole payload, so a checkpoint moves
+between topologies.
+
 An orbax directory of the JAX package is read once converted
 (`convert_orbax_checkpoint.py` at the repository root, where JAX is
 installed). Its output holds no schedule state: `load_into` then keeps this
@@ -56,7 +65,11 @@ import torch
 from torch import nn
 
 from ..parallel import mesh
+from ..parallel.sharding_rules import shard_state_dict, shard_tensor
+from ..parallel.tensor_parallel import gather_shard, gather_shards
 from ..weights import load_torch_state_dict, orbax_refusal
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")  # AdamW's per-parameter tensors
 
 # async saves in flight: resolved path -> (writer thread, its outcome)
 _INFLIGHT: Dict[str, Tuple[threading.Thread, dict]] = {}
@@ -133,24 +146,56 @@ def save_checkpoint(ckpt_dir: str | Path, state, metadata: Dict[str, Any],
     `async_write` the state is first copied to host buffers and the write
     runs on a thread of its own; join it with `wait_for_saves` (module
     docstring). In a process group only rank 0 writes, and every rank
-    then waits at `mesh.host_barrier`."""
+    then waits at `mesh.host_barrier`; under tensor parallelism the ranks
+    of rank 0's model group first gather the whole state."""
     path = Path(ckpt_dir).resolve() / name
+    tp = getattr(state.model, "tp", None)
+    payload = None
+    if tp is not None and mesh.groups().data_index == 0:
+        payload = _payload(state)  # a collective over the model group
     if mesh.is_main():
-        _save(path, state, metadata, async_write)
+        _save(path, payload or _payload(state), metadata, async_write)
     mesh.host_barrier()
     return path
 
 
-def _save(path: Path, state, metadata: Dict[str, Any],
+def _moment_names(optimizer_sd: dict, names: Dict[str, List[str]]) -> dict:
+    """{state index: parameter name} of an optimizer state dict whose
+    groups hold `names` ({group name: names in order})."""
+    return {i: n for g in optimizer_sd["param_groups"]
+            for i, n in zip(g["params"], names[g["name"]])}
+
+
+def _payload(state) -> dict:
+    """What a checkpoint holds; a sharded model's whole, gathered over its
+    model group (every rank of the group must call it)."""
+    names = param_names(state)
+    model_sd = state.model.state_dict()
+    optimizer = state.optimizer.state_dict()
+    tp = getattr(state.model, "tp", None)
+    if tp is not None:
+        specs = state.model.tp_rules.specs
+        model_sd = gather_shards(model_sd, specs, tp)
+        owner = _moment_names(optimizer, names)
+        optimizer = dict(optimizer, state={
+            i: {k: (gather_shard(v, specs[owner[i]].full_shape,
+                                 specs[owner[i]].dim,
+                                 specs[owner[i]].chunks, tp)
+                    if k in _MOMENTS and owner[i] in specs else v)
+                for k, v in st.items()}
+            for i, st in optimizer["state"].items()})
+    return {"model": model_sd,
+            "optimizer": optimizer,
+            "scheduler": (state.scheduler.state_dict()
+                          if state.scheduler is not None else None),
+            "step": int(state.step),
+            "param_names": names}
+
+
+def _save(path: Path, payload: dict, metadata: Dict[str, Any],
           async_write: bool) -> None:
     wait_for_saves(path)  # never two writers on one path
     path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {"model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
-               "scheduler": (state.scheduler.state_dict()
-                             if state.scheduler is not None else None),
-               "step": int(state.step),
-               "param_names": param_names(state)}
     if not async_write:
         _write(payload, path, dict(metadata))
         return
@@ -202,11 +247,14 @@ def load_into(state, payload: dict) -> None:
     takes the second way whatever its groups: this run's hyperparameters
     and schedule at the restored step, as the JAX package resumes. A
     checkpoint without group names whose groups differ raises: its moments
-    cannot be matched to parameters."""
+    cannot be matched to parameters. A model sharded for tensor
+    parallelism takes its slices of the whole payload first."""
+    names = param_names(state)
+    if getattr(state.model, "tp", None) is not None:
+        payload = _shard_payload(payload, state.model, names)
     state.model.load_state_dict(payload["model"], strict=True)
     saved = payload["optimizer"]
     saved_names = payload.get("param_names")
-    names = param_names(state)
     if saved_names is None:
         shape = [(g.get("name"), len(g["params"]))
                  for g in saved["param_groups"]]
@@ -236,6 +284,26 @@ def load_into(state, payload: dict) -> None:
     state.scheduler = torch.optim.lr_scheduler.LambdaLR(
         state.optimizer, state.scheduler.lr_lambdas,
         last_epoch=state.step - 1)
+
+
+def _shard_payload(payload: dict, model: nn.Module,
+                   names: Dict[str, List[str]]) -> dict:
+    """A whole payload -> this rank's: the sharded parameters and their
+    AdamW moments sliced (`models.gpv.shard_params`)."""
+    specs, tp = model.tp_rules.specs, model.tp
+    saved = payload["optimizer"]
+    owner = _moment_names(saved, payload.get("param_names") or names)
+
+    def local(i, k, v):
+        spec = specs.get(owner.get(i))
+        if k not in _MOMENTS or spec is None:
+            return v
+        return shard_tensor(v, spec.dim, spec.chunks, tp.rank, tp.size)
+    return dict(payload, model=shard_state_dict(payload["model"], specs,
+                                                tp.rank, tp.size),
+                optimizer=dict(saved, state={
+                    i: {k: local(i, k, v) for k, v in st.items()}
+                    for i, st in saved["state"].items()}))
 
 
 @torch.no_grad()

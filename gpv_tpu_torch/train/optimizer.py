@@ -141,9 +141,32 @@ def clip_detr_grads(model: nn.Module, max_norm: float) -> torch.Tensor:
     """Clip the DETR groups' gradients (backbone, head, joiner) by one
     global norm, as `clip_grad_norm_(detr_backbone + detr_head)` upstream
     (a true clip: scaled by min(1, max_norm / (norm + 1e-6))). Frozen
-    parameters have no gradient and add nothing. Returns the norm."""
-    grads = [p for n, p in model.named_parameters()
+    parameters have no gradient and add nothing. Returns the norm.
+
+    A model sharded for tensor parallelism (`models.gpv.shard_params`)
+    clips by the norm of the whole gradient: the squared norms of its
+    sharded leaves are summed over the model group, its replicated leaves
+    (the same on every rank) counted once. A rank's own
+    `clip_grad_norm_` would see half a gradient and scale it wrongly."""
+    named = [(n, p) for n, p in model.named_parameters()
              if p.grad is not None and param_group(n) in DETR_GROUPS]
-    if max_norm <= 0 or not grads:
+    if max_norm <= 0 or not named:
         return torch.zeros(())
-    return torch.nn.utils.clip_grad_norm_(grads, max_norm)
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return torch.nn.utils.clip_grad_norm_([p for _, p in named],
+                                              max_norm)
+    from ..parallel.tensor_parallel import all_reduce
+    specs = model.tp_rules.specs
+    sq = {True: [], False: []}
+    for n, p in named:
+        sq[n in specs].append(torch.linalg.vector_norm(p.grad) ** 2)
+    device = named[0][1].grad.device
+    sharded = torch.stack(sq[True]).sum() if sq[True] else torch.zeros(
+        (), device=device)
+    replicated = torch.stack(sq[False]).sum() if sq[False] else \
+        torch.zeros((), device=device)
+    total = (all_reduce(sharded, tp, "clip") + replicated).sqrt()
+    coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    torch._foreach_mul_([p.grad for _, p in named], coef)
+    return total

@@ -35,14 +35,23 @@ Data parallelism (`parallel.mesh`): one process per card, launched with
 gpv_tpu_torch.cli.train ...` or with `tpu.distributed.*` set in each
 process. Each rank loads its rows of every global batch
 (`training.batch_size` stays global) and steps under DDP
-(`parallel.train_step`); `tpu.mesh.data` is -1 or the number of processes,
-and `tpu.mesh.model > 1` (tensor parallelism) is ROADMAP Queue 1 item 30.
-As in the JAX trainer, rank 0 alone evaluates, visualises, logs scalars
-and writes checkpoints (its in-train eval over its own host's cards), and
-the ranks meet at host barriers after each epoch's eval, each
-visualisation, each checkpoint and at the end; every rank restores a
-resumed checkpoint. Frozen-BERT query dedup with several processes
-raises, as in the JAX trainer.
+(`parallel.train_step`); `tpu.mesh.data` is -1 or the number of processes
+over `tpu.mesh.model`. As in the JAX trainer, rank 0 alone evaluates,
+visualises, logs scalars and writes checkpoints (its in-train eval over
+its own host's cards), and the ranks meet at host barriers after each
+epoch's eval, each visualisation, each checkpoint and at the end; every
+rank restores a resumed checkpoint. Frozen-BERT query dedup with more than
+one data rank raises, as in the JAX trainer.
+
+Tensor parallelism (`tpu.mesh.model` M > 1, one host: `torch.distributed.
+run --nproc-per-node N ... tpu.mesh.model=M`): each model group of M
+consecutive ranks shares one replica (`models.gpv.shard_params`) and takes
+the same rows; the loaders shard by the data index. Saves gather the
+whole state on rank 0's model group (`train.checkpoint`), so the files are
+a model-1 trainer's; in-train eval and visualisation gather the whole
+weights on that group too, ahead of the rank-0 branch, into a whole model
+that rank 0's plain `GPVEngine` loads (`whole_model`, as the JAX
+trainer's `_eval_variables`).
 
 `training.async_checkpoint` writes both saves on a thread of their own
 (`train.checkpoint`): every save in flight is joined before a loader forks
@@ -65,8 +74,10 @@ from ..datasets.loader import Collator, DataLoader
 from ..engine import GPVEngine, resolve_device
 from ..infer.build import DTYPES, infer_devices
 from ..losses.criterion import LossConfig
-from ..models.gpv import build_gpv
+from ..models.gpv import build_gpv, shard_params
 from ..parallel import mesh as mesh_lib
+from ..parallel.sharding_rules import shard_state_dict
+from ..parallel.tensor_parallel import gather_shards
 from ..parallel.train_step import TrainState, make_train_step
 from ..text.vocab import AnswerVocab
 from ..text.wordpiece import WordPieceTokenizer
@@ -88,12 +99,14 @@ class Trainer:
                                                       False))
         tpu = cfg.get("tpu") or {}
         # join the group before any card is touched; the mesh's checks
-        # (data -1 or the world size, model 1) then hold for it
+        # (data x model the world size) then hold for it
         cluster = mesh_lib.initialize_distributed(tpu, cfg.get("device"))
         self.mesh = mesh_lib.mesh_from_config(tpu)
         self.world, self.rank = mesh_lib.world_size(), \
             mesh_lib.process_index()
         self.is_main = self.rank == 0
+        self.data_index = mesh_lib.groups().data_index
+        self.tp = mesh_lib.model_group()
         self.device = resolve_device(mesh_lib.rank_device(cluster,
                                                           cfg.get("device")))
         name = str(cfg.tpu.dtype)
@@ -120,12 +133,15 @@ class Trainer:
             max_target_boxes=int(cfg.model.get("max_target_boxes", 64)),
             answering_type=str(cfg.model.answering_type),
             dedup_queries=bool(cfg.training.get("query_dedup", False)))
-        if self.collator.dedup_queries and self.world > 1:
-            # ranks' unique-query counts differ (gpv_tpu trainer:106-113)
+        if self.collator.dedup_queries and self.mesh.data > 1:
+            # data ranks' unique-query counts differ (gpv_tpu trainer:
+            # 106-113); the ranks of one model group hold the same rows
             raise ValueError(
-                "training.query_dedup=true requires a single host process "
+                f"training.query_dedup=true with tpu.mesh.data="
+                f"{self.mesh.data}: dedup needs every rank to hold the same "
+                "rows, as the JAX trainer requires a single host process "
                 "(per-host unique-query buckets cannot be made consistent "
-                "across a sharded loader); unset it for multi-host runs")
+                "across a sharded loader); unset it or use tpu.mesh.data=1")
         grad_accum = int(cfg.training.get("grad_accum_steps", 1))
         freeze = bool(cfg.training.get("freeze", False))
         batch_size = int(cfg.training.batch_size)
@@ -138,7 +154,8 @@ class Trainer:
             s: DataLoader(d, self.collator, batch_size,
                           shuffle=(s == "train"),
                           num_workers=int(cfg.training.num_workers), seed=0,
-                          num_shards=self.world, shard_id=self.rank,
+                          num_shards=self.mesh.data,
+                          shard_id=self.data_index,
                           grad_accum=grad_accum if s == "train" else 1)
             for s, d in self.datasets.items()}
 
@@ -168,6 +185,19 @@ class Trainer:
                 "initialized detr subtree anyway", RuntimeWarning)
 
         self.model.to(self.device)
+        # rank 0 evaluates over its host's cards; the other ranks never
+        # predict, and hold their engine on their own card
+        devices = infer_devices(tpu.get("infer_data_parallel", 1),
+                                self.device)
+        self.engine = GPVEngine(self.model, self.vocab, self.tokenizer,
+                                dtype=self.dtype, devices=(
+                                    devices if self.is_main
+                                    else [self.device]))
+        self._whole = None  # rank 0's whole model for eval under TP
+        if self.tp is not None:
+            if self.is_main:
+                self._whole = build_gpv(cfg.model, len(self.vocab))
+            shard_params(self.model, self.tp)
         steps_per_epoch = max(len(self.loaders["train"]), 1)
         optimizer, scheduler = build_optimizer(
             cfg.training, steps_per_epoch, self.model,
@@ -178,14 +208,6 @@ class Trainer:
             float(cfg.training.clip_max_norm), grad_accum=grad_accum,
             freeze_detr=freeze, frozen_detr_paths=matched_detr,
             dtype=self.dtype)
-        # rank 0 evaluates over its host's cards; the other ranks never
-        # predict, and hold their engine on their own card
-        devices = infer_devices(tpu.get("infer_data_parallel", 1),
-                                self.device)
-        self.engine = GPVEngine(self.model, self.vocab, self.tokenizer,
-                                dtype=self.dtype, devices=(
-                                    devices if self.is_main
-                                    else [self.device]))
 
         self.step = 0
         self.last_epoch = -1
@@ -224,8 +246,11 @@ class Trainer:
     def _resume(self, ckpt_path):
         ckpt_path = Path(ckpt_path)
         if ckpt_path.suffix == ".pth":  # released reference weights
-            self.model.load_state_dict(load_torch_state_dict(ckpt_path),
-                                       strict=True)
+            sd = load_torch_state_dict(ckpt_path)
+            if self.tp is not None:
+                sd = shard_state_dict(sd, self.model.tp_rules.specs,
+                                      self.tp.rank, self.tp.size)
+            self.model.load_state_dict(sd, strict=True)
             return
         payload, meta = restore_checkpoint(ckpt_path.parent, ckpt_path.name)
         load_into(self.state, payload)
@@ -238,11 +263,28 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
-    def evaluate(self, subset: str = "val") -> Dict[str, float]:
+    def whole_model(self):
+        """The model whose weights the engine serves: the training model,
+        or under tensor parallelism, on rank 0, a whole model holding the
+        weights gathered over its model group (None on the other ranks).
+        Every rank calls it: the gather is a collective."""
+        if self.tp is None:
+            return self.model
+        if self.data_index != 0:
+            return None
+        whole = gather_shards(self.model.state_dict(),
+                              self.model.tp_rules.specs, self.tp)
+        if not self.is_main:
+            return None
+        self._whole.load_state_dict(whole, strict=True)
+        return self._whole
+
+    def evaluate(self, subset: str = "val", model=None) -> Dict[str, float]:
         """In-train eval over the configured tasks: metric dict with the
-        selection metric (reference :327-385)."""
+        selection metric (reference :327-385). `model`: `whole_model()`'s
+        (the training model when None, which must then be whole)."""
         cfg = self.cfg
-        self.engine.load_weights(self.model)
+        self.engine.load_weights(self._served(model))
         nvs = cfg.training.num_val_samples
         eval_bs = int(cfg.eval.batch_size)
         nw = int(cfg.eval.get("num_workers", 8))
@@ -287,11 +329,17 @@ class Trainer:
         results["model_selection_metric"] = selection
         return results
 
-    def visualize(self, subset: str, step: int):
+    def _served(self, model):
+        if model is None and self.tp is not None:
+            raise ValueError("the training model is sharded: pass "
+                             "whole_model()'s, gathered on every rank")
+        return self.model if model is None else model
+
+    def visualize(self, subset: str, step: int, model=None):
         """HTML dump of predictions against GT (reference visualize(),
-        :40-133)."""
+        :40-133); `model` as in `evaluate`."""
         cfg = self.cfg
-        self.engine.load_weights(self.model)
+        self.engine.load_weights(self._served(model))
         vis_dir = (Path(cfg.exp_dir) / "training_visualizations"
                    / f"{subset}_{step}")
         vis_dir.mkdir(parents=True, exist_ok=True)
@@ -334,9 +382,10 @@ class Trainer:
         """Rank 0 evaluates; every rank learns whether the selection
         metric improved and, if so, takes part in the save."""
         results = {}
+        whole = self.whole_model()  # every rank, before the rank-0 branch
         if self.is_main:
             wait_for_saves()  # before the eval's loader forks
-            results = self.evaluate("val")
+            results = self.evaluate("val", whole)
             if self.writer and not final:
                 for k, v in results.items():
                     self.writer.add_scalar(f"val/{k}", v, self.step)
@@ -365,9 +414,10 @@ class Trainer:
             if run_eval and (not launch
                              or cfg.training.get("run_eval_at_launch", True)):
                 self._eval_and_save(epoch)
-            if launch and cfg.training.get("run_vis_at_launch", True) \
-                    and self.is_main:
-                self.visualize("train", self.step)
+            if launch and cfg.training.get("run_vis_at_launch", True):
+                whole = self.whole_model()  # every rank
+                if self.is_main:
+                    self.visualize("train", self.step, whole)
             launch = False
             # the ranks meet after rank 0's eval and visualisation (the
             # JAX trainer's _sync): a gloo barrier whose timeout is
@@ -407,8 +457,9 @@ class Trainer:
                                                timer.steps_per_sec(),
                                                self.step)
                 if self.step % int(cfg.training.vis_step) == 0:
+                    whole = self.whole_model()  # every rank
                     if self.is_main:
-                        self.visualize("train", self.step)
+                        self.visualize("train", self.step, whole)
                     mesh_lib.host_barrier()
                 if self.step % int(cfg.training.ckpt_step) == 0:
                     self.save_last(epoch)  # a barrier follows the save

@@ -332,7 +332,10 @@ def test_mesh_checks():
     assert mesh.make_mesh(-1, 1, world=2).shape == {"data": 2, "model": 1}
     with pytest.raises(ValueError, match="process"):
         mesh.make_mesh(2, 1, world=1)
-    with pytest.raises(NotImplementedError, match="item 30"):
+    # tensor parallelism (item 30): data -1 is world // model
+    assert mesh.make_mesh(-1, 2, world=2).shape == {"data": 1, "model": 2}
+    assert mesh.make_mesh(-1, 2, world=4).shape == {"data": 2, "model": 2}
+    with pytest.raises(ValueError, match="multiple of 2 processes"):
         mesh.make_mesh(-1, 2, world=1)
 
 

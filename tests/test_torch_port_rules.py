@@ -103,6 +103,17 @@ def test_scan_covers_the_data_preparation_modules():
         assert f"gpv_tpu_torch/{mod}.py" in names, mod
 
 
+def test_scan_covers_the_tensor_parallel_modules():
+    """The scans above read the tensor-parallel modules, and the worker
+    of the TP tests imports no JAX either."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("parallel/sharding_rules", "parallel/tensor_parallel",
+                "parallel/mesh", "models/gpv"):
+        assert f"gpv_tpu_torch/{mod}.py" in names, mod
+    worker = ROOT / "tests" / "_torch_tp_worker.py"
+    assert not {n.split(".")[0] for n in _imports(worker)} & set(BANNED)
+
+
 def test_only_the_converter_imports_gpv_tpu():
     """Of the files outside gpv_tpu_torch/ and tests/ that import the
     port, only convert_orbax_checkpoint.py (run where JAX is installed)

@@ -333,7 +333,7 @@ def test_trainer_pretrained_detr_freeze_and_vocab_embed(fake_data,
 
 @pytest.mark.parametrize("override,exc,match", [
     ("tpu.mesh={data: 2, model: 1}", ValueError, "1 process"),
-    ("tpu.mesh={data: -1, model: 2}", NotImplementedError, "item 30"),
+    ("tpu.mesh={data: -1, model: 2}", ValueError, "multiple of 2 processes"),
     ("tpu.distributed.num_processes=2", None, None),
     ("tpu.remat=true", None, None),
     ("tpu.infer_data_parallel=2", ValueError, "local devices")], ids=[
@@ -343,11 +343,11 @@ def test_trainer_pretrained_detr_freeze_and_vocab_embed(fake_data,
     "tpu.remat=true-item 27", "tpu.infer_data_parallel=2-item 20"])
 def test_trainer_refuses_what_is_not_ported(fake_data, tmp_path, override,
                                             exc, match):
-    """Items 26, 27 and 20 are ported, so of the refusals this test held
-    only tensor parallelism (item 30) remains; the other cases hold what
-    the JAX trainer does instead: a data axis other than the processes
-    joined and more inference devices than the host has raise, a process
-    count without a coordinator address joins nothing (one process), and
+    """Items 26, 27, 20 and 30 are ported, so the cases hold what the JAX
+    trainer does instead: a data axis other than the processes joined, a
+    model axis (tensor parallelism) over one process, which needs two,
+    and more inference devices than the host has raise, a process count
+    without a coordinator address joins nothing (one process), and
     `tpu.remat` builds a rematerialising model."""
     cfg = _cfg(fake_data, tmp_path, override)
     if exc is not None:
