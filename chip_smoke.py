@@ -32,7 +32,10 @@ Phases, each printing one JSON line:
   e2e        the same weights in fp32 on the card (kernels) and on the CPU
              (plain versions), on 2 images: boxes, relevance, first-step
              logits, greedy tokens, and beam search with K=3 (sequences
-             equal, log-probs);
+             equal, log-probs); then the card's fp32 engine (TF32 off) on
+             the slice's batch: launches by variant (the fp32 tile and
+             decode kernels) as path_launches gives them, images/s, and a
+             profile (attention device ms by fp32 variant);
   serve      GPVServer over the bf16 engine (buckets 1/8/20, 2 workers):
              1000 requests from 40 closed-loop clients mixing greedy, beam
              K=3 and the classification mask; every request resolved, the
@@ -214,7 +217,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"  # the card; the ranks a phase spawns take theirs from it
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}  # dense tensor core
+# dense peaks: bf16 runs on the tensor cores; the fp32 kernels run with
+# TF32 off (the route holds the plain fp32 version to 1e-5), as fp32 FMAs
+# on the CUDA cores, whose peak is 67 TFLOP/s, not TF32's 495
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max(1, |plain| max)
 B, IMG_H, IMG_W, QUERY_TOKENS, VOCAB = 20, 480, 640, 12, 10000
 BEAM, E2E_BEAM = 5, 3
@@ -447,6 +453,14 @@ class Case(NamedTuple):
         Tq = 1 the decode kernel."""
         return "tile" if self.k2 or self.tq > 1 else "decode"
 
+    @property
+    def fp32_variant(self) -> str:
+        """The kernel an fp32 call takes, as the wrapper plans it."""
+        import torch
+        from gpv_tpu_torch.ops.attention import _plan
+        return _plan(torch.float32, self.tq, self.tk, self.dh,
+                     both=self.k2).variant
+
 
 def path_launches(path: str, steps: int, batch: int = B, beam: int = BEAM,
                   words: int = VOCAB) -> Counter:
@@ -551,23 +565,20 @@ def tp_forward_launches(batch: int = TP_FWD_B, steps: int = 19) -> Counter:
             3 * steps})
 
 
-def fp32_variants(counts: Counter) -> dict:
-    """`by_variant` of an fp32 run: every launch takes the fp32 kernel."""
-    return {w: {v: sum(vs.values()) if v == "fp32" else 0 for v in vs}
-            for w, vs in by_variant(counts).items()}
-
-
 def k1_cases() -> list:
     return [c for c in path_cases() if not c.k2]
 
 
-def by_variant(counts: Counter) -> dict:
+def by_variant(counts: Counter, dtype: str = "bfloat16") -> dict:
     """{Case: launches} -> launches by wrapper and kernel variant, in the
-    form the wrappers count them (bf16 calls: fp32 never)."""
-    out = {"fused_attention": {"tile": 0, "decode": 0, "fp32": 0},
-           "fused_biattention": {"tile": 0, "fp32": 0}}
+    form the wrappers count them, for a run in `dtype` (bf16 calls take
+    the tile and decode kernels, fp32 calls the variant `_plan` gives)."""
+    out = {"fused_attention": {"tile": 0, "decode": 0, "fp32_tile": 0,
+                               "fp32_decode": 0},
+           "fused_biattention": {"tile": 0, "fp32_tile": 0}}
     for c, n in counts.items():
-        out["fused_biattention" if c.k2 else "fused_attention"][c.variant] \
+        variant = c.variant if dtype == "bfloat16" else c.fp32_variant
+        out["fused_biattention" if c.k2 else "fused_attention"][variant] \
             += n
     return out
 
@@ -595,7 +606,8 @@ def _valid(kind, b, Tk, device, g):
 def _bound(bytes_moved: float, flops: float, dtype: str) -> dict:
     """The least time for the work: each input read once, each output
     written once, at the card's memory rate; the multiply-adds at the
-    tensor-core peak for the input type. The larger one bounds."""
+    peak the kernels of that type run at (PEAK_FLOPS). The larger one
+    bounds."""
     t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
     return {"bytes": bytes_moved, "flops": flops, "bytes_ms": t_bytes,
@@ -732,15 +744,22 @@ def _queries(n: int, rng):
     return out
 
 
-# the port's kernels by the name each __global__ function has in a trace,
-# most specific first: (variant key, name fragment)
-PORT_KERNELS = (("K2 tile", "gpv_attn_tile_bi_kernel"),
-                ("K1 tile", "gpv_attn_tile_kernel"),
-                ("K1 decode", "gpv_attn_decode_kernel"),
-                ("fp32", "gpv_attn_fp32"))
+# the port's kernels by the name each __global__ function has in a trace:
+# (key, name fragment, wrapper, variant)
+PORT_KERNELS = (
+    ("K2 tile", "gpv_attn_tile_bi_kernel", "fused_biattention", "tile"),
+    ("K1 tile", "gpv_attn_tile_kernel", "fused_attention", "tile"),
+    ("K1 decode", "gpv_attn_decode_kernel", "fused_attention", "decode"),
+    ("K2 fp32 tile", "gpv_attn_fp32_bi_kernel", "fused_biattention",
+     "fp32_tile"),
+    ("K1 fp32 tile", "gpv_attn_fp32_tile_kernel", "fused_attention",
+     "fp32_tile"),
+    ("K1 fp32 decode", "gpv_attn_fp32_decode_kernel", "fused_attention",
+     "fp32_decode"))
 
 
-def phase_profile(phase: str, call, counts: Counter) -> dict:
+def phase_profile(phase: str, call, counts: Counter,
+                  dtype: str = "bfloat16") -> dict:
     """torch.profiler over one `call()` (a predict or predict_beam): device
     time by kernel, the port's kernels by variant, and the share of the
     call's wall time in which the card ran no kernel. Fails unless the
@@ -766,8 +785,8 @@ def phase_profile(phase: str, call, counts: Counter) -> dict:
             wall_ms = 1e3 * (time.perf_counter() - t0)
         wrappers = _read_counts()[1]
         want = counts() if callable(counts) else counts
-        _check_counts(phase, wrappers, want)
-        rec = _profile_record(phase, prof, wall_ms, want)
+        _check_counts(phase, wrappers, want, dtype)
+        rec = _profile_record(phase, prof, wall_ms, want, dtype)
         rec["attempts"] = attempt
         if rec.pop("launches_match") or callable(counts):
             break
@@ -784,7 +803,8 @@ def phase_profile(phase: str, call, counts: Counter) -> dict:
     return rec
 
 
-def _profile_record(phase: str, prof, wall_ms: float, counts) -> dict:
+def _profile_record(phase: str, prof, wall_ms: float, counts,
+                    dtype: str = "bfloat16") -> dict:
     rows = sorted(_device_events(prof), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     groups = (("port_attention_kernels", ("gpv_attn_",)),
@@ -793,21 +813,22 @@ def _profile_record(phase: str, prof, wall_ms: float, counts) -> dict:
               ("memcpy", ("memcpy",)))
     by_group = {g: 0.0 for g, _ in groups}
     by_group["other"] = 0.0
-    port = {key: {"launches": 0, "device_ms": 0.0} for key, _ in PORT_KERNELS}
+    port = {key: {"launches": 0, "device_ms": 0.0}
+            for key, *_ in PORT_KERNELS}
     for ms, n, name in rows:
         low = name.lower()
         group = next((g for g, words in groups
                       if any(w in low for w in words)), "other")
         by_group[group] += ms
-        key = next((k for k, frag in PORT_KERNELS if frag in name), None)
+        key = next((k for k, frag, *_ in PORT_KERNELS if frag in name),
+                   None)
         if key is not None:
             port[key]["launches"] += n
             port[key]["device_ms"] += ms
     got = {k: v["launches"] for k, v in port.items()}
-    v = by_variant(counts)
-    want = {"K2 tile": v["fused_biattention"]["tile"],
-            "K1 tile": v["fused_attention"]["tile"],
-            "K1 decode": v["fused_attention"]["decode"], "fp32": 0}
+    v = by_variant(counts, dtype)
+    want = {key: v[wrapper][variant]
+            for key, _, wrapper, variant in PORT_KERNELS}
     return {"phase": phase, "launches_match": got == want,
             "profiled_launches": got, "expected_launches": want,
             "port_kernel_names": {name[:120]: n for _, n, name in rows
@@ -834,10 +855,11 @@ def _read_counts():
             {w.__name__: dict(w.variant_launches) for w in wrappers})
 
 
-def _check_counts(phase: str, got: dict, counts: Counter) -> None:
+def _check_counts(phase: str, got: dict, counts: Counter,
+                  dtype: str = "bfloat16") -> None:
     """Fails unless the wrappers' counts by variant (`_read_counts`) are
-    what `counts` ({Case: launches}) gives."""
-    want = by_variant(counts)
+    what `counts` ({Case: launches}) gives for a run in `dtype`."""
+    want = by_variant(counts, dtype)
     if got != want:
         fail(f"{phase}: launches by variant {got} != expected {want}")
 
@@ -974,7 +996,10 @@ def phase_beam(eng):
         lambda: eng.predict_beam(images, queries, beam_size=BEAM), counts)
 
 
-def phase_e2e(vocab_path: Path) -> dict:
+def phase_e2e(vocab_path: Path):
+    """fp32 card against CPU, then the card's fp32 engine timed
+    (`_fp32_predict`). Returns the record and the timed predict's
+    {Case: launches}."""
     import torch
     from gpv_tpu_torch.decode.beam import beam_decode
     from gpv_tpu_torch.decode.greedy import greedy_decode
@@ -1006,6 +1031,8 @@ def phase_e2e(vocab_path: Path) -> dict:
             [..., 0].cpu(),
             "logits0": logits[:, 0].cpu(), "tokens": tokens.cpu(),
             "beam_log_prob": logp.cpu(), "beam_seqs": seqs.cpu()}
+        if device == "cuda":
+            timed, counts = _fp32_predict(eng)
         del eng
     c, p = outs["cuda"], outs["cpu"]
     rec = {"phase": "e2e", "images": 2, "dtype": "float32",
@@ -1022,7 +1049,47 @@ def phase_e2e(vocab_path: Path) -> dict:
         fail(f"e2e beam sequences differ, card {c['beam_seqs'].tolist()} "
              f"cpu {p['beam_seqs'].tolist()}")
     rec["beam_seqs_equal"] = True
-    return rec
+    rec["fp32_predict"] = timed
+    return rec, counts
+
+
+def _fp32_predict(eng):
+    """`predict` of the fp32 engine (TF32 off) on the slice's batch:
+    launches by variant around one call against `path_launches`, images/s,
+    and a profile of one more call (the fp32 kernels' device ms by
+    variant, idle share). Returns the record and {Case: launches}."""
+    import torch
+
+    images, queries = _batch(0, B)
+    eng.predict(images, queries)  # warm-up (cuDNN plans, allocator)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = eng.predict(images, queries)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches, var = _read_counts()
+    steps = eng.last_decode_steps
+    counts = path_launches("predict", steps)
+    _check_counts("e2e fp32 predict", var, counts, "float32")
+    if len(results) != B:
+        fail(f"e2e fp32 predict: {len(results)} results for {B} images")
+    _check_boxes(results)
+    prof = phase_profile("e2e fp32 profile",
+                         lambda: eng.predict(images, queries), counts,
+                         "float32")
+    fp32 = {k: v for k, v in prof["port_kernels"].items() if "fp32" in k}
+    return {"batch": B, "dtype": "float32", "decode_steps": steps,
+            "launches": launches, "launches_by_variant": var,
+            "measured_call_s": call_s,
+            "images_per_s": _images_per_s(
+                lambda: eng.predict(images, queries), 3),
+            "attention_by_variant": fp32,
+            "attention_device_ms": sum(v["device_ms"] for v in fp32.values()),
+            "profile": {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "ms_by_group", "profiled_launches", "expected_launches")}}, \
+        counts
 
 
 class _Recorder:
@@ -2328,8 +2395,7 @@ def phase_train_e2e(vocab_path: Path, tmp: Path, batch: dict) -> dict:
     c, p = out["cuda"], out["cpu"]
     rec = {"phase": "train_e2e", "batch": E2E_TRAIN_B, "dtype": "float32",
            "losses_cuda": c["losses"], "launches_cuda": c["launches"]}
-    want = by_variant(train_step_launches(E2E_TRAIN_B, False))
-    want["fused_attention"]["fp32"] = want["fused_attention"].pop("tile")
+    want = by_variant(train_step_launches(E2E_TRAIN_B, False), "float32")
     want["fused_attention"]["tile"] = 0
     if c["launches"] != want:
         fail(f"train_e2e: launches {c['launches']} != {want}")
@@ -3162,8 +3228,7 @@ def phase_ddp(vocab_path: Path, tmp: Path, batch: dict, checked: set):
         fail(f"ddp (a): one rank on its own card joined over {a['backend']}")
     if not (a["loss_max_rel_err"] <= 1e-5 and a["param_max_abs_err"] <= 1e-5):
         fail(f"ddp (a): DDP step off the plain step: {a}")
-    want = by_variant(train_step_launches(DDP_B, False))
-    want["fused_attention"]["fp32"] = want["fused_attention"].pop("tile")
+    want = by_variant(train_step_launches(DDP_B, False), "float32")
     want["fused_attention"]["tile"] = 0
     if a_var != want:
         fail(f"ddp (a): launches {a_var} != {want}")
@@ -3180,8 +3245,7 @@ def phase_ddp(vocab_path: Path, tmp: Path, batch: dict, checked: set):
     ranks = spawn_ranks("step", d)
     rec["ranks_s"] = time.perf_counter() - t0
     half = DDP_B // 2
-    want = by_variant(train_step_launches(half, False))
-    want["fused_attention"]["fp32"] = want["fused_attention"].pop("tile")
+    want = by_variant(train_step_launches(half, False), "float32")
     want["fused_attention"]["tile"] = 0
     timed_counts = Counter({c: DDP_TIMED_STEPS * n for c, n in
                             train_step_launches(TRAIN_B // 2,
@@ -3806,8 +3870,9 @@ def phase_tp(vocab_path: Path, tmp: Path, batch: dict, checked: set,
         ranks[data] = spawn_ranks("tp", d, world=data * TP)
         rec[f"ranks_{data}x{TP}_s"] = time.perf_counter() - t0
     u = len(rows["query_uniq_ids"])
-    want = {1: fp32_variants(tp_step_launches(u, True)),
-            2: fp32_variants(tp_step_launches(DDP_B // 2, False))}
+    want = {1: by_variant(tp_step_launches(u, True), "float32"),
+            2: by_variant(tp_step_launches(DDP_B // 2, False),
+                          "float32")}
     rec["a"] = {}
     for data, rs in ranks.items():
         for r in rs:
@@ -3871,10 +3936,8 @@ def phase_tp(vocab_path: Path, tmp: Path, batch: dict, checked: set,
             fail(f"tp (b): the ranks' {key} differ")
     fwd_counts = tp_forward_launches(steps=fwd[0]["steps"])
     for r in r12:
-        if r["b"]["launches_by_variant"] != fp32_variants(fwd_counts):
-            fail(f"tp (b): rank {r['rank']} launches "
-                 f"{r['b']['launches_by_variant']} != "
-                 f"{fp32_variants(fwd_counts)}")
+        _check_counts(f"tp (b) rank {r['rank']}",
+                      r["b"]["launches_by_variant"], fwd_counts, "float32")
         _check_counts(f"tp (b) bf16 rank {r['rank']}",
                       r["b_bf16"]["launches_by_variant"], fwd_counts)
     rec["b"] = b
@@ -4172,13 +4235,14 @@ def phase_stem_s2d(eng, vocab_path: Path, checked: set):
     return rec, ({"launches_by_variant": var}, counts)
 
 
-def kernels_line(kern: dict, runs: dict) -> dict:
+def kernels_line(kern: dict, runs: dict, fp32_runs: dict) -> dict:
     """One entry per kernel of the paths. Its top-level numbers are one
-    predict's (the slice run): each bf16 shape's number times its
-    launches in that run, summed over the shapes that kernel serves;
-    `paths` holds the same for each measured run (predict, predict_beam,
-    embed_vocab, the whole serve run, the eval phase's gated runs). runs:
-    path -> (its phase record, {Case: launches})."""
+    predict's (the slice run in bf16, `e2e`'s timed predict in fp32): each
+    shape's number in that dtype times its launches in that run, summed
+    over the shapes that kernel serves; `paths` holds the same for each
+    measured run (predict, predict_beam, embed_vocab, the whole serve run,
+    the eval phase's gated runs). runs / fp32_runs: path -> (its phase
+    record, {Case: launches}) of the bf16 / fp32 runs."""
     keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
             "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
 
@@ -4195,6 +4259,9 @@ def kernels_line(kern: dict, runs: dict) -> dict:
 
     bf16 = [r for r in kern["K1"] if r["dtype"] == "bfloat16"]
     k2_bf16 = [r for r in kern["K2"] if r["dtype"] == "bfloat16"]
+    fp32 = [r for r in kern["K1"] if r["dtype"] == "float32"]
+    k2_fp32 = [r for r in kern["K2"] if r["dtype"] == "float32"]
+
     def k2_call(recs, counts):
         out = per_call(recs, counts)
         out["library_ms"] = out["library_device_ms"] = None  # no one call
@@ -4204,26 +4271,38 @@ def kernels_line(kern: dict, runs: dict) -> dict:
         return out
 
     entries = []
-    for name, source, replaces, wrapper, variant, recs, call in (
+    for name, source, replaces, wrapper, variant, recs, call, path_runs in (
             ("fused_attention[tile]", "attention_tile.cu", ":55",
              "fused_attention", "tile",
-             [r for r in bf16 if r["variant"] == "tile"], per_call),
+             [r for r in bf16 if r["variant"] == "tile"], per_call, runs),
             ("fused_attention[decode]", "attention_decode.cu", ":55",
              "fused_attention", "decode",
-             [r for r in bf16 if r["variant"] == "decode"], per_call),
+             [r for r in bf16 if r["variant"] == "decode"], per_call, runs),
             ("fused_biattention[tile]", "attention_tile.cu", ":147",
-             "fused_biattention", "tile", k2_bf16, k2_call)):
+             "fused_biattention", "tile", k2_bf16, k2_call, runs),
+            ("fused_attention[fp32_tile]", "attention.cu", ":55",
+             "fused_attention", "fp32_tile",
+             [r for r in fp32 if r["variant"] == "fp32_tile"], per_call,
+             fp32_runs),
+            ("fused_attention[fp32_decode]", "attention.cu", ":55",
+             "fused_attention", "fp32_decode",
+             [r for r in fp32 if r["variant"] == "fp32_decode"], per_call,
+             fp32_runs),
+            ("fused_biattention[fp32_tile]", "attention.cu", ":147",
+             "fused_biattention", "fp32_tile", k2_fp32, k2_call,
+             fp32_runs)):
         paths = {}
-        for path, (rec, counts) in runs.items():
+        for path, (rec, counts) in path_runs.items():
             n = rec["launches_by_variant"][wrapper][variant]
             paths[path] = {"launches": n, **call(recs, counts)}
         sl = paths["predict"]
+        dtype = "bf16" if path_runs is runs else "fp32"
         entries.append({"name": name, "route": "cuda",
                         "source": f"gpv_tpu_torch/csrc/{source}",
                         "replaces": f"gpv_tpu/ops/attention.py{replaces}",
-                        **sl, "per": f"one predict: B={B}, bf16, "
-                        f"{runs['predict'][0]['decode_steps']} decode steps",
-                        "paths": paths})
+                        **sl, "per": f"one predict: B={B}, {dtype}, "
+                        f"{path_runs['predict'][0]['decode_steps']} decode "
+                        "steps", "paths": paths})
     return {"kernels": entries}
 
 
@@ -4259,7 +4338,8 @@ def main() -> None:
         eng = make_engine(vocab_path, "bfloat16", "cuda")
         sl, sl_counts, prof = phase_slice(eng, time.perf_counter() - t0)
         beam, beam_counts, prof_beam = phase_beam(eng)
-        for rec in (sl, prof, beam, prof_beam, phase_e2e(vocab_path)):
+        e2e, e2e_counts = phase_e2e(vocab_path)
+        for rec in (sl, prof, beam, prof_beam, e2e):
             records.append(rec)
             emit(rec)
         checked = {r["case"] for r in kern["K1"] + kern["K2"]}
@@ -4315,7 +4395,8 @@ def main() -> None:
         "data_prep_train": (prep["train"], prep_train),
         "data_prep_predict": (prep["predict"], prep_pred),
         "infer_dp": (idp["bf16"], idp_counts), "stem_s2d": st_run,
-        "remat": (rm["remat"], rm_counts), **ddp_runs, **tp_runs})
+        "remat": (rm["remat"], rm_counts), **ddp_runs, **tp_runs},
+        {"predict": (e2e["fp32_predict"], e2e_counts)})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

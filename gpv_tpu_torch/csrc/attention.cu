@@ -6,245 +6,664 @@
 //   gpv_attn_fp32_bi <- fused_biattention (_make_biattn_kernel)
 //
 // What it computes, per (batch, head): S = (q * 1/sqrt(Dh)) . k^T in fp32,
-// plus -1e9 on invalid keys and -1e9 above the diagonal when causal (added
-// as one fp32 mask, like the TPU kernel's materialised mask); softmax with
-// fp32 statistics; P . V accumulated in fp32. Every product runs in full
-// fp32 on the CUDA cores, so the kernel agrees with the plain fp32 version
-// to 1e-5 (tensor-core TF32 would not). Layout (B, T, H, Dh), contiguous.
+// plus one fp32 mask term per score (-1e9 for an invalid key, -1e9 above
+// the diagonal when causal, summed before it meets the score, as the TPU
+// kernel's materialised mask; -inf for the key slots past Tk, which take
+// no part), so a fully masked row gives V's mean; softmax with fp32
+// statistics; P . V accumulated in fp32. Every product is an fp32 FMA on
+// the CUDA cores: the route exists to hold the plain fp32 version to 1e-5,
+// which TF32 would not. Layout (B, T, H, Dh), contiguous, 16-byte-aligned
+// bases, any Dh up to 128 (a Dh that is not a multiple of 4 is copied
+// element by element).
 //
-// What bounds it on the card: at the main path's shapes (Tk <= 300,
-// Dh <= 96) each output row reads O(Tk * Dh) bytes of K/V and does
-// O(Tk * Dh) multiply-adds, so the unfused version is bound by moving the
-// (B, H, Tq, Tk) score matrix through device memory. This design never
-// writes scores out: one block owns 16 query rows of one (batch, head),
-// streams K/V through shared memory in tiles of 32 keys and keeps an
-// online (running-max) softmax in registers, so device memory sees q and
-// out once, and k and v once per 16-row query block (mostly from L2).
+// What bounds it on the card. With TF32 off the products run at the CUDA
+// cores' 67 TFLOP/s, not the tensor cores' 495, so the line between bytes
+// and operations moves: at the DETR encoder's 300 x 300 (Dh 32, B 20) the
+// 1.84 GFLOP take 27.5 us against 7.3 us for the bytes, and every shape
+// with Tq, Tk >= ~100 is bound by operations. One-row calls (the decode
+// step: Tk x Dh multiply-adds on 8 Tk Dh bytes of K and V) stay bound by
+// bytes. What limits this design is the shared memory feeding the FMAs:
+// each thread reads 12 float4 per 128 FMAs in S and 8 per 64 in P.V at
+// Dh 32, and one block of 4 warps already takes most of what an SM's
+// shared memory delivers (measured in PERF.md). Two variants, chosen by
+// the wrapper's `_plan`:
+//
+// tile (every K2 call, and K1 with Tq > 8 unless Tq <= 32 and Tk > 64): a
+// block of 128 threads owns 64 query rows (32 when Tq <= 32, and for K2)
+// of one (batch, head), so K and V are read ceil(Tq/64) times per (b, h),
+// 5 at the DETR encoder.
+// - Q is copied with cp.async and scaled once in shared memory. K and V
+//   stream in 64-key tiles, double buffered with 16-byte cp.async: tile
+//   t+1's copy flies while tile t is multiplied. Each tile's key-validity
+//   bytes are read into a register one tile ahead.
+// - S = Q.K^T is a register-blocked outer product: 8 lanes share a row
+//   group and each thread owns 4 (2) rows x 8 keys of scores; per 4 dims
+//   it reads its rows and keys as float4 from rows padded to an odd
+//   number of 16-byte chunks (conflict-free). A tile of at most 32 keys
+//   in range skips the upper half of its key columns.
+// - Row max and sum are reduced among the 8 lanes of a row group
+//   (shuffles); P goes to shared memory once, read back by the same warp.
+// - O += P.V is a second register-blocked product: each thread owns its
+//   rows x 4-dim chunks of O, in registers across the whole key loop.
+//
+// decode (Tq <= 8, the decode step and the beam's K rows; and Tq <= 32
+// over Tk > 64, the teacher-forced cross-attention): one block per
+// (batch, head, 8 query rows), 1-4 warps that split the keys a lane a
+// key, with no 16-row slot. Each warp copies its keys' K and V rows with
+// 16-byte cp.async (all of them issued at once: Tk <= 128 is one pass),
+// scores them against q broadcast from shared memory, and the warps merge
+// their (max, sum, acc) partials through shared memory (each in its own
+// K rows, so that two blocks of Dh 96 fit an SM).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-#include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_common.cuh"
+
+namespace gpv_attn {
 namespace {
 
-constexpr int kWarps = 4;                  // warps per block
-constexpr int kRows = 4;                   // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;    // query rows per block
-constexpr int kBlockK = 32;                // keys per tile: one per lane
-constexpr int kThreads = kWarps * 32;
-constexpr float kNeg = -1e9f;              // the TPU kernel's mask value
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
+constexpr int kThreads = 128;     // tile: 4 warps
+constexpr int kKeys = 64;         // tile: keys per shared-memory tile
+constexpr int kGroups = 16;       // tile: row groups of 8 lanes
+constexpr int kPStride = 72;      // floats per row of P: conflict-free
+constexpr int kDecodeRows = 8;    // decode: query rows a block at most
+constexpr int kDecodeWarps = 4;
+constexpr int kWarpKeys = 32;     // decode: keys a warp scores at once
 
 // One attention problem: queries (B, Tq, H, Dh) over keys/values
 // (B, Tk, H, Dh), optional key validity (B, Tk) and causal flag.
 struct Problem {
-  const void* q;
-  const void* k;
-  const void* v;
+  const float* q;
+  const float* k;
+  const float* v;
   const unsigned char* key_valid;  // null: every key valid
-  void* out;
-  int Tq, Tk, H, Dh, causal;
-  float scale;
+  float* out;
+  int Tq, Tk, causal;
 };
 
-// One block: kBlockQ query rows [q0, q0 + kBlockQ) of (batch b, head h).
-// MAXD = 32 * DPL is the head-dim capacity; lane owns output dims
-// lane, lane + 32, ... (< Dh), so Dh need not be a power of two.
-template <int DPL>
-__device__ void attend_rows(const Problem& p, int b, int h, int q0) {
-  constexpr int MAXD = 32 * DPL;
-  constexpr int KST = MAXD + 1;  // odd row stride: lane j reads row j
-  __shared__ __align__(16) float q_s[kBlockQ * MAXD];
-  __shared__ float k_s[kBlockK * KST];
-  __shared__ float v_s[kBlockK * MAXD];
+// floats in one padded shared-memory row of d values: an odd number of
+// 16-byte chunks, so 8 rows read at one column are 8 bank groups
+__host__ __device__ constexpr int row_floats(int d) {
+  return (((d + 3) / 4) | 1) * 4;
+}
+__host__ __device__ constexpr int dims4(int d) { return (d + 3) / 4 * 4; }
 
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-  float* out = static_cast<float*>(p.out);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Dh = p.Dh, H = p.H;
-  const int dh4 = (Dh + 3) & ~3;  // zero-padded to a multiple of 4 (<= MAXD)
+// Shared memory of a tile block owning `rows` query rows: the key tile's
+// mask, Q, K and V in two stages, and P.
+constexpr int tile_smem_bytes(int Dh, int rows) {
+  return 4 * (kKeys + rows * row_floats(Dh) +
+              2 * 2 * kKeys * row_floats(Dh) + rows * kPStride);
+}
+// Shared memory of a decode block: q (`rows` rows) and each warp's K and V
+// rows; a warp's (max, sum, acc) per row go into its own K rows at the end.
+constexpr int decode_smem_bytes(int Dh, int rows, int warps) {
+  return 4 * (rows * dims4(Dh) + warps * 2 * kWarpKeys * row_floats(Dh));
+}
 
-  // queries of this block, pre-scaled in fp32 as the TPU kernel does
-  for (int i = tid; i < kBlockQ * MAXD; i += kThreads) {
-    const int r = i / MAXD, d = i - r * MAXD, t = q0 + r;
-    float x = 0.f;
-    if (t < p.Tq && d < Dh)
-      x = q[((size_t)(b * p.Tq + t) * H + h) * Dh + d] * p.scale;
-    q_s[i] = x;
-  }
+// 4-byte global -> shared copy (cp.async takes 4 bytes only through L1);
+// src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
 
-  float m[kRows], l[kRows], acc[kRows][DPL];
+// Rows [r0, r0 + n) of `nsrc` tensors (row stride rs floats; rows past
+// `limit` read as zeros) into shared rows of `stride` floats, ceil(Dh/4)*4
+// floats each, zero past Dh: 16-byte copies when Dh is a multiple of 4,
+// else 4-byte ones. Threads `tid` of `count` share the copy; each steps
+// through (row, column) by `count` with a carry instead of a division.
+template <int NSRC>
+__device__ __forceinline__ void copy_rows(float* const (&dst)[NSRC],
+                                          const float* const (&src)[NSRC],
+                                          int r0, int n, int limit, int Dh,
+                                          size_t rs, int stride, int tid,
+                                          int count) {
+  const bool vec = (Dh & 3) == 0;
+  const int width = vec ? Dh >> 2 : dims4(Dh);  // copies per row
+  const int unit = vec ? 4 : 1;                 // floats per copy
+  int j = tid / width, c = tid - j * width;
+  const int dj = count / width, dc = count - dj * width;
+  for (; j < n; j += dj, c += dc) {
+    if (c >= width) {
+      c -= width;
+      ++j;
+      if (j >= n) break;
+    }
+    const int d = c * unit;
+    const bool ok = r0 + j < limit && d < Dh;
+    const size_t off = ok ? (size_t)(r0 + j) * rs + d : 0;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+    for (int x = 0; x < NSRC; ++x) {
+      if (vec)
+        cp_async16(dst[x] + j * stride + d, src[x] + off, ok ? 16 : 0);
+      else
+        cp_async4(dst[x] + j * stride + d, src[x] + off, ok ? 4 : 0);
+    }
+  }
+}
+
+// The additive mask term of key `key` from its validity byte (`vb`, read
+// earlier so that its latency hides under other work): -inf past Tk,
+// -1e9 for an invalid key, else 0.
+__device__ __forceinline__ float key_term(int key, int Tk, int vb) {
+  return key >= Tk ? -INFINITY : (vb ? 0.f : kNeg);
+}
+
+// ----------------------------------------------------------------- tile
+
+// s[r][j] += Q row (g + 16r) . K row (kg + 8j), j < JN, over nch 4-dim
+// chunks: per chunk R + JN float4 loads for 4 R JN FMAs.
+template <int R, int JN>
+__device__ __forceinline__ void scores(float (&s)[R][8], const float* q_s,
+                                       const float* ks, int g, int kg, int RF,
+                                       int nch) {
+#pragma unroll 2
+  for (int c = 0; c < nch; ++c) {
+    float4 qv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      qv[r] =
+          *reinterpret_cast<const float4*>(q_s + (g + 16 * r) * RF + c * 4);
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const float4 kv =
+          *reinterpret_cast<const float4*>(ks + (kg + 8 * j) * RF + c * 4);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r][j] = fmaf(qv[r].x, kv.x, s[r][j]);
+        s[r][j] = fmaf(qv[r].y, kv.y, s[r][j]);
+        s[r][j] = fmaf(qv[r].z, kv.z, s[r][j]);
+        s[r][j] = fmaf(qv[r].w, kv.w, s[r][j]);
+      }
+    }
+  }
+}
+
+// One block: rows [q0, q0 + 16R) of (batch b, head h). Thread t belongs to
+// row group g = t / 8 (rows g + 16r, r < R) and owns keys kg + 8j (j < 8)
+// of each tile in S, and 4-dim chunks kg + 8i (i < DPT) of its rows of O,
+// kg = t % 8.
+template <int R, int DPT>
+__device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
+                          int b, int h, int q0, float* smem) {
+  constexpr int BQ = kGroups * R;
+  const int RF = row_floats(Dh), nch = (Dh + 3) >> 2;
+  float* mask_s = smem;                    // [kKeys]
+  float* q_s = mask_s + kKeys;             // [BQ][RF]
+  float* kv_s = q_s + BQ * RF;             // [2 stages][K, V][kKeys][RF]
+  float* p_s = kv_s + 4 * kKeys * RF;      // [BQ][kPStride]
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = (tid >> 5) * 4 + (lane >> 3), kg = lane & 7;
+  const size_t rs = (size_t)H * Dh;  // floats between two rows of (b, h)
+  const float* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh;
+  const float* kgl = p.k + ((size_t)b * p.Tk * H + h) * Dh;
+  const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh;
+  const unsigned char* valid =
+      p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
+  const int ntiles = (p.Tk + kKeys - 1) / kKeys;
+
+  // the key tile's copies, and its validity bytes read into a register
+  // (stored at the next iteration's top, after this tile's arithmetic)
+  auto issue = [&](int t) {
+    float* ks = kv_s + (t & 1) * 2 * kKeys * RF;
+    copy_rows<2>({ks, ks + kKeys * RF}, {kgl, vgl}, t * kKeys, kKeys, p.Tk,
+                 Dh, rs, RF, tid, kThreads);
+    const int key = t * kKeys + tid;
+    return tid < kKeys && key < p.Tk && valid ? (int)valid[key] : 1;
+  };
+  // Q raw (scaled in place once it lands) and key tile 0: one group
+  copy_rows<1>({q_s}, {qg}, q0, BQ, p.Tq, Dh, rs, RF, tid, kThreads);
+  int vb = issue(0);
+  cp_async_commit();
+
+  float m[R], l[R], o[R][DPT][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < DPT; ++i)
+      o[r][i][0] = o[r][i][1] = o[r][i][2] = o[r][i][3] = 0.f;
   }
-  const int row0 = q0 + warp * kRows;
 
-  for (int k0 = 0; k0 < p.Tk; k0 += kBlockK) {
-    __syncthreads();  // previous tile fully read (and q_s written)
-    for (int i = tid; i < kBlockK * MAXD; i += kThreads) {
-      const int j = i / MAXD, d = i - j * MAXD, key = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < p.Tk && d < Dh) {
-        const size_t off = ((size_t)(b * p.Tk + key) * H + h) * Dh + d;
-        kx = k[off];
-        vx = v[off];
-      }
-      k_s[j * KST + d] = kx;
-      v_s[j * MAXD + d] = vx;
+  for (int t = 0; t < ntiles; ++t) {
+    __syncthreads();  // every thread is done with tile t - 1 (stage, mask, P)
+    if (tid < kKeys) mask_s[tid] = key_term(t * kKeys + tid, p.Tk, vb);
+    if (t + 1 < ntiles) {
+      vb = issue(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-
-    const int key = k0 + lane;
-    const bool in_range = key < p.Tk;
-    const int nk = min(kBlockK, p.Tk - k0);
-    const bool key_ok =
-        !in_range || p.key_valid == nullptr || p.key_valid[b * p.Tk + key];
-
-    // scores of this lane's key against the warp's rows
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* krow = k_s + lane * KST;
-    const float* qrow = q_s + warp * kRows * MAXD;
-    for (int d = 0; d < dh4; d += 4) {
-      const float k0v = krow[d], k1v = krow[d + 1], k2v = krow[d + 2],
-                  k3v = krow[d + 3];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + r * MAXD + d);
-        s[r] = fmaf(qv.x, k0v, s[r]);
-        s[r] = fmaf(qv.y, k1v, s[r]);
-        s[r] = fmaf(qv.z, k2v, s[r]);
-        s[r] = fmaf(qv.w, k3v, s[r]);
-      }
+    __syncthreads();  // tile t (and Q) landed for every thread
+    if (t == 0) {     // Q scaled in fp32 as the TPU kernel does
+      for (int i = tid; i < BQ * RF; i += kThreads) q_s[i] *= scale;
+      __syncthreads();
     }
 
-    float pr[kRows];
+    const int k0 = t * kKeys;
+    const float* ks = kv_s + (t & 1) * 2 * kKeys * RF;
+    const float* vs = ks + kKeys * RF;
+    const float* mk = mask_s;
+    const int nk = min(kKeys, p.Tk - k0);
+
+    // S = Q.K^T: R rows x 8 keys a thread, 4 dims at a time; a tile of at
+    // most 32 keys in range skips the upper 4 key columns (their slots
+    // stay 0 and take -inf from the mask)
+    float s[R][8];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int t = row0 + r;
-      float sc = -INFINITY;  // keys past Tk take no part
-      if (in_range) {
-        float mask = 0.f;  // causal + key validity, one fp32 sum
-        if (p.causal && key > t) mask += kNeg;
-        if (!key_ok) mask += kNeg;
-        sc = s[r] + mask;
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
+    if (nk > 32)
+      scores<R, 8>(s, q_s, ks, g, kg, RF, nch);
+    else
+      scores<R, 4>(s, q_s, ks, g, kg, RF, nch);
+
+    // online softmax: the 8 lanes of a row group hold its 64 scores
+    float mk8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mk8[j] = mk[kg + 8 * j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = q0 + g + 16 * r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float add = mk8[j];  // key validity + causal, one fp32 sum
+        if (p.causal && k0 + kg + 8 * j > row) add += kNeg;
+        s[r][j] += add;
+        mx = fmaxf(mx, s[r][j]);
       }
-      const float m_new = fmaxf(m[r], warp_max(sc));
-      const float alpha = expf(m[r] - m_new);
-      const float e = in_range ? expf(sc - m_new) : 0.f;
-      l[r] = l[r] * alpha + e;
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+      const float m_new = fmaxf(m[r], mx);  // finite: key k0 is in range
+      const float alpha = ex2((m[r] - m_new) * kLog2e);
       m[r] = m_new;
+      float sum = 0.f;
+      float* prow = p_s + (g + 16 * r) * kPStride + kg;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      pr[r] = e;
+      for (int j = 0; j < 8; ++j) {
+        const float e = ex2((s[r][j] - m_new) * kLog2e);
+        sum += e;
+        prow[8 * j] = e;
+      }
+      l[r] = l[r] * alpha + sum;  // this thread's share; summed at the end
+#pragma unroll
+      for (int i = 0; i < DPT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[r][i][e] *= alpha;
     }
 
-    for (int j = 0; j < nk; ++j) {
-      const float* vrow = v_s + j * MAXD + lane;
-      float vv[DPL];
+    __syncwarp();  // P's rows of this warp are written by this warp only
+
+    // O += P.V over the keys in range (P is 0 and V zero past Tk)
+    const int nk4 = (nk + 3) & ~3;
+#pragma unroll 2
+    for (int j = 0; j < nk4; j += 4) {
+      float4 pv[R];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) vv[i] = vrow[32 * i];
+      for (int r = 0; r < R; ++r)
+        pv[r] = *reinterpret_cast<const float4*>(p_s + (g + 16 * r) *
+                                                 kPStride + j);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(kFull, pr[r], j);
+      for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pj, vv[i], acc[r][i]);
+        for (int i = 0; i < DPT; ++i) {
+          const int c = kg + 8 * i;
+          if (c < nch) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                vs + (j + jj) * RF + c * 4);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float pj = jj == 0   ? pv[r].x
+                               : jj == 1 ? pv[r].y
+                               : jj == 2 ? pv[r].z
+                                         : pv[r].w;
+              o[r][i][0] = fmaf(pj, vv.x, o[r][i][0]);
+              o[r][i][1] = fmaf(pj, vv.y, o[r][i][1]);
+              o[r][i][2] = fmaf(pj, vv.z, o[r][i][2]);
+              o[r][i][3] = fmaf(pj, vv.w, o[r][i][3]);
+            }
+          }
+        }
       }
     }
   }
 
+  float* og = p.out + ((size_t)b * p.Tq * H + h) * Dh;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float denom = warp_sum(l[r]);
-    const int t = row0 + r;
+  for (int r = 0; r < R; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(kFull, den, 1);
+    den += __shfl_xor_sync(kFull, den, 2);
+    den += __shfl_xor_sync(kFull, den, 4);
+    const int t = q0 + g + 16 * r;
     if (t >= p.Tq) continue;
-    float* orow = out + ((size_t)(b * p.Tq + t) * H + h) * Dh;
+    float* orow = og + (size_t)t * rs;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < Dh) orow[d] = acc[r][i] / denom;
+    for (int i = 0; i < DPT; ++i) {
+      const int c = kg + 8 * i;
+      if (c >= nch) continue;
+      const float4 x = make_float4(o[r][i][0] / den, o[r][i][1] / den,
+                                   o[r][i][2] / den, o[r][i][3] / den);
+      if ((Dh & 3) == 0) {
+        *reinterpret_cast<float4*>(orow + c * 4) = x;
+      } else {
+        const int d = c * 4;
+        orow[d] = x.x;
+        if (d + 1 < Dh) orow[d + 1] = x.y;
+        if (d + 2 < Dh) orow[d + 2] = x.z;
+        if (d + 3 < Dh) orow[d + 3] = x.w;
+      }
     }
   }
 }
 
-template <int DPL>
+template <int R, int DPT>
 __global__ void __launch_bounds__(kThreads)
-    gpv_attn_fp32_kernel(Problem p) {
-  attend_rows<DPL>(p, blockIdx.z, blockIdx.y, blockIdx.x * kBlockQ);
+    gpv_attn_fp32_tile_kernel(Problem p, int H, int Dh, float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  tile_rows<R, DPT>(p, H, Dh, scale, blockIdx.z, blockIdx.y,
+                    blockIdx.x * kGroups * R, smem_f);
 }
 
 // Both co-attention directions in one launch: blockIdx.z = 2 * b + dir.
-template <int DPL>
+template <int R, int DPT>
 __global__ void __launch_bounds__(kThreads)
-    gpv_attn_fp32_bi_kernel(Problem p1, Problem p2) {
+    gpv_attn_fp32_bi_kernel(Problem p1, Problem p2, int H, int Dh,
+                            float scale) {
+  extern __shared__ __align__(16) float smem_f[];
   const Problem p = (blockIdx.z & 1) ? p2 : p1;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kGroups * R;
   if (q0 >= p.Tq) return;  // whole block: before any barrier
-  attend_rows<DPL>(p, blockIdx.z >> 1, blockIdx.y, q0);
+  tile_rows<R, DPT>(p, H, Dh, scale, blockIdx.z >> 1, blockIdx.y, q0,
+                    smem_f);
 }
 
-int dims_per_lane(int Dh) { return (Dh + 31) / 32; }
+// --------------------------------------------------------------- decode
 
-cudaError_t launch_attention(const Problem& p, int B, cudaStream_t stream) {
-  const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, p.H, B);
-  const dim3 block(kThreads);
-  switch (dims_per_lane(p.Dh)) {
-    case 1: gpv_attn_fp32_kernel<1><<<grid, block, 0, stream>>>(p); break;
-    case 2: gpv_attn_fp32_kernel<2><<<grid, block, 0, stream>>>(p); break;
-    case 3: gpv_attn_fp32_kernel<3><<<grid, block, 0, stream>>>(p); break;
-    case 4: gpv_attn_fp32_kernel<4><<<grid, block, 0, stream>>>(p); break;
-    default: return cudaErrorInvalidValue;
+// One block per (batch, head, ROWS query rows from q0 = ROWS * blockIdx.z),
+// `blockDim.x / 32` warps. Warp w scores keys [32w, 32w + 32), then
+// [32(w + W), ...) while keys remain, a lane a key; lane owns dims
+// lane + 32i of P.V.
+template <int ROWS>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+    gpv_attn_fp32_decode_kernel(Problem p, int H, int Dh, float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int h = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * ROWS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int RF = row_floats(Dh), D4 = dims4(Dh), nch = D4 >> 2;
+  float* q_s = smem_f;                                   // [ROWS][D4]
+  float* kv0 = q_s + ROWS * D4;  // warp w's K rows, then V rows
+  float* k_s = kv0 + warp * 2 * kWarpKeys * RF;
+  float* v_s = k_s + kWarpKeys * RF;
+
+  const size_t rs = (size_t)H * Dh;
+  const float* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh;
+  const float* kgl = p.k + ((size_t)b * p.Tk * H + h) * Dh;
+  const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh;
+  const unsigned char* valid =
+      p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
+
+  // q raw (one group for the block), then this warp's first K and V rows
+  copy_rows<1>({q_s}, {qg}, q0, ROWS, p.Tq, Dh, rs, D4, threadIdx.x,
+               blockDim.x);
+  cp_async_commit();
+  const int first = warp * kWarpKeys;
+  if (first < p.Tk)
+    copy_rows<2>({k_s, v_s}, {kgl, vgl}, first,
+                 min(kWarpKeys, p.Tk - first), p.Tk, Dh, rs, RF, lane, 32);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // q landed; scaled in fp32 as the TPU kernel does
+  for (int i = threadIdx.x; i < ROWS * D4; i += blockDim.x) q_s[i] *= scale;
+  __syncthreads();
+
+  float m[ROWS], l[ROWS], acc[ROWS][4];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
   }
-  return cudaGetLastError();
+
+  for (int k0 = first; k0 < p.Tk; k0 += nw * kWarpKeys) {
+    const int nk = min(kWarpKeys, p.Tk - k0);
+    const int key = k0 + lane;
+    const bool live = lane < nk;
+    // key validity, read while the rows land
+    const float kv = live && valid && !valid[key] ? kNeg : 0.f;
+    cp_async_wait<0>();
+    __syncwarp();
+
+    float s[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
+    if (live) {  // four partial sums a row, added at the end
+      const float* kr = k_s + lane * RF;
+      float dot[ROWS][4];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        dot[r][0] = dot[r][1] = dot[r][2] = dot[r][3] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < nch; ++c) {
+        const float4 kx = *reinterpret_cast<const float4*>(kr + c * 4);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float4 qx =
+              *reinterpret_cast<const float4*>(q_s + r * D4 + c * 4);
+          dot[r][0] = fmaf(qx.x, kx.x, dot[r][0]);
+          dot[r][1] = fmaf(qx.y, kx.y, dot[r][1]);
+          dot[r][2] = fmaf(qx.z, kx.z, dot[r][2]);
+          dot[r][3] = fmaf(qx.w, kx.w, dot[r][3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        s[r] = (dot[r][0] + dot[r][1]) + (dot[r][2] + dot[r][3]);
+    }
+    float e[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float add = kv;  // key validity + causal, one fp32 sum
+      if (p.causal && key > q0 + r) add += kNeg;
+      const float sc = live ? s[r] + add : -INFINITY;
+      const float m_new = fmaxf(m[r], warp_max(sc));
+      const float alpha = ex2((m[r] - m_new) * kLog2e);
+      e[r] = live ? ex2((sc - m_new) * kLog2e) : 0.f;
+      l[r] = l[r] * alpha + e[r];  // this lane's share
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
+    }
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      float pj[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) pj[r] = __shfl_sync(kFull, e[r], j);
+      const float* vr = v_s + j * RF + lane;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (32 * i >= Dh) break;  // the same for the whole warp
+        const float vx = lane + 32 * i < Dh ? vr[32 * i] : 0.f;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) acc[r][i] = fmaf(pj[r], vx, acc[r][i]);
+      }
+    }
+    __syncwarp();  // every lane is done with the rows before the next copy
+    const int next = k0 + nw * kWarpKeys;
+    if (next < p.Tk) {
+      copy_rows<2>({k_s, v_s}, {kgl, vgl}, next,
+                   min(kWarpKeys, p.Tk - next), p.Tk, Dh, rs, RF, lane, 32);
+      cp_async_commit();
+    }
+  }
+
+  // each warp's (max, sum, acc) per row into its own K rows (32 RF floats
+  // >= ROWS (D4 + 2)), then one merge over the warps
+  __syncwarp();  // every lane is done with this warp's rows
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const float lw = warp_sum(l[r]);
+    float* mine = k_s + r * (D4 + 2);
+    if (lane == 0) {
+      mine[0] = m[r];
+      mine[1] = lw;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < Dh) mine[2 + lane + 32 * i] = acc[r][i];
+  }
+  __syncthreads();
+  const int rows = min(p.Tq - q0, ROWS);
+  for (int i = threadIdx.x; i < rows * Dh; i += blockDim.x) {
+    const int r = i / Dh, d = i - r * Dh;
+    float M = -INFINITY;
+    for (int w = 0; w < nw; ++w)
+      M = fmaxf(M, kv0[w * 2 * kWarpKeys * RF + r * (D4 + 2)]);
+    float L = 0.f, O = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float* pw = kv0 + w * 2 * kWarpKeys * RF + r * (D4 + 2);
+      const float f = ex2((pw[0] - M) * kLog2e);
+      L = fmaf(f, pw[1], L);
+      O = fmaf(f, pw[2 + d], O);
+    }
+    p.out[(((size_t)b * p.Tq + q0 + r) * H + h) * Dh + d] = O / L;
+  }
 }
 
-cudaError_t launch_biattention(const Problem& p1, const Problem& p2, int B,
-                               cudaStream_t stream) {
-  const int tq = p1.Tq > p2.Tq ? p1.Tq : p2.Tq;
-  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, p1.H, 2 * B);
-  const dim3 block(kThreads);
-  switch (dims_per_lane(p1.Dh)) {
-    case 1: gpv_attn_fp32_bi_kernel<1><<<grid, block, 0, stream>>>(p1, p2); break;
-    case 2: gpv_attn_fp32_bi_kernel<2><<<grid, block, 0, stream>>>(p1, p2); break;
-    case 3: gpv_attn_fp32_bi_kernel<3><<<grid, block, 0, stream>>>(p1, p2); break;
-    case 4: gpv_attn_fp32_bi_kernel<4><<<grid, block, 0, stream>>>(p1, p2); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
+// ------------------------------------------------------------- launches
 
 float head_scale(int Dh) { return (float)(1.0 / sqrt((double)Dh)); }
 
-}  // namespace
+// 4-dim chunks a thread owns in O: Dh <= 32 * DPT
+int chunks_per_thread(int Dh) { return (Dh + 31) / 32; }
 
-// Returns a cudaError_t (0 = launched).
+template <int R>
+cudaError_t launch_tile(const Problem& p, int B, int H, int Dh, int smem,
+                        cudaStream_t s) {
+  const dim3 grid((p.Tq + kGroups * R - 1) / (kGroups * R), H, B);
+  const float sc = head_scale(Dh);
+  switch (chunks_per_thread(Dh)) {
+    case 1: gpv_attn_fp32_tile_kernel<R, 1><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
+    case 2: gpv_attn_fp32_tile_kernel<R, 2><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
+    case 3: gpv_attn_fp32_tile_kernel<R, 3><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
+    default: gpv_attn_fp32_tile_kernel<R, 4><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bi(const Problem& p1, const Problem& p2, int B, int H,
+                      int Dh, int smem, cudaStream_t s) {
+  constexpr int R = 2;  // 32 rows a block
+  const int tq = p1.Tq > p2.Tq ? p1.Tq : p2.Tq;
+  const dim3 grid((tq + kGroups * R - 1) / (kGroups * R), H, 2 * B);
+  const float sc = head_scale(Dh);
+  switch (chunks_per_thread(Dh)) {
+    case 1: gpv_attn_fp32_bi_kernel<R, 1><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
+    case 2: gpv_attn_fp32_bi_kernel<R, 2><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
+    case 3: gpv_attn_fp32_bi_kernel<R, 3><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
+    default: gpv_attn_fp32_bi_kernel<R, 4><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
+  }
+  return cudaGetLastError();
+}
+
+template <int ROWS>
+cudaError_t launch_decode(const Problem& p, int B, int H, int Dh, int warps,
+                          int smem, cudaStream_t s) {
+  const dim3 grid(H, B, (p.Tq + ROWS - 1) / ROWS);
+  gpv_attn_fp32_decode_kernel<ROWS><<<grid, warps * 32, smem, s>>>(
+      p, H, Dh, head_scale(Dh));
+  return cudaGetLastError();
+}
+
+template <typename F>
+cudaError_t set_smem(F* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+bool bad_dims(int B, int Tq, int Tk, int H, int Dh) {
+  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || Dh <= 0 || Dh > 128;
+}
+
+}  // namespace
+}  // namespace gpv_attn
+
+using namespace gpv_attn;
+
+// Once per process, after loading: allow every instantiation the dynamic
+// shared memory of its largest block (Dh 128). Returns a cudaError_t.
+extern "C" int gpv_attn_fp32_init() {
+  const int t64 = tile_smem_bytes(128, 64), t32 = tile_smem_bytes(128, 32);
+  const int dec = decode_smem_bytes(128, kDecodeRows, kDecodeWarps);
+  cudaError_t e = cudaSuccess;
+#define GPV_SET(k, bytes) \
+  if (e == cudaSuccess) e = set_smem(k, bytes);
+  GPV_SET((gpv_attn_fp32_tile_kernel<4, 1>), t64)
+  GPV_SET((gpv_attn_fp32_tile_kernel<4, 2>), t64)
+  GPV_SET((gpv_attn_fp32_tile_kernel<4, 3>), t64)
+  GPV_SET((gpv_attn_fp32_tile_kernel<4, 4>), t64)
+  GPV_SET((gpv_attn_fp32_tile_kernel<2, 1>), t32)
+  GPV_SET((gpv_attn_fp32_tile_kernel<2, 2>), t32)
+  GPV_SET((gpv_attn_fp32_tile_kernel<2, 3>), t32)
+  GPV_SET((gpv_attn_fp32_tile_kernel<2, 4>), t32)
+  GPV_SET((gpv_attn_fp32_bi_kernel<2, 1>), t32)
+  GPV_SET((gpv_attn_fp32_bi_kernel<2, 2>), t32)
+  GPV_SET((gpv_attn_fp32_bi_kernel<2, 3>), t32)
+  GPV_SET((gpv_attn_fp32_bi_kernel<2, 4>), t32)
+  GPV_SET((gpv_attn_fp32_decode_kernel<1>), dec)
+  GPV_SET((gpv_attn_fp32_decode_kernel<2>), dec)
+  GPV_SET((gpv_attn_fp32_decode_kernel<4>), dec)
+  GPV_SET((gpv_attn_fp32_decode_kernel<8>), dec)
+#undef GPV_SET
+  return e;
+}
+
+// K1: q/out (B, Tq, H, Dh), k/v (B, Tk, H, Dh), as the wrapper's plan
+// gives it: a block owns `rows` query rows, 1, 2, 4 or 8 for the decode
+// variant with `warps` warps, 32 or 64 for the tile variant (4 warps);
+// `smem_bytes` at least what that block needs. Returns a cudaError_t.
 extern "C" int gpv_attn_fp32(const void* q, const void* k, const void* v,
                              const unsigned char* key_valid, void* out, int B,
                              int Tq, int Tk, int H, int Dh, int causal,
+                             int rows, int warps, int smem_bytes,
                              void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || Dh <= 0)
+  if (bad_dims(B, Tq, Tk, H, Dh)) return cudaErrorInvalidValue;
+  const Problem p{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), key_valid,
+                  static_cast<float*>(out), Tq, Tk, causal};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= kDecodeRows) {
+    if (rows < 1 || (rows & (rows - 1)) || warps < 1 ||
+        warps > kDecodeWarps || smem_bytes < decode_smem_bytes(Dh, rows, warps))
+      return cudaErrorInvalidValue;
+    switch (rows) {
+      case 1: return launch_decode<1>(p, B, H, Dh, warps, smem_bytes, s);
+      case 2: return launch_decode<2>(p, B, H, Dh, warps, smem_bytes, s);
+      case 4: return launch_decode<4>(p, B, H, Dh, warps, smem_bytes, s);
+      default: return launch_decode<8>(p, B, H, Dh, warps, smem_bytes, s);
+    }
+  }
+  if ((rows != 32 && rows != 64) || warps != kThreads / 32 ||
+      smem_bytes < tile_smem_bytes(Dh, rows))
     return cudaErrorInvalidValue;
-  const Problem p{q, k, v, key_valid, out, Tq, Tk, H, Dh, causal,
-                  head_scale(Dh)};
-  return launch_attention(p, B, static_cast<cudaStream_t>(stream));
+  return rows == 64 ? launch_tile<4>(p, B, H, Dh, smem_bytes, s)
+                    : launch_tile<2>(p, B, H, Dh, smem_bytes, s);
 }
 
+// K2, both directions on the tile variant (`rows` 32, 4 warps):
 // ctx1 = softmax(q2 k1^T + m1) v1 -> (B, T2, H, Dh)  (valid1: (B, T1))
 // ctx2 = softmax(q1 k2^T + m2) v2 -> (B, T1, H, Dh)  (valid2: (B, T2))
 extern "C" int gpv_attn_fp32_bi(const void* q1, const void* k1,
@@ -253,11 +672,16 @@ extern "C" int gpv_attn_fp32_bi(const void* q1, const void* k1,
                                 const unsigned char* valid1,
                                 const unsigned char* valid2, void* ctx1,
                                 void* ctx2, int B, int T1, int T2, int H,
-                                int Dh, void* stream) {
-  if (B <= 0 || T1 <= 0 || T2 <= 0 || H <= 0 || Dh <= 0)
+                                int Dh, int rows, int warps, int smem_bytes,
+                                void* stream) {
+  if (bad_dims(B, T1, T2, H, Dh) || rows != 32 || warps != kThreads / 32 ||
+      smem_bytes < tile_smem_bytes(Dh, rows))
     return cudaErrorInvalidValue;
-  const float scale = head_scale(Dh);
-  const Problem p1{q2, k1, v1, valid1, ctx1, T2, T1, H, Dh, 0, scale};
-  const Problem p2{q1, k2, v2, valid2, ctx2, T1, T2, H, Dh, 0, scale};
-  return launch_biattention(p1, p2, B, static_cast<cudaStream_t>(stream));
+  using F = const float*;
+  const Problem p1{static_cast<F>(q2), static_cast<F>(k1), static_cast<F>(v1),
+                   valid1, static_cast<float*>(ctx1), T2, T1, 0};
+  const Problem p2{static_cast<F>(q1), static_cast<F>(k2), static_cast<F>(v2),
+                   valid2, static_cast<float*>(ctx2), T1, T2, 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch_bi(p1, p2, B, H, Dh, smem_bytes, s);
 }

@@ -5,23 +5,31 @@ K1 `fused_attention` replaces the Pallas kernel
 `gpv_tpu/ops/attention.py:fused_attention` (cell `_attend_cell`, masks from
 `attention_mask`); K2 `fused_biattention` replaces
 `gpv_tpu/ops/attention.py:fused_biattention` (`_make_biattn_kernel`). Each
-call goes to one of three kernels, chosen by `_plan` from its dtype and
-shape:
+call goes to one of four kernel variants, chosen by `_plan` from its
+dtype and shape:
 - `tile` (`csrc/attention_tile.cu`): bf16 with two or more query rows, and
   both directions of K2 in one launch. Tensor-core products (mma.sync
   m16n8k16) over K/V tiles streamed through shared memory, FlashAttention-2
   style.
 - `decode` (`csrc/attention_decode.cu`): bf16 with one query row, the text
   decoder's step. One block per (batch, head) whose warps split the keys.
-- `fp32` (`csrc/attention.cu`): every fp32 call, the card's parity path
-  (full fp32 on the CUDA cores).
+- `fp32_tile` and `fp32_decode` (`csrc/attention.cu`): every fp32 call,
+  the card's parity path (fp32 FMAs on the CUDA cores, no TF32).
+  `fp32_decode` takes K1 calls of at most `FP32_DECODE_TQ` query rows
+  (the decode step, the beam's K rows), and of at most
+  `FP32_DECODE_LONG_TQ` over more than one 64-key tile: one block per
+  (batch, head, 8 query rows) whose warps split the keys. `fp32_tile`
+  takes the others and both directions of K2: 64 (or 32) query rows a
+  block, K/V tiles of 64 keys double buffered, register-blocked
+  products for S and P.V.
 
-What bounds them on the H100: at every main-path shape (Tk <= 300,
+What bounds them on the H100: in bf16 at every main-path shape (Tk <= 300,
 Dh <= 96) the work is far below the card's ~295 operations per byte, so
-the least time is set by the bytes of q, k, v and the output; an unfused
-attention also moves the (B, H, Tq, Tk) fp32 score matrix through device
-memory several times. The kernels keep scores and softmax statistics
-on-chip, so device memory sees q, k, v and out once per query block.
+the least time is set by the bytes of q, k, v and the output. In fp32 the
+products run at the CUDA cores' 67 TFLOP/s, and the shapes with Tq and Tk
+of 100 or more are bound by operations. The kernels keep scores and
+softmax statistics on-chip, so device memory sees q, k, v and out once
+per query block.
 
 Device policy: a CPU tensor takes the plain version; a CUDA tensor launches
 a kernel or raises. Masks are passed as (B, Tk) key validity plus a
@@ -94,11 +102,21 @@ def biattend_plain(q1, k1, v1, q2, k2, v2, valid1=None, valid2=None):
 
 class Plan(NamedTuple):
     """How one call runs: the kernel, warps per block, keys per shared-
-    memory tile and the block's dynamic shared memory in bytes."""
-    variant: str  # "tile", "decode" or "fp32"
+    memory tile, the block's dynamic shared memory in bytes and, for the
+    fp32 kernels, the query rows a block owns (the bf16 kernels derive
+    theirs from `warps`)."""
+    variant: str  # "tile", "decode", "fp32_tile" or "fp32_decode"
     warps: int
     key_tile: int
     smem_bytes: int
+    rows: int = 0
+
+
+# K1 fp32 calls take the decode variant at up to FP32_DECODE_TQ query rows,
+# and at up to FP32_DECODE_LONG_TQ against more than one 64-key tile (where
+# the tile variant would walk the tiles in series for a few rows)
+FP32_DECODE_TQ, FP32_DECODE_LONG_TQ = 8, 32
+P_STRIDE = 72  # floats in a row of the fp32 tile kernel's P
 
 
 def _row_bytes(d: int) -> int:
@@ -107,13 +125,38 @@ def _row_bytes(d: int) -> int:
     return ((d // 8) | 1) * 16
 
 
+def _row_floats(d: int) -> int:
+    """Floats of one fp32 shared-memory row of d values: 16-byte chunks,
+    an odd number of them (`row_floats` in csrc/attention.cu)."""
+    return (-(-d // 4) | 1) * 4
+
+
+def _plan_fp32(Tq: int, Tk: int, Dh: int, both: bool) -> Plan:
+    """csrc/attention.cu: `decode_smem_bytes` and `tile_smem_bytes`."""
+    if not 0 < Dh <= 128:
+        raise ValueError(f"fp32 head dim {Dh}: the kernels take 1 to 128")
+    f, d4 = _row_floats(Dh), -(-Dh // 4) * 4
+    decode = Tq <= FP32_DECODE_TQ or (Tq <= FP32_DECODE_LONG_TQ and Tk > 64)
+    if decode and not both:  # a lane a key, no 16-row slots
+        rows = min(8, 1 << (Tq - 1).bit_length())  # 8 rows a block at most
+        keys = 32
+        warps = min(4, -(-Tk // keys))
+        return Plan("fp32_decode", warps, keys,  # q, then K and V rows
+                    4 * (rows * d4 + warps * 2 * keys * f), rows)
+    # 16 row groups of 8 lanes; K2's short direction wastes less at 32
+    keys, rows = 64, 32 if Tq <= 32 or both else 64
+    return Plan("fp32_tile", 4, keys,  # key mask, Q, K and V x 2 stages, P
+                4 * (keys + rows * f + 2 * 2 * keys * f
+                     + rows * P_STRIDE), rows)
+
+
 def _plan(dtype, Tq: int, Tk: int, Dh: int, both: bool = False) -> Plan:
     """The kernel and launch shape for one call (`both`: a K2 call, whose
     Tq is the longer stream). Mirrors the byte counts of the CUDA sources
     (`tile_smem_bytes`, `decode_smem_bytes`), which refuse a launch given
     less."""
-    if dtype == torch.float32:  # csrc/attention.cu: static shared memory
-        return Plan("fp32", 4, 32, 0)
+    if dtype == torch.float32:
+        return _plan_fp32(Tq, Tk, Dh, both)
     if dtype != torch.bfloat16:
         raise TypeError(f"dtype {dtype} not supported "
                         f"(one of {sorted(map(str, _DTYPES))})")
@@ -133,8 +176,9 @@ def _plan(dtype, Tq: int, Tk: int, Dh: int, both: bool = False) -> Plan:
 
 
 _SIGNATURES = {  # source -> {function: argtypes}; each returns cudaError_t
-    "attention": {"gpv_attn_fp32": [_P] * 5 + [_I] * 6 + [_P],
-                  "gpv_attn_fp32_bi": [_P] * 10 + [_I] * 5 + [_P]},
+    "attention": {"gpv_attn_fp32_init": [],
+                  "gpv_attn_fp32": [_P] * 5 + [_I] * 9 + [_P],
+                  "gpv_attn_fp32_bi": [_P] * 10 + [_I] * 8 + [_P]},
     "attention_tile": {"gpv_attn_tile_init": [],
                        "gpv_attn_tile": [_P] * 5 + [_I] * 8 + [_P],
                        "gpv_attn_tile_bi": [_P] * 10 + [_I] * 7 + [_P]},
@@ -258,9 +302,10 @@ def _launch_attention(q, k, v, key_valid, causal) -> torch.Tensor:
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_valid),
             out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if plan.variant == "fp32":
+    if plan.variant.startswith("fp32"):
         err = _lib("attention").gpv_attn_fp32(
-            *ptrs, B, Tq, Tk, H, Dh, int(causal), stream)
+            *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.rows, plan.warps,
+            plan.smem_bytes, stream)
     elif plan.variant == "tile":
         err = _lib("attention_tile").gpv_attn_tile(
             *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.warps,
@@ -275,8 +320,8 @@ def _launch_attention(q, k, v, key_valid, causal) -> torch.Tensor:
 
 
 fused_attention.launches = 0
-fused_attention.variant_launches = dict.fromkeys(("tile", "decode", "fp32"),
-                                                 0)
+fused_attention.variant_launches = dict.fromkeys(
+    ("tile", "decode", "fp32_tile", "fp32_decode"), 0)
 
 
 def fused_biattention(q1, k1, v1, q2, k2, v2,
@@ -314,9 +359,10 @@ def _launch_biattention(q1, k1, v1, q2, k2, v2, valid1, valid2):
             k2.data_ptr(), v2.data_ptr(), _ptr(valid1), _ptr(valid2),
             ctx1.data_ptr(), ctx2.data_ptr())
     stream = torch.cuda.current_stream(q1.device).cuda_stream
-    if plan.variant == "fp32":
-        err = _lib("attention").gpv_attn_fp32_bi(*ptrs, B, T1, T2, H, Dh,
-                                                 stream)
+    if plan.variant == "fp32_tile":
+        err = _lib("attention").gpv_attn_fp32_bi(
+            *ptrs, B, T1, T2, H, Dh, plan.rows, plan.warps, plan.smem_bytes,
+            stream)
     else:
         err = _lib("attention_tile").gpv_attn_tile_bi(
             *ptrs, B, T1, T2, H, Dh, plan.warps, plan.smem_bytes, stream)
@@ -326,7 +372,7 @@ def _launch_biattention(q1, k1, v1, q2, k2, v2, valid1, valid2):
 
 
 fused_biattention.launches = 0
-fused_biattention.variant_launches = dict.fromkeys(("tile", "fp32"), 0)
+fused_biattention.variant_launches = dict.fromkeys(("tile", "fp32_tile"), 0)
 
 
 # ---- the torch ops: CUDA = the launch, CPU = the plain version ----

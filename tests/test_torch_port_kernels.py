@@ -13,6 +13,11 @@ tile for Tq >= 2 and K2; bf16 decode for Tq = 1): Tq in {1, 17, 65}, Tk in
 {1, 33, 301}, each Dh in {32, 48, 64, 96}, causal, and a fully masked row;
 and beam search's shapes: Tq = K in {1, 3, 5, 20} beams over the 120-slot
 memory, and 3 to 100 beam rows (B·K) over the 20-slot cache.
+Then the fp32 kernels alone (tile and decode variants): Tq in {1, 2, 4, 5,
+63, 64, 65, 300} x Tk in {1, 31, 32, 33, 64, 65, 120, 301}, Dh in {32, 48,
+64, 96, 128} and 30 (not a multiple of 4: copied element by element),
+causal, a fully masked row, K2 ragged in both directions, a misaligned
+view refused.
 Tolerance: fp32 1e-5, bf16 2e-2, both times max(1, max |plain|); fp32 runs
 with TF32 off.
 """
@@ -240,3 +245,89 @@ def test_torch_ops_equal_the_direct_wrappers(dtype, Tq):
         got2 = torch.ops.gpv.fused_biattention(*xs, kv.contiguous(), None)
         assert port_attn.fused_biattention.launches == n + 1
         assert all(torch.equal(a, b) for a, b in zip(got2, want2))
+
+
+# ---- the fp32 kernels: tile (Tq > 8, K2) and decode (Tq <= 8)
+
+FP32_TQ = [1, 2, 4, 5, 63, 64, 65, 300]
+FP32_TK = [1, 31, 32, 33, 64, 65, 120, 301]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", FP32_TQ)
+@pytest.mark.parametrize("Tk", FP32_TK)
+def test_fp32_ragged_shapes_match_plain(Tq, Tk):
+    _cuda_or_skip()
+    _k1_against_plain(torch.float32, 1e-5, 2, Tq, Tk, 3, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 48, 64, 96, 128, 30])
+@pytest.mark.parametrize("Tq", [1, 5, 65])
+@pytest.mark.parametrize("Tk", [33, 120])
+def test_fp32_head_dims_match_plain(Dh, Tq, Tk):
+    _cuda_or_skip()
+    _k1_against_plain(torch.float32, 1e-5, 2, Tq, Tk, 3, Dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 5, 63, 64, 65, 300])
+@pytest.mark.parametrize("Dh", [32, 30])
+def test_fp32_causal_matches_plain(T, Dh):
+    _cuda_or_skip()
+    _k1_against_plain(torch.float32, 1e-5, 2, T, T, 3, Dh, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", [1, 5, 65])
+@pytest.mark.parametrize("Tk", [31, 120])
+def test_fp32_fully_masked_row_is_the_uniform_average(Tq, Tk):
+    """Every key of batch row 0 invalid, also causal rows of a square
+    call: each score is s - 1e9 (or - 2e9), so the row is V's mean."""
+    _cuda_or_skip()
+    B, H, Dh = 2, 3, 32
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(B, T, H, Dh, device="cuda", generator=g)
+               for T in (Tq, Tk, Tk))
+    kv = torch.ones(B, Tk, dtype=torch.bool, device="cuda")
+    kv[0] = False
+    got = port_attn.fused_attention(q, k, v, kv)
+    ref = port_attn.attend_plain(q, k, v, kv)
+    mean = v[0].mean(0).expand(Tq, H, Dh)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-5
+    assert (got[0] - mean).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T1,T2", [(17, 65), (65, 17), (1, 33), (33, 1),
+                                   (20, 300), (300, 20), (64, 64)])
+@pytest.mark.parametrize("Dh", [48, 30])
+def test_fp32_k2_ragged_in_both_directions(T1, T2, Dh):
+    _cuda_or_skip()
+    B, H = 2, 4
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xs = [torch.randn(B, T, H, Dh, device="cuda", generator=g)
+          for T in (T1, T1, T1, T2, T2, T2)]
+    v1 = torch.rand(B, T1, device="cuda", generator=g) > 0.3
+    v2 = torch.rand(B, T2, device="cuda", generator=g) > 0.3
+    v1[:, 0] = v2[:, 0] = True
+    n = port_attn.fused_biattention.variant_launches["fp32_tile"]
+    got = port_attn.fused_biattention(*xs, v1, v2)
+    ref = port_attn.biattend_plain(*xs, v1, v2)
+    torch.cuda.synchronize()
+    assert port_attn.fused_biattention.variant_launches["fp32_tile"] == n + 1
+    for a, b in zip(got, ref):
+        scale = max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_fp32_misaligned_view_is_refused():
+    _cuda_or_skip()
+    flat = torch.randn(2 * 9 * 2 * 8 + 1, device="cuda")
+    q = flat[1:].view(2, 9, 2, 8)  # contiguous, 4 bytes off the boundary
+    with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
+        port_attn.fused_attention(q, q, q)
+    with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
+        port_attn.fused_biattention(q, q, q, q, q, q)

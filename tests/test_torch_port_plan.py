@@ -1,7 +1,8 @@
 """How the port's attention wrappers choose and size their kernels, on the
-CPU (no launch): `_plan` routes each dtype and shape to the fp32, tile or
-decode kernel with a block that fits the card, and `_aligned` refuses a
-tensor whose data is not 16-byte aligned.
+CPU (no launch): `_plan` routes each dtype and shape to the bf16 tile or
+decode kernel, or the fp32 tile or decode kernel, with a block that fits
+the card, and `_aligned` refuses a tensor whose data is not 16-byte
+aligned. Also `chip_smoke`'s launch routing by variant and its bound.
 
 The byte counts mirror `tile_smem_bytes` and `decode_smem_bytes` in
 gpv_tpu_torch/csrc; the CUDA entry points refuse a launch given fewer
@@ -27,7 +28,9 @@ def _chip_smoke():
     return mod
 
 
-K1_CASES = _chip_smoke().k1_cases()
+CHIP_SMOKE = _chip_smoke()
+K1_CASES = CHIP_SMOKE.k1_cases()
+K2_CASES = [c for c in CHIP_SMOKE.path_cases() if c.k2]
 
 
 @pytest.mark.parametrize("case", K1_CASES, ids=lambda c: c.name)
@@ -42,7 +45,10 @@ def test_plan_routes_main_path_k1_shapes(case):
         assert bf16.variant == "tile"
         assert bf16.warps == min(4, -(-tq // 16))
         assert bf16.key_tile == 64
-    assert A._plan(torch.float32, tq, tk, dh).variant == "fp32"
+    fp32 = A._plan(torch.float32, tq, tk, dh).variant
+    decode = tq <= 8 or (tq <= 32 and tk > 64)
+    assert fp32 == ("fp32_decode" if decode else "fp32_tile")
+    assert fp32 == case.fp32_variant
 
 
 def test_plan_routes_k2_to_the_tile_kernel():
@@ -50,7 +56,8 @@ def test_plan_routes_k2_to_the_tile_kernel():
     assert plan == A.Plan("tile", 4, 64, plan.smem_bytes)
     # one-row streams stay on the tile kernel: K2 has no decode variant
     assert A._plan(torch.bfloat16, 1, 1, 48, both=True).variant == "tile"
-    assert A._plan(torch.float32, 100, 20, 48, both=True).variant == "fp32"
+    assert A._plan(torch.float32, 100, 20, 48, both=True).variant == \
+        "fp32_tile"
 
 
 def test_plan_byte_counts_at_main_path_shapes():
@@ -118,3 +125,191 @@ def test_plan_of_the_beam_cache_step_does_not_depend_on_rows():
     head) on the decode kernel, one warp, as at B = 20."""
     assert A._plan(torch.bfloat16, 1, 20, 96) == \
         A.Plan("decode", 1, 32, 512 + 400 + 2 * 32 * 13 * 16)
+
+
+# ---- the fp32 kernels (csrc/attention.cu)
+
+def _fp32_row(dh):
+    """Floats of one padded row: ceil(Dh/4) 16-byte chunks, made odd."""
+    return (-(-dh // 4) | 1) * 4
+
+
+def _fp32_tile_bytes(dh, rows):
+    """Hand count of `tile_smem_bytes`: the key mask of 64 keys, `rows` Q
+    rows, K and V (64 rows each) in two stages, and P (`rows` rows of 72
+    floats)."""
+    return 4 * (64 + rows * _fp32_row(dh) + 4 * 64 * _fp32_row(dh)
+                + rows * 72)
+
+
+def _fp32_decode_bytes(dh, rows, warps):
+    """Hand count of `decode_smem_bytes`: q (`rows` rows of ceil(Dh/4)*4
+    floats) and each warp's 32 K and 32 V rows (a warp's partial sums
+    reuse its K rows)."""
+    d4 = -(-dh // 4) * 4
+    return 4 * (rows * d4 + warps * 2 * 32 * _fp32_row(dh))
+
+
+@pytest.mark.parametrize("case", K1_CASES + K2_CASES, ids=lambda c: c.name)
+def test_fp32_plan_at_every_path_shape(case):
+    """Every K1 and K2 shape of the paths in fp32: the variant, warps, key
+    tile, rows a block owns and shared memory equal to the hand count."""
+    tq, tk, dh = case.tq, case.tk, case.dh
+    plan = A._plan(torch.float32, tq, tk, dh, both=case.k2)
+    if (tq <= 8 or (tq <= 32 and tk > 64)) and not case.k2:
+        rows = 1 if tq == 1 else 2 if tq == 2 else 4 if tq <= 4 else 8
+        warps = min(4, -(-tk // 32))
+        assert plan == A.Plan("fp32_decode", warps, 32,
+                              _fp32_decode_bytes(dh, rows, warps), rows)
+    else:
+        rows = 32 if tq <= 32 or case.k2 else 64
+        assert plan == A.Plan("fp32_tile", 4, 64,
+                              _fp32_tile_bytes(dh, rows), rows)
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+def test_fp32_plan_byte_counts_at_main_path_shapes():
+    """Literal counts: the DETR encoder (Dh 32 -> 36-float rows, 64 rows),
+    BERT (Dh 64 -> 68 floats, 32 rows), the decode step over the memory
+    (Dh 96 -> 100 floats, 4 warps, one row), the beam's 5 rows (8) and
+    the teacher-forced 20 rows over the memory (8 a block)."""
+    assert A._plan(torch.float32, 300, 300, 32) == \
+        A.Plan("fp32_tile", 4, 64, 64_768, 64)
+    assert A._plan(torch.float32, 20, 20, 64) == \
+        A.Plan("fp32_tile", 4, 64, 4 * (64 + 32 * 68 + 256 * 68 + 32 * 72),
+               32)
+    assert A._plan(torch.float32, 1, 120, 96) == \
+        A.Plan("fp32_decode", 4, 32, 102_784, 1)
+    assert A._plan(torch.float32, 5, 120, 96) == \
+        A.Plan("fp32_decode", 4, 32, 4 * (8 * 96 + 4 * 64 * 100), 8)
+    assert A._plan(torch.float32, 20, 120, 96) == \
+        A._plan(torch.float32, 5, 120, 96)
+
+
+@pytest.mark.parametrize("tq,tk,variant,rows", [
+    (1, 20, "fp32_decode", 1), (2, 20, "fp32_decode", 2),
+    (3, 20, "fp32_decode", 4), (5, 120, "fp32_decode", 8),
+    (8, 64, "fp32_decode", 8), (9, 64, "fp32_tile", 32),
+    (9, 65, "fp32_decode", 8), (20, 20, "fp32_tile", 32),
+    (20, 120, "fp32_decode", 8), (32, 65, "fp32_decode", 8),
+    (32, 64, "fp32_tile", 32), (33, 120, "fp32_tile", 64),
+    (300, 300, "fp32_tile", 64)])
+def test_fp32_threshold_between_decode_and_tile(tq, tk, variant, rows):
+    """K1 fp32 calls of at most 8 query rows take the decode variant (a
+    block of 1, 2, 4 or 8 row slots), and so do calls of at most 32 rows
+    over more than one 64-key tile (8 rows a block); the others the tile
+    variant (32 rows up to Tq 32, then 64). K2 always takes the tile
+    variant at 32 rows a block."""
+    plan = A._plan(torch.float32, tq, tk, 96)
+    assert (plan.variant, plan.rows) == (variant, rows)
+    k2 = A._plan(torch.float32, tq, min(tq, 20), 48, both=True)
+    assert (k2.variant, k2.rows) == ("fp32_tile", 32)
+
+
+@pytest.mark.parametrize("dh", [1, 2, 3, 5, 7, 8, 30, 31, 32, 33, 48, 63, 64,
+                                65, 96, 97, 127, 128])
+def test_every_fp32_plan_fits_shared_memory(dh):
+    """Any Dh up to 128, also one that is not a multiple of 4."""
+    for tq in (1, 2, 5, 8, 9, 33, 300):
+        for tk in (1, 20, 33, 120, 301):
+            for both in (False, True):
+                plan = A._plan(torch.float32, tq, tk, dh, both=both)
+                assert 0 < plan.smem_bytes <= SMEM_LIMIT, (tq, tk, dh)
+                assert plan.smem_bytes % 16 == 0
+                assert 1 <= plan.warps <= 4
+
+
+def test_fp32_plan_refuses_head_dims_above_128():
+    with pytest.raises(ValueError, match="1 to 128"):
+        A._plan(torch.float32, 4, 4, 129)
+
+
+def test_fp32_launches_route_by_plan():
+    """`chip_smoke.by_variant` of an fp32 predict: DETR, BERT and K2 on
+    the fp32 tile kernel, the decode step's 114 calls on fp32 decode, the
+    bf16 kernels none; a bf16 predict leaves the fp32 kernels at 0."""
+    counts = CHIP_SMOKE.path_launches("predict", 19)
+    assert CHIP_SMOKE.by_variant(counts, "float32") == {
+        "fused_attention": {"tile": 0, "decode": 0, "fp32_tile": 30,
+                            "fp32_decode": 114},
+        "fused_biattention": {"tile": 0, "fp32_tile": 3}}
+    assert CHIP_SMOKE.by_variant(counts) == {
+        "fused_attention": {"tile": 30, "decode": 114, "fp32_tile": 0,
+                            "fp32_decode": 0},
+        "fused_biattention": {"tile": 3, "fp32_tile": 0}}
+    beam = CHIP_SMOKE.by_variant(
+        CHIP_SMOKE.path_launches("predict_beam", 19), "float32")
+    assert beam["fused_attention"] == {"tile": 0, "decode": 0,
+                                       "fp32_tile": 30, "fp32_decode": 114}
+    # the wrappers count the same keys
+    assert set(A.fused_attention.variant_launches) == \
+        set(CHIP_SMOKE.by_variant(counts)["fused_attention"])
+    assert set(A.fused_biattention.variant_launches) == \
+        set(CHIP_SMOKE.by_variant(counts)["fused_biattention"])
+
+
+@pytest.mark.parametrize("dtype,bound_us,by", [
+    ("float32", 27.51, "operations"), ("bfloat16", 3.668, "bytes")])
+def test_bound_of_the_detr_encoder(dtype, bound_us, by):
+    """`_bound` at the DETR encoder (B 20, 300 x 300, 8 heads of 32): q,
+    k, v read and out written once, 4 B H Tq Tk Dh operations. fp32 runs
+    with TF32 off, on the CUDA cores' 67 TFLOP/s: 1.84 GFLOP take 27.5 us
+    against 7.3 us for its 24.6 MB. bf16 at 989 TFLOP/s is bound by its
+    12.3 MB."""
+    b, t, h, dh = 20, 300, 8, 32
+    size = 4 if dtype == "float32" else 2
+    rec = CHIP_SMOKE._bound(4 * b * t * h * dh * size,
+                            4.0 * b * h * t * t * dh, dtype)
+    assert rec["bound_by"] == by
+    assert 1e3 * rec["bound_ms"] == pytest.approx(bound_us, rel=1e-3)
+    assert CHIP_SMOKE.PEAK_FLOPS == {"bfloat16": 989e12, "float32": 67e12}
+
+
+def test_kernels_line_lists_the_fp32_kernels():
+    """`chip_smoke.kernels_line` gives every kernel of the paths an entry:
+    the three bf16 ones counted on the bf16 predict, the three fp32 ones
+    (attention.cu) on the fp32 predict, each shape's per-launch numbers
+    (all 1 here) summed over that run's launches."""
+    keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
+    one = dict.fromkeys(keys, 1.0)
+    k1 = [{"case": c.name, "dtype": d, "max_abs_err": 0.0, **one,
+           "variant": c.variant if d == "bfloat16" else c.fp32_variant}
+          for c in K1_CASES for d in ("float32", "bfloat16")]
+    k2 = [{"case": c.name, "dtype": d, "max_abs_err": 0.0, **one,
+           "variant": "tile" if d == "bfloat16" else "fp32_tile",
+           "library_ms": None, "library_device_ms": None,
+           "sdpa_two_calls_ms": 1.0, "sdpa_two_calls_device_ms": 1.0}
+          for c in K2_CASES for d in ("float32", "bfloat16")]
+    counts = CHIP_SMOKE.path_launches("predict", 19)
+    line = CHIP_SMOKE.kernels_line(
+        {"K1": k1, "K2": k2},
+        {"predict": ({"launches_by_variant": CHIP_SMOKE.by_variant(counts),
+                      "decode_steps": 19}, counts)},
+        {"predict": ({"launches_by_variant":
+                      CHIP_SMOKE.by_variant(counts, "float32"),
+                      "decode_steps": 19}, counts)})
+    got = {e["name"]: (e["source"].rsplit("/", 1)[1], e["replaces"],
+                       e["launches"], e["device_ms"], e["library_ms"])
+           for e in line["kernels"]}
+    assert got == {
+        "fused_attention[tile]": ("attention_tile.cu",
+                                  "gpv_tpu/ops/attention.py:55", 30, 30.0,
+                                  30.0),
+        "fused_attention[decode]": ("attention_decode.cu",
+                                    "gpv_tpu/ops/attention.py:55", 114,
+                                    114.0, 114.0),
+        "fused_biattention[tile]": ("attention_tile.cu",
+                                    "gpv_tpu/ops/attention.py:147", 3, 3.0,
+                                    None),
+        "fused_attention[fp32_tile]": ("attention.cu",
+                                       "gpv_tpu/ops/attention.py:55", 30,
+                                       30.0, 30.0),
+        "fused_attention[fp32_decode]": ("attention.cu",
+                                         "gpv_tpu/ops/attention.py:55", 114,
+                                         114.0, 114.0),
+        "fused_biattention[fp32_tile]": ("attention.cu",
+                                         "gpv_tpu/ops/attention.py:147", 3,
+                                         3.0, None)}
+    fp32 = [e for e in line["kernels"] if "fp32" in e["name"]]
+    assert all(e["route"] == "cuda" and "fp32" in e["per"] for e in fp32)
