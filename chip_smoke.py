@@ -36,6 +36,19 @@ Phases, each printing one JSON line:
              the slice's batch: launches by variant (the fp32 tile and
              decode kernels) as path_launches gives them, images/s, and a
              profile (attention device ms by fp32 variant);
+  wide_heads  the engine at model.detr.nheads=4 and
+             model.co_att.bi_num_attention_heads=4 (the text decoder and
+             co-attention at 4 heads of 192, DETR at 4 of 64), fp32 on the
+             card and on the CPU on 2 images: predict and predict_beam
+             (K=3) with launches by variant around each card call;
+             boxes, relevance, first-step logits, greedy tokens and beam
+             sequences and log-probs card against CPU at e2e's
+             tolerances; then the card's bf16 engine's predict (launches
+             by variant);
+  bench      `python -m gpv_tpu_torch.bench` (the headline workload,
+             bench.py's counterpart) as a fresh process for greedy and
+             for mode=beam: each prints one JSON line with bench.py's
+             keys and a positive images/s, printed here;
   serve      GPVServer over the bf16 engine (buckets 1/8/20, 2 workers):
              1000 requests from 40 closed-loop clients mixing greedy, beam
              K=3 and the classification mask; every request resolved, the
@@ -256,6 +269,16 @@ E2E_TRAIN_B = 4
 DDP_B, DDP_TIMED_STEPS, RANK_TIMEOUT_S = 24, 5, 600
 DDP_CLI_SAMPLES, DDP_CLI_VAL = 60, 20
 REMAT_STEPS, REMAT_CHECK_B = 3, 8
+# head dims other configs give. `wide_heads` builds the engine at
+# WIDE_OVERRIDES on WIDE_B images; WIDE_HEADS are the (heads, Dh) of the
+# 768-wide text decoder at 4, 3, 2 and 1 heads, timed as `kernels` cases
+# with K2 at WIDE_K2_HEADS heads (Dh 768 / heads)
+WIDE_OVERRIDES = ("model.detr.nheads=4",
+                  "model.co_att.bi_num_attention_heads=4")
+WIDE_B = 2
+WIDE_HEADS = ((4, 192), (3, 256), (2, 384), (1, 768))
+WIDE_K2_HEADS = (64, 4, 3, 2, 1)
+BENCH_TIMEOUT_S = 300  # one `gpv_tpu_torch.bench` process
 # tensor parallelism: the model axis, the forward check's batch and the
 # timed bf16 steps at the released global batch
 TP, TP_FWD_B, TP_TIMED_STEPS = 2, 4, 5
@@ -522,8 +545,51 @@ def path_cases() -> list:
     # the multi-device engine's shards: fp32 INFER_DP_N over two, bf16 B
     calls += [path_launches("predict", 0, -(-INFER_DP_N // 2)),
               path_launches("predict", 0, B // 2)]
+    # the engine at WIDE_OVERRIDES (`wide_heads`), greedy and beam
+    calls += [wide_launches("predict", 0), wide_launches("predict_beam", 0)]
     return list(dict.fromkeys(c for counts in calls for c in counts)) + [
-        Case("teacher_forced_causal", B, 20, 20, 8, 96, None, True)]
+        Case("teacher_forced_causal", B, 20, 20, 8, 96, None, True)] + \
+        wide_cases()
+
+
+def wide_launches(path: str, steps: int, batch: int = WIDE_B,
+                  beam: int = E2E_BEAM) -> Counter:
+    """{Case: launches} of one call of `path` ("predict", or
+    "predict_beam" with `beam` beams) on `batch` samples by the engine at
+    WIDE_OVERRIDES: DETR at 4 heads of 64, BERT as released, K2 and the
+    text decoder at 4 heads of 192."""
+    s = f"_wide_b{batch}"
+    out = Counter({
+        Case("detr_encoder_self" + s, batch, 300, 300, 4, 64, None): 6,
+        Case("detr_decoder_self" + s, batch, 100, 100, 4, 64, None): 6,
+        Case("detr_decoder_cross" + s, batch, 100, 300, 4, 64, None): 6,
+        Case("bert_self" + s, batch, 20, 20, 12, 64, "query"): 12,
+        Case("masks_10" + s, batch, 100, 20, 4, 192, "query"): 3})
+    if path == "predict":
+        step, rows, tq = "decode_step", batch, 1
+    else:
+        step, rows, tq = f"beam{beam}_step", batch * beam, beam
+    out[Case(f"{step}_self{s}", rows, 1, 20, 4, 192, "cache")] = 3 * steps
+    out[Case(f"{step}_cross{s}", batch, tq, 120, 4, 192, "memory")] = \
+        3 * steps
+    return out
+
+
+def wide_cases() -> list:
+    """The text decoder's step and teacher-forced shapes at B with each of
+    WIDE_HEADS, and K2 (masks_10's streams) at each of WIDE_K2_HEADS:
+    every head dim a config of the 768-wide streams gives, 12 to 768."""
+    out = []
+    for h, dh in WIDE_HEADS:
+        s = f"_h{h}"
+        out += [Case("decode_step_self" + s, B, 1, 20, h, dh, "cache"),
+                Case("decode_step_cross" + s, B, 1, 120, h, dh, "memory"),
+                Case("teacher_forced_causal" + s, B, 20, 20, h, dh, None,
+                     True),
+                Case("teacher_forced_cross" + s, B, 20, 120, h, dh,
+                     "memory")]
+    return out + [Case(f"masks_10_h{h}", B, 100, 20, h, 768 // h, "query")
+                  for h in WIDE_K2_HEADS]
 
 
 def train_step_launches(rows: int, dedup: bool) -> Counter:
@@ -632,7 +698,8 @@ def _k2_runs():
     for c in path_cases():
         if c.k2:
             combos = (((True, False), (False, False), (True, True),
-                       (False, True)) if c.b == B else ((True, False),))
+                       (False, True)) if c.name == "masks_10"
+                      else ((True, False),))
             for has1, has2 in combos:
                 yield c, has1, has2
 
@@ -774,7 +841,9 @@ def phase_profile(phase: str, call, counts: Counter,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # device activity alone: the record reads only device events, and
+    # aggregating a CPU trace of a forked-loader run took about 10 s a call
+    acts = [ProfilerActivity.CUDA]
     for attempt in (1, 2):
         _reset_counts()
         with profile(activities=acts) as prof:
@@ -872,15 +941,17 @@ def write_vocab(directory: Path) -> Path:
     return path
 
 
-def make_engine(vocab_path: Path, dtype: str, device: str):
+def make_engine(vocab_path: Path, dtype: str, device: str,
+                overrides=()):
     """The engine of `configs/exp/gpv_inference.yaml` at the released
-    widths, seeded random weights (ckpt=null), through the entry point."""
+    widths (and `overrides`), seeded random weights (ckpt=null), through
+    the entry point."""
     from gpv_tpu_torch.infer.build import build_engine
     from gpv_tpu_torch.utils.config import load_config
     return build_engine(load_config(
         ROOT / "configs", "exp/gpv_inference",
         ["ckpt=null", f"tpu.dtype={dtype}", f"model.vocab={vocab_path}",
-         f"device={device}"]))
+         f"device={device}", *overrides]))
 
 
 def _check_boxes(rows) -> None:
@@ -1090,6 +1161,144 @@ def _fp32_predict(eng):
                 "wall_ms", "device_busy_ms", "device_idle_share",
                 "ms_by_group", "profiled_launches", "expected_launches")}}, \
         counts
+
+
+def phase_wide_heads(vocab_path: Path, checked: set):
+    """Wide heads end to end: the engine at WIDE_OVERRIDES in fp32 (TF32
+    off) on the card and on the CPU, on WIDE_B images. Returns the record, the
+    card's fp32 runs {path: (record, {Case: launches})} and its bf16
+    predict's run."""
+    import torch
+    from gpv_tpu_torch.decode.greedy import greedy_decode
+    from gpv_tpu_torch.ops.image import normalize_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(2)
+    images = rng.randint(0, 256, (WIDE_B, IMG_H, IMG_W, 3)).astype(np.uint8)
+    queries = _queries(WIDE_B, rng)
+    rec = {"phase": "wide_heads", "overrides": list(WIDE_OVERRIDES),
+           "images": WIDE_B, "beam_size": E2E_BEAM}
+    outs, runs = {}, {}
+
+    def gated(name, path, eng, call, dtype):
+        _reset_counts()
+        result = call()
+        torch.cuda.synchronize()
+        _, var = _read_counts()
+        steps = eng.last_decode_steps
+        counts = wide_launches(path, steps)
+        _check_counts(f"wide_heads {name}", var, counts, dtype)
+        missing = {c.name for c in counts} - checked
+        if missing:
+            fail(f"wide_heads {name}: shapes not among the kernels cases: "
+                 f"{sorted(missing)}")
+        return result, ({"launches_by_variant": var, "decode_steps": steps},
+                        counts)
+
+    for device in ("cuda", "cpu"):
+        eng = make_engine(vocab_path, "float32", device, WIDE_OVERRIDES)
+        heads = {"text_decoder": eng.model.text_decoder.layers[0]
+                 .self_attn.num_heads,
+                 "co_att": eng.model.co_att_transformer[0].biattention
+                 .num_heads}
+        if heads != {"text_decoder": 4, "co_att": 4}:
+            fail(f"wide_heads: heads {heads}, expected 4 and 4")
+        predict = lambda: eng.predict(images, queries)  # noqa: E731
+        beam = lambda: eng.predict_beam(  # noqa: E731
+            images, queries, beam_size=E2E_BEAM)
+        if device == "cuda":
+            res, runs["wide_heads_predict"] = gated(
+                "predict", "predict", eng, predict, "float32")
+            bres, runs["wide_heads_beam"] = gated(
+                "predict_beam", "predict_beam", eng, beam, "float32")
+        else:
+            res, bres = predict(), beam()
+        _check_boxes(res)
+        dev = eng.device
+        ids, valid = eng.tokenizer.batch_encode(queries, 20)
+        with torch.inference_mode():
+            x = normalize_image(torch.from_numpy(images).to(dev).float()
+                                / 255.0)
+            memory, mem_valid, out = eng.model.encode(
+                x, torch.from_numpy(ids).long().to(dev), None,
+                torch.from_numpy(valid).to(dev))
+            tokens, logits, _ = greedy_decode(
+                eng.model, memory, mem_valid, eng.vocab.cls_id)
+        outs[device] = {
+            "boxes": out["pred_boxes"].float().cpu(),
+            "relevance": out["pred_relevance_logits"].float().softmax(-1)
+            [..., 0].cpu(),
+            "logits0": logits[:, 0].cpu(), "tokens": tokens.cpu(),
+            "answers": [r["answer"] for r in res],
+            "beam_answers": [r["answers"] for r in bres],
+            "beam_probs": torch.tensor(np.asarray(
+                [r["answer_probs"] for r in bres], np.float32))}
+        del eng
+    c, p = outs["cuda"], outs["cpu"]
+    for key, tol in (("boxes", 1e-3), ("relevance", 1e-3),
+                     ("logits0", 2e-3), ("beam_probs", 2e-3)):
+        err = (c[key] - p[key]).abs().max().item()
+        rec[f"{key}_max_abs_err"], rec[f"{key}_tol"] = err, tol
+        if not err <= tol:
+            fail(f"wide_heads {key}: max abs err {err} > {tol}")
+    for key in ("tokens", "answers", "beam_answers"):
+        same = (torch.equal(c[key], p[key]) if key == "tokens"
+                else c[key] == p[key])
+        if not same:
+            fail(f"wide_heads {key} differ: card {c[key]} cpu {p[key]}")
+    rec["tokens_equal"] = rec["answers_equal"] = True
+    rec["launches_by_variant"] = {
+        k: v[0]["launches_by_variant"] for k, v in runs.items()}
+
+    # the bf16 engine on the card: the tile and decode kernels at Dh 192
+    eng = make_engine(vocab_path, "bfloat16", "cuda", WIDE_OVERRIDES)
+    res, bf16_run = gated("bf16 predict", "predict", eng,
+                          lambda: eng.predict(images, queries), "bfloat16")
+    _check_boxes(res)
+    rec["bf16_launches_by_variant"] = bf16_run[0]["launches_by_variant"]
+    del eng
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, runs, bf16_run
+
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_estimated",
+              "device", "power_limit_w"}
+
+
+def phase_bench() -> dict:
+    """`python -m gpv_tpu_torch.bench`, greedy and `mode=beam`, each a
+    fresh process on the card as a user runs it: one JSON line each with
+    bench.py's keys and a positive images/s, printed as it came."""
+    rec = {"phase": "bench"}
+    for name, args in (("greedy", []), ("beam", ["mode=beam"])):
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(
+                [sys.executable, "-m", "gpv_tpu_torch.bench", *args],
+                cwd=ROOT, capture_output=True, text=True,
+                timeout=BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"bench {name}: no line within {BENCH_TIMEOUT_S} s")
+        lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+        if run.returncode != 0 or len(lines) != 1:
+            fail(f"bench {name}: exit {run.returncode}, {len(lines)} lines; "
+                 f"stderr {run.stderr[-2000:]}")
+        print(lines[0], flush=True)
+        try:
+            line = json.loads(lines[0])
+        except json.JSONDecodeError:
+            fail(f"bench {name}: not one JSON line: {lines[0]!r}")
+        if set(line) != BENCH_KEYS or not line["value"] > 0:
+            fail(f"bench {name}: keys {sorted(line)} value "
+                 f"{line.get('value')}")
+        want = ("batched_inference_images_per_sec" if name == "greedy"
+                else "batched_beam5_inference_images_per_sec")
+        if line["metric"] != want:
+            fail(f"bench {name}: metric {line['metric']} != {want}")
+        rec[name] = {**line, "seconds": time.perf_counter() - t0}
+    return rec
 
 
 class _Recorder:
@@ -4343,6 +4552,11 @@ def main() -> None:
             records.append(rec)
             emit(rec)
         checked = {r["case"] for r in kern["K1"] + kern["K2"]}
+        wide, wide_runs, wide_bf16 = phase_wide_heads(vocab_path, checked)
+        records.append(wide)
+        emit(wide)
+        records.append(phase_bench())
+        emit(records[-1])
         serve, serve_counts = phase_serve(eng, checked)
         records.append(serve)
         emit(serve)
@@ -4395,8 +4609,9 @@ def main() -> None:
         "data_prep_train": (prep["train"], prep_train),
         "data_prep_predict": (prep["predict"], prep_pred),
         "infer_dp": (idp["bf16"], idp_counts), "stem_s2d": st_run,
-        "remat": (rm["remat"], rm_counts), **ddp_runs, **tp_runs},
-        {"predict": (e2e["fp32_predict"], e2e_counts)})
+        "remat": (rm["remat"], rm_counts), **ddp_runs, **tp_runs,
+        "wide_heads_predict": wide_bf16},
+        {"predict": (e2e["fp32_predict"], e2e_counts), **wide_runs})
     records.append(line)
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -13,8 +13,14 @@
 // statistics; P . V accumulated in fp32. Every product is an fp32 FMA on
 // the CUDA cores: the route exists to hold the plain fp32 version to 1e-5,
 // which TF32 would not. Layout (B, T, H, Dh), contiguous, 16-byte-aligned
-// bases, any Dh up to 128 (a Dh that is not a multiple of 4 is copied
-// element by element).
+// bases, any Dh >= 1 (a Dh that is not a multiple of 4 is copied element
+// by element). Above Dh 128 a block computes at most 128 output columns:
+// the grid runs over (head, column block), each block scores over the whole
+// Dh (Q and K rows whole in shared memory) and holds only its columns of V,
+// so a thread's O stays at 4 chunks of 4. The wrapper's plan then shrinks
+// the key tile (64, 32 or 16 keys), the tile variant's rows (64 to 32) or
+// the decode variant's warps until the block fits 227 KB: at Dh 768 a tile
+// block holds 32 rows over 16-key tiles, a decode block one warp.
 //
 // What bounds it on the card. With TF32 off the products run at the CUDA
 // cores' 67 TFLOP/s, not the tensor cores' 495, so the line between bytes
@@ -64,7 +70,6 @@ namespace gpv_attn {
 namespace {
 
 constexpr int kThreads = 128;     // tile: 4 warps
-constexpr int kKeys = 64;         // tile: keys per shared-memory tile
 constexpr int kGroups = 16;       // tile: row groups of 8 lanes
 constexpr int kPStride = 72;      // floats per row of P: conflict-free
 constexpr int kDecodeRows = 8;    // decode: query rows a block at most
@@ -89,40 +94,37 @@ __host__ __device__ constexpr int row_floats(int d) {
 }
 __host__ __device__ constexpr int dims4(int d) { return (d + 3) / 4 * 4; }
 
-// Shared memory of a tile block owning `rows` query rows: the key tile's
-// mask, Q, K and V in two stages, and P.
-constexpr int tile_smem_bytes(int Dh, int rows) {
-  return 4 * (kKeys + rows * row_floats(Dh) +
-              2 * 2 * kKeys * row_floats(Dh) + rows * kPStride);
+// Shared memory of a tile block owning `rows` query rows, with key tiles
+// of KT keys and O's W columns: the key tile's mask, Q, K (Dh wide) and V
+// (W wide) in two stages, and P.
+__host__ __device__ constexpr int tile_smem_bytes(int Dh, int W, int rows,
+                                                  int KT) {
+  return 4 * (KT + rows * row_floats(Dh) +
+              2 * KT * (row_floats(Dh) + row_floats(W)) + rows * kPStride);
 }
-// Shared memory of a decode block: q (`rows` rows) and each warp's K and V
-// rows; a warp's (max, sum, acc) per row go into its own K rows at the end.
-constexpr int decode_smem_bytes(int Dh, int rows, int warps) {
-  return 4 * (rows * dims4(Dh) + warps * 2 * kWarpKeys * row_floats(Dh));
-}
-
-// 4-byte global -> shared copy (cp.async takes 4 bytes only through L1);
-// src_bytes 0 writes a zero.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
+// Shared memory of a decode block: q (`rows` rows) and each warp's K (Dh
+// wide) and V (W wide) rows; a warp's (max, sum, acc) per row go into its
+// own K rows at the end.
+__host__ __device__ constexpr int decode_smem_bytes(int Dh, int W, int rows,
+                                                    int warps) {
+  return 4 * (rows * dims4(Dh) +
+              warps * kWarpKeys * (row_floats(Dh) + row_floats(W)));
 }
 
 // Rows [r0, r0 + n) of `nsrc` tensors (row stride rs floats; rows past
 // `limit` read as zeros) into shared rows of `stride` floats, ceil(Dh/4)*4
-// floats each, zero past Dh: 16-byte copies when Dh is a multiple of 4,
-// else 4-byte ones. Threads `tid` of `count` share the copy; each steps
-// through (row, column) by `count` with a carry instead of a division.
+// floats each, zero past Dh (a column block's width, when `row_dh` gives
+// the whole row's head dim): 16-byte copies when the head dim is a
+// multiple of 4, else 4-byte ones. Threads `tid` of `count` share the
+// copy; each steps through (row, column) by `count` with a carry instead
+// of a division.
 template <int NSRC>
 __device__ __forceinline__ void copy_rows(float* const (&dst)[NSRC],
                                           const float* const (&src)[NSRC],
                                           int r0, int n, int limit, int Dh,
                                           size_t rs, int stride, int tid,
-                                          int count) {
-  const bool vec = (Dh & 3) == 0;
+                                          int count, int row_dh = 0) {
+  const bool vec = ((row_dh ? row_dh : Dh) & 3) == 0;
   const int width = vec ? Dh >> 2 : dims4(Dh);  // copies per row
   const int unit = vec ? 4 : 1;                 // floats per copy
   int j = tid / width, c = tid - j * width;
@@ -155,10 +157,10 @@ __device__ __forceinline__ float key_term(int key, int Tk, int vb) {
 
 // ----------------------------------------------------------------- tile
 
-// s[r][j] += Q row (g + 16r) . K row (kg + 8j), j < JN, over nch 4-dim
-// chunks: per chunk R + JN float4 loads for 4 R JN FMAs.
-template <int R, int JN>
-__device__ __forceinline__ void scores(float (&s)[R][8], const float* q_s,
+// s[r][j] += Q row (g + 16r) . K row (kg + 8j), j < JN (of JK slots), over
+// nch 4-dim chunks: per chunk R + JN float4 loads for 4 R JN FMAs.
+template <int R, int JK, int JN>
+__device__ __forceinline__ void scores(float (&s)[R][JK], const float* q_s,
                                        const float* ks, int g, int kg, int RF,
                                        int nch) {
 #pragma unroll 2
@@ -184,18 +186,24 @@ __device__ __forceinline__ void scores(float (&s)[R][8], const float* q_s,
 }
 
 // One block: rows [q0, q0 + 16R) of (batch b, head h). Thread t belongs to
-// row group g = t / 8 (rows g + 16r, r < R) and owns keys kg + 8j (j < 8)
-// of each tile in S, and 4-dim chunks kg + 8i (i < DPT) of its rows of O,
-// kg = t % 8.
-template <int R, int DPT>
+// row group g = t / 8 (rows g + 16r, r < R) and owns keys kg + 8j
+// (j < KT / 8) of each tile in S, and 4-dim chunks kg + 8i (i < DPT) of its
+// rows of O, kg = t % 8. WIDE (Dh > 128): only output columns [c0, c0 + W)
+// of the row, V held for those alone; else all of them (c0, W unused, so
+// these instantiations compile as they did before wide heads).
+template <int R, int DPT, int KT, bool WIDE>
 __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
-                          int b, int h, int q0, float* smem) {
-  constexpr int BQ = kGroups * R;
+                          int b, int h, int q0, int c0, int W, float* smem) {
+  constexpr int BQ = kGroups * R, JK = KT / 8;
   const int RF = row_floats(Dh), nch = (Dh + 3) >> 2;
-  float* mask_s = smem;                    // [kKeys]
-  float* q_s = mask_s + kKeys;             // [BQ][RF]
-  float* kv_s = q_s + BQ * RF;             // [2 stages][K, V][kKeys][RF]
-  float* p_s = kv_s + 4 * kKeys * RF;      // [BQ][kPStride]
+  const int wv = WIDE ? min(W, Dh - c0) : Dh;  // this block's columns
+  const int RV = WIDE ? row_floats(W) : RF;
+  const int nco = WIDE ? (wv + 3) >> 2 : nch;
+  const bool vec = (Dh & 3) == 0;
+  float* mask_s = smem;                    // [KT]
+  float* q_s = mask_s + KT;                // [BQ][RF]
+  float* kv_s = q_s + BQ * RF;             // [2 stages][K: KT][RF, V: KT][RV]
+  float* p_s = kv_s + 2 * KT * (RF + RV);  // [BQ][kPStride]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = (tid >> 5) * 4 + (lane >> 3), kg = lane & 7;
@@ -205,16 +213,23 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
   const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh;
   const unsigned char* valid =
       p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
-  const int ntiles = (p.Tk + kKeys - 1) / kKeys;
+  const int ntiles = (p.Tk + KT - 1) / KT;
 
   // the key tile's copies, and its validity bytes read into a register
   // (stored at the next iteration's top, after this tile's arithmetic)
   auto issue = [&](int t) {
-    float* ks = kv_s + (t & 1) * 2 * kKeys * RF;
-    copy_rows<2>({ks, ks + kKeys * RF}, {kgl, vgl}, t * kKeys, kKeys, p.Tk,
-                 Dh, rs, RF, tid, kThreads);
-    const int key = t * kKeys + tid;
-    return tid < kKeys && key < p.Tk && valid ? (int)valid[key] : 1;
+    float* ks = kv_s + (t & 1) * KT * (RF + RV);
+    if (!WIDE) {
+      copy_rows<2>({ks, ks + KT * RF}, {kgl, vgl}, t * KT, KT, p.Tk, Dh, rs,
+                   RF, tid, kThreads);
+    } else {
+      copy_rows<1>({ks}, {kgl}, t * KT, KT, p.Tk, Dh, rs, RF, tid,
+                   kThreads);
+      copy_rows<1>({ks + KT * RF}, {vgl + c0}, t * KT, KT, p.Tk, wv, rs, RV,
+                   tid, kThreads, Dh);
+    }
+    const int key = t * KT + tid;
+    return tid < KT && key < p.Tk && valid ? (int)valid[key] : 1;
   };
   // Q raw (scaled in place once it lands) and key tile 0: one group
   copy_rows<1>({q_s}, {qg}, q0, BQ, p.Tq, Dh, rs, RF, tid, kThreads);
@@ -233,7 +248,7 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
 
   for (int t = 0; t < ntiles; ++t) {
     __syncthreads();  // every thread is done with tile t - 1 (stage, mask, P)
-    if (tid < kKeys) mask_s[tid] = key_term(t * kKeys + tid, p.Tk, vb);
+    if (tid < KT) mask_s[tid] = key_term(t * KT + tid, p.Tk, vb);
     if (t + 1 < ntiles) {
       vb = issue(t + 1);
       cp_async_commit();
@@ -247,35 +262,35 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
       __syncthreads();
     }
 
-    const int k0 = t * kKeys;
-    const float* ks = kv_s + (t & 1) * 2 * kKeys * RF;
-    const float* vs = ks + kKeys * RF;
+    const int k0 = t * KT;
+    const float* ks = kv_s + (t & 1) * KT * (RF + RV);
+    const float* vs = ks + KT * RF;
     const float* mk = mask_s;
-    const int nk = min(kKeys, p.Tk - k0);
+    const int nk = min(KT, p.Tk - k0);
 
-    // S = Q.K^T: R rows x 8 keys a thread, 4 dims at a time; a tile of at
-    // most 32 keys in range skips the upper 4 key columns (their slots
-    // stay 0 and take -inf from the mask)
-    float s[R][8];
+    // S = Q.K^T: R rows x JK keys a thread, 4 dims at a time; a tile of at
+    // most KT / 2 keys in range skips the upper half of its key columns
+    // (their slots stay 0 and take -inf from the mask)
+    float s[R][JK];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
-    if (nk > 32)
-      scores<R, 8>(s, q_s, ks, g, kg, RF, nch);
+      for (int j = 0; j < JK; ++j) s[r][j] = 0.f;
+    if (nk > KT / 2)
+      scores<R, JK, JK>(s, q_s, ks, g, kg, RF, nch);
     else
-      scores<R, 4>(s, q_s, ks, g, kg, RF, nch);
+      scores<R, JK, JK / 2>(s, q_s, ks, g, kg, RF, nch);
 
-    // online softmax: the 8 lanes of a row group hold its 64 scores
-    float mk8[8];
+    // online softmax: the 8 lanes of a row group hold its KT scores
+    float mk8[JK];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) mk8[j] = mk[kg + 8 * j];
+    for (int j = 0; j < JK; ++j) mk8[j] = mk[kg + 8 * j];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int row = q0 + g + 16 * r;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < JK; ++j) {
         float add = mk8[j];  // key validity + causal, one fp32 sum
         if (p.causal && k0 + kg + 8 * j > row) add += kNeg;
         s[r][j] += add;
@@ -290,7 +305,7 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
       float sum = 0.f;
       float* prow = p_s + (g + 16 * r) * kPStride + kg;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < JK; ++j) {
         const float e = ex2((s[r][j] - m_new) * kLog2e);
         sum += e;
         prow[8 * j] = e;
@@ -318,9 +333,9 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
 #pragma unroll
         for (int i = 0; i < DPT; ++i) {
           const int c = kg + 8 * i;
-          if (c < nch) {
+          if (c < nco) {
             const float4 vv = *reinterpret_cast<const float4*>(
-                vs + (j + jj) * RF + c * 4);
+                vs + (j + jj) * RV + c * 4);
 #pragma unroll
             for (int r = 0; r < R; ++r) {
               const float pj = jj == 0   ? pv[r].x
@@ -347,45 +362,51 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
     den += __shfl_xor_sync(kFull, den, 4);
     const int t = q0 + g + 16 * r;
     if (t >= p.Tq) continue;
-    float* orow = og + (size_t)t * rs;
+    float* orow = og + (size_t)t * rs + (WIDE ? c0 : 0);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int c = kg + 8 * i;
-      if (c >= nch) continue;
+      if (c >= nco) continue;
       const float4 x = make_float4(o[r][i][0] / den, o[r][i][1] / den,
                                    o[r][i][2] / den, o[r][i][3] / den);
-      if ((Dh & 3) == 0) {
+      if (vec) {
         *reinterpret_cast<float4*>(orow + c * 4) = x;
       } else {
         const int d = c * 4;
         orow[d] = x.x;
-        if (d + 1 < Dh) orow[d + 1] = x.y;
-        if (d + 2 < Dh) orow[d + 2] = x.z;
-        if (d + 3 < Dh) orow[d + 3] = x.w;
+        if (d + 1 < wv) orow[d + 1] = x.y;
+        if (d + 2 < wv) orow[d + 2] = x.z;
+        if (d + 3 < wv) orow[d + 3] = x.w;
       }
     }
   }
 }
 
-template <int R, int DPT>
+// blockIdx.y = h * col_blocks + column block; W: O's columns a block
+// (block_cols).
+template <int R, int DPT, int KT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
-    gpv_attn_fp32_tile_kernel(Problem p, int H, int Dh, float scale) {
+    gpv_attn_fp32_tile_kernel(Problem p, int H, int Dh, float scale, int W) {
   extern __shared__ __align__(16) float smem_f[];
-  tile_rows<R, DPT>(p, H, Dh, scale, blockIdx.z, blockIdx.y,
-                    blockIdx.x * kGroups * R, smem_f);
+  const int nc = WIDE ? (Dh + W - 1) / W : 1;
+  const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
+  tile_rows<R, DPT, KT, WIDE>(p, H, Dh, scale, blockIdx.z, h,
+                              blockIdx.x * kGroups * R, c * W, W, smem_f);
 }
 
 // Both co-attention directions in one launch: blockIdx.z = 2 * b + dir.
-template <int R, int DPT>
+template <int R, int DPT, int KT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     gpv_attn_fp32_bi_kernel(Problem p1, Problem p2, int H, int Dh,
-                            float scale) {
+                            float scale, int W) {
   extern __shared__ __align__(16) float smem_f[];
   const Problem p = (blockIdx.z & 1) ? p2 : p1;
   const int q0 = blockIdx.x * kGroups * R;
   if (q0 >= p.Tq) return;  // whole block: before any barrier
-  tile_rows<R, DPT>(p, H, Dh, scale, blockIdx.z >> 1, blockIdx.y, q0,
-                    smem_f);
+  const int nc = WIDE ? (Dh + W - 1) / W : 1;
+  const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
+  tile_rows<R, DPT, KT, WIDE>(p, H, Dh, scale, blockIdx.z >> 1, h, q0,
+                              c * W, W, smem_f);
 }
 
 // --------------------------------------------------------------- decode
@@ -542,48 +563,227 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
   }
 }
 
+// The decode variant above Dh 128: one block per (batch, head and column
+// block of W output columns from c0, ROWS query rows), as
+// gpv_attn_fp32_decode_kernel otherwise; each warp holds its keys' whole
+// K rows and only the block's columns of their V rows.
+template <int ROWS>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+    gpv_attn_fp32_decode_wide_kernel(Problem p, int H, int Dh, float scale,
+                                     int W) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int nc = (Dh + W - 1) / W;
+  const int h = blockIdx.x / nc, b = blockIdx.y, q0 = blockIdx.z * ROWS;
+  const int c0 = (blockIdx.x - h * nc) * W;
+  const int wv = min(W, Dh - c0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int RF = row_floats(Dh), D4 = dims4(Dh), nch = D4 >> 2;
+  const int RV = row_floats(W);
+  const int PW = dims4(wv) + 2;
+  float* q_s = smem_f;                                   // [ROWS][D4]
+  float* kv0 = q_s + ROWS * D4;  // warp w's K rows, then V rows
+  const int WS = kWarpKeys * (RF + RV);  // floats of a warp's rows
+  float* k_s = kv0 + warp * WS;
+  float* v_s = k_s + kWarpKeys * RF;
+
+  const size_t rs = (size_t)H * Dh;
+  const float* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh;
+  const float* kgl = p.k + ((size_t)b * p.Tk * H + h) * Dh;
+  const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh;
+  const unsigned char* valid =
+      p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
+
+  // this warp's K rows (whole) and V rows (this block's columns)
+  auto copy_kv = [&](int k0) {
+    const int n = min(kWarpKeys, p.Tk - k0);
+    copy_rows<1>({k_s}, {kgl}, k0, n, p.Tk, Dh, rs, RF, lane, 32);
+    copy_rows<1>({v_s}, {vgl + c0}, k0, n, p.Tk, wv, rs, RV, lane, 32, Dh);
+  };
+  // q raw (one group for the block), then this warp's first K and V rows
+  copy_rows<1>({q_s}, {qg}, q0, ROWS, p.Tq, Dh, rs, D4, threadIdx.x,
+               blockDim.x);
+  cp_async_commit();
+  const int first = warp * kWarpKeys;
+  if (first < p.Tk) copy_kv(first);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // q landed; scaled in fp32 as the TPU kernel does
+  for (int i = threadIdx.x; i < ROWS * D4; i += blockDim.x) q_s[i] *= scale;
+  __syncthreads();
+
+  float m[ROWS], l[ROWS], acc[ROWS][4];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int k0 = first; k0 < p.Tk; k0 += nw * kWarpKeys) {
+    const int nk = min(kWarpKeys, p.Tk - k0);
+    const int key = k0 + lane;
+    const bool live = lane < nk;
+    // key validity, read while the rows land
+    const float kv = live && valid && !valid[key] ? kNeg : 0.f;
+    cp_async_wait<0>();
+    __syncwarp();
+
+    float s[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
+    if (live) {  // four partial sums a row, added at the end
+      const float* kr = k_s + lane * RF;
+      float dot[ROWS][4];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        dot[r][0] = dot[r][1] = dot[r][2] = dot[r][3] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < nch; ++c) {
+        const float4 kx = *reinterpret_cast<const float4*>(kr + c * 4);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float4 qx =
+              *reinterpret_cast<const float4*>(q_s + r * D4 + c * 4);
+          dot[r][0] = fmaf(qx.x, kx.x, dot[r][0]);
+          dot[r][1] = fmaf(qx.y, kx.y, dot[r][1]);
+          dot[r][2] = fmaf(qx.z, kx.z, dot[r][2]);
+          dot[r][3] = fmaf(qx.w, kx.w, dot[r][3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        s[r] = (dot[r][0] + dot[r][1]) + (dot[r][2] + dot[r][3]);
+    }
+    float e[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float add = kv;  // key validity + causal, one fp32 sum
+      if (p.causal && key > q0 + r) add += kNeg;
+      const float sc = live ? s[r] + add : -INFINITY;
+      const float m_new = fmaxf(m[r], warp_max(sc));
+      const float alpha = ex2((m[r] - m_new) * kLog2e);
+      e[r] = live ? ex2((sc - m_new) * kLog2e) : 0.f;
+      l[r] = l[r] * alpha + e[r];  // this lane's share
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
+    }
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      float pj[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) pj[r] = __shfl_sync(kFull, e[r], j);
+      const float* vr = v_s + j * RV + lane;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (32 * i >= wv) break;  // the same for the whole warp
+        const float vx = lane + 32 * i < wv ? vr[32 * i] : 0.f;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) acc[r][i] = fmaf(pj[r], vx, acc[r][i]);
+      }
+    }
+    __syncwarp();  // every lane is done with the rows before the next copy
+    const int next = k0 + nw * kWarpKeys;
+    if (next < p.Tk) {
+      copy_kv(next);
+      cp_async_commit();
+    }
+  }
+
+  // each warp's (max, sum, acc) per row into its own rows (32 (RF + RV)
+  // floats >= ROWS PW), then one merge over the warps
+  __syncwarp();  // every lane is done with this warp's rows
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const float lw = warp_sum(l[r]);
+    float* mine = k_s + r * PW;
+    if (lane == 0) {
+      mine[0] = m[r];
+      mine[1] = lw;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < wv) mine[2 + lane + 32 * i] = acc[r][i];
+  }
+  __syncthreads();
+  const int rows = min(p.Tq - q0, ROWS);
+  for (int i = threadIdx.x; i < rows * wv; i += blockDim.x) {
+    const int r = i / wv, d = i - r * wv;
+    float M = -INFINITY;
+    for (int w = 0; w < nw; ++w) M = fmaxf(M, kv0[w * WS + r * PW]);
+    float L = 0.f, O = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float* pw = kv0 + w * WS + r * PW;
+      const float f = ex2((pw[0] - M) * kLog2e);
+      L = fmaf(f, pw[1], L);
+      O = fmaf(f, pw[2 + d], O);
+    }
+    p.out[(((size_t)b * p.Tq + q0 + r) * H + h) * Dh + c0 + d] = O / L;
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 float head_scale(int Dh) { return (float)(1.0 / sqrt((double)Dh)); }
 
-// 4-dim chunks a thread owns in O: Dh <= 32 * DPT
-int chunks_per_thread(int Dh) { return (Dh + 31) / 32; }
+// 4-dim chunks a thread owns in O: O's columns a block <= 32 * DPT
+int chunks_per_thread(int W) { return (W + 31) / 32; }
 
-template <int R>
-cudaError_t launch_tile(const Problem& p, int B, int H, int Dh, int smem,
-                        cudaStream_t s) {
-  const dim3 grid((p.Tq + kGroups * R - 1) / (kGroups * R), H, B);
-  const float sc = head_scale(Dh);
-  switch (chunks_per_thread(Dh)) {
-    case 1: gpv_attn_fp32_tile_kernel<R, 1><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
-    case 2: gpv_attn_fp32_tile_kernel<R, 2><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
-    case 3: gpv_attn_fp32_tile_kernel<R, 3><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
-    default: gpv_attn_fp32_tile_kernel<R, 4><<<grid, kThreads, smem, s>>>(p, H, Dh, sc); break;
-  }
-  return cudaGetLastError();
+// The tile (BI false) or K2 (BI true) kernel of R row slots a thread, DPT
+// chunks of O a thread and KT keys a tile, wide or not.
+template <bool BI, int R, int DPT, int KT, bool WIDE>
+auto tile_kernel() {
+  if constexpr (BI)
+    return gpv_attn_fp32_bi_kernel<R, DPT, KT, WIDE>;
+  else
+    return gpv_attn_fp32_tile_kernel<R, DPT, KT, WIDE>;
 }
 
-cudaError_t launch_bi(const Problem& p1, const Problem& p2, int B, int H,
-                      int Dh, int smem, cudaStream_t s) {
-  constexpr int R = 2;  // 32 rows a block
-  const int tq = p1.Tq > p2.Tq ? p1.Tq : p2.Tq;
-  const dim3 grid((tq + kGroups * R - 1) / (kGroups * R), H, 2 * B);
-  const float sc = head_scale(Dh);
-  switch (chunks_per_thread(Dh)) {
-    case 1: gpv_attn_fp32_bi_kernel<R, 1><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
-    case 2: gpv_attn_fp32_bi_kernel<R, 2><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
-    case 3: gpv_attn_fp32_bi_kernel<R, 3><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
-    default: gpv_attn_fp32_bi_kernel<R, 4><<<grid, kThreads, smem, s>>>(p1, p2, H, Dh, sc); break;
+// f(kernel) for R row slots, `key_tile` keys and head dim Dh whose blocks
+// hold W output columns: up to Dh 128 the 64-key instantiation of Dh's
+// chunks a thread; wider heads 4 chunks a thread (W > 64) and 64, 32 or
+// 16 keys.
+template <bool BI, int R, typename F>
+cudaError_t with_tile(int key_tile, int Dh, int W, F f) {
+  if (Dh <= kMaxCols) {
+    if (key_tile != 64) return cudaErrorInvalidValue;
+    switch (chunks_per_thread(W)) {
+      case 1: return f(tile_kernel<BI, R, 1, 64, false>());
+      case 2: return f(tile_kernel<BI, R, 2, 64, false>());
+      case 3: return f(tile_kernel<BI, R, 3, 64, false>());
+      default: return f(tile_kernel<BI, R, 4, 64, false>());
+    }
   }
-  return cudaGetLastError();
+  switch (key_tile) {
+    case 64: return f(tile_kernel<BI, R, 4, 64, true>());
+    case 32: return f(tile_kernel<BI, R, 4, 32, true>());
+    case 16: return f(tile_kernel<BI, R, 4, 16, true>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f(kernel) for `rows` rows a block (64 or 32; K2: 32).
+template <bool BI, typename F>
+cudaError_t with_tile_shape(int rows, int key_tile, int Dh, int W, F f) {
+  if constexpr (!BI) {
+    if (rows == 64) return with_tile<false, 4>(key_tile, Dh, W, f);
+  }
+  if (rows == 32) return with_tile<BI, 2>(key_tile, Dh, W, f);
+  return cudaErrorInvalidValue;
 }
 
 template <int ROWS>
-cudaError_t launch_decode(const Problem& p, int B, int H, int Dh, int warps,
-                          int smem, cudaStream_t s) {
-  const dim3 grid(H, B, (p.Tq + ROWS - 1) / ROWS);
-  gpv_attn_fp32_decode_kernel<ROWS><<<grid, warps * 32, smem, s>>>(
-      p, H, Dh, head_scale(Dh));
+cudaError_t launch_decode(const Problem& p, int B, int H, int Dh, int W,
+                          int warps, int smem, cudaStream_t s) {
+  const dim3 grid(H * ((Dh + W - 1) / W), B, (p.Tq + ROWS - 1) / ROWS);
+  if (Dh > kMaxCols)
+    gpv_attn_fp32_decode_wide_kernel<ROWS><<<grid, warps * 32, smem, s>>>(
+        p, H, Dh, head_scale(Dh), W);
+  else
+    gpv_attn_fp32_decode_kernel<ROWS><<<grid, warps * 32, smem, s>>>(
+        p, H, Dh, head_scale(Dh));
   return cudaGetLastError();
 }
 
@@ -594,8 +794,18 @@ cudaError_t set_smem(F* kernel, int bytes) {
                               bytes);
 }
 
-bool bad_dims(int B, int Tq, int Tk, int H, int Dh) {
-  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || Dh <= 0 || Dh > 128;
+bool bad_dims(int B, int Tq, int Tk, int H, int Dh, int cols,
+              int smem_bytes) {
+  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || Dh <= 0 ||
+         bad_cols(Dh, cols) || smem_bytes > kMaxSmem;
+}
+
+// A tile launch the plan may give: 64-key tiles up to Dh 128, and enough
+// shared memory for its block.
+bool bad_tile(int Dh, int W, int rows, int key_tile, int smem_bytes) {
+  return (Dh <= kMaxCols && key_tile != 64) ||
+         (key_tile != 64 && key_tile != 32 && key_tile != 16) ||
+         smem_bytes < tile_smem_bytes(Dh, W, rows, key_tile);
 }
 
 }  // namespace
@@ -604,63 +814,82 @@ bool bad_dims(int B, int Tq, int Tk, int H, int Dh) {
 using namespace gpv_attn;
 
 // Once per process, after loading: allow every instantiation the dynamic
-// shared memory of its largest block (Dh 128). Returns a cudaError_t.
+// shared memory of its largest block (Dh 128 for those of head dims up to
+// 128; all a block may have for the wide ones). Returns a cudaError_t.
 extern "C" int gpv_attn_fp32_init() {
-  const int t64 = tile_smem_bytes(128, 64), t32 = tile_smem_bytes(128, 32);
-  const int dec = decode_smem_bytes(128, kDecodeRows, kDecodeWarps);
   cudaError_t e = cudaSuccess;
-#define GPV_SET(k, bytes) \
-  if (e == cudaSuccess) e = set_smem(k, bytes);
-  GPV_SET((gpv_attn_fp32_tile_kernel<4, 1>), t64)
-  GPV_SET((gpv_attn_fp32_tile_kernel<4, 2>), t64)
-  GPV_SET((gpv_attn_fp32_tile_kernel<4, 3>), t64)
-  GPV_SET((gpv_attn_fp32_tile_kernel<4, 4>), t64)
-  GPV_SET((gpv_attn_fp32_tile_kernel<2, 1>), t32)
-  GPV_SET((gpv_attn_fp32_tile_kernel<2, 2>), t32)
-  GPV_SET((gpv_attn_fp32_tile_kernel<2, 3>), t32)
-  GPV_SET((gpv_attn_fp32_tile_kernel<2, 4>), t32)
-  GPV_SET((gpv_attn_fp32_bi_kernel<2, 1>), t32)
-  GPV_SET((gpv_attn_fp32_bi_kernel<2, 2>), t32)
-  GPV_SET((gpv_attn_fp32_bi_kernel<2, 3>), t32)
-  GPV_SET((gpv_attn_fp32_bi_kernel<2, 4>), t32)
-  GPV_SET((gpv_attn_fp32_decode_kernel<1>), dec)
-  GPV_SET((gpv_attn_fp32_decode_kernel<2>), dec)
-  GPV_SET((gpv_attn_fp32_decode_kernel<4>), dec)
-  GPV_SET((gpv_attn_fp32_decode_kernel<8>), dec)
+  for (int rows = 32; rows <= 64; rows += 32) {
+    const int narrow = tile_smem_bytes(kMaxCols, kMaxCols, rows, 64);
+    auto set = [&](int bytes) {
+      return [bytes](auto kernel) { return set_smem(kernel, bytes); };
+    };
+    for (int W = 32; W <= kMaxCols; W += 32) {  // head dims up to 128
+      if (e == cudaSuccess)
+        e = with_tile_shape<false>(rows, 64, W, W, set(narrow));
+      if (e == cudaSuccess && rows == 32)
+        e = with_tile_shape<true>(rows, 64, W, W, set(narrow));
+    }
+    for (int kt = 16; kt <= 64; kt *= 2) {  // wide heads
+      if (e == cudaSuccess)
+        e = with_tile_shape<false>(rows, kt, 2 * kMaxCols, kMaxCols,
+                                   set(kMaxSmem));
+      if (e == cudaSuccess && rows == 32)
+        e = with_tile_shape<true>(rows, kt, 2 * kMaxCols, kMaxCols,
+                                  set(kMaxSmem));
+    }
+  }
+  const int dec = decode_smem_bytes(kMaxCols, kMaxCols, kDecodeRows,
+                                    kDecodeWarps);
+#define GPV_SET(ROWS)                                                      \
+  if (e == cudaSuccess)                                                    \
+    e = set_smem(gpv_attn_fp32_decode_kernel<ROWS>, dec);                  \
+  if (e == cudaSuccess)                                                    \
+    e = set_smem(gpv_attn_fp32_decode_wide_kernel<ROWS>, kMaxSmem);
+  GPV_SET(1)
+  GPV_SET(2)
+  GPV_SET(4)
+  GPV_SET(8)
 #undef GPV_SET
   return e;
 }
 
 // K1: q/out (B, Tq, H, Dh), k/v (B, Tk, H, Dh), as the wrapper's plan
 // gives it: a block owns `rows` query rows, 1, 2, 4 or 8 for the decode
-// variant with `warps` warps, 32 or 64 for the tile variant (4 warps);
+// variant with `warps` warps, 32 or 64 for the tile variant (4 warps) with
+// `key_tile` keys a tile; `cols` output columns a block above Dh 128;
 // `smem_bytes` at least what that block needs. Returns a cudaError_t.
 extern "C" int gpv_attn_fp32(const void* q, const void* k, const void* v,
                              const unsigned char* key_valid, void* out, int B,
                              int Tq, int Tk, int H, int Dh, int causal,
-                             int rows, int warps, int smem_bytes,
-                             void* stream) {
-  if (bad_dims(B, Tq, Tk, H, Dh)) return cudaErrorInvalidValue;
+                             int rows, int warps, int key_tile, int cols,
+                             int smem_bytes, void* stream) {
+  if (bad_dims(B, Tq, Tk, H, Dh, cols, smem_bytes))
+    return cudaErrorInvalidValue;
+  const int W = block_cols(Dh, cols);
   const Problem p{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), key_valid,
                   static_cast<float*>(out), Tq, Tk, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= kDecodeRows) {
     if (rows < 1 || (rows & (rows - 1)) || warps < 1 ||
-        warps > kDecodeWarps || smem_bytes < decode_smem_bytes(Dh, rows, warps))
+        warps > kDecodeWarps || key_tile != kWarpKeys ||
+        smem_bytes < decode_smem_bytes(Dh, W, rows, warps))
       return cudaErrorInvalidValue;
     switch (rows) {
-      case 1: return launch_decode<1>(p, B, H, Dh, warps, smem_bytes, s);
-      case 2: return launch_decode<2>(p, B, H, Dh, warps, smem_bytes, s);
-      case 4: return launch_decode<4>(p, B, H, Dh, warps, smem_bytes, s);
-      default: return launch_decode<8>(p, B, H, Dh, warps, smem_bytes, s);
+      case 1: return launch_decode<1>(p, B, H, Dh, W, warps, smem_bytes, s);
+      case 2: return launch_decode<2>(p, B, H, Dh, W, warps, smem_bytes, s);
+      case 4: return launch_decode<4>(p, B, H, Dh, W, warps, smem_bytes, s);
+      default: return launch_decode<8>(p, B, H, Dh, W, warps, smem_bytes, s);
     }
   }
-  if ((rows != 32 && rows != 64) || warps != kThreads / 32 ||
-      smem_bytes < tile_smem_bytes(Dh, rows))
+  if (warps != kThreads / 32 || bad_tile(Dh, W, rows, key_tile, smem_bytes))
     return cudaErrorInvalidValue;
-  return rows == 64 ? launch_tile<4>(p, B, H, Dh, smem_bytes, s)
-                    : launch_tile<2>(p, B, H, Dh, smem_bytes, s);
+  const dim3 grid((Tq + rows - 1) / rows, H * col_blocks(Dh, cols), B);
+  const float sc = head_scale(Dh);
+  return with_tile_shape<false>(rows, key_tile, Dh, W, [&](auto kernel) {
+    kernel<<<grid, kThreads, smem_bytes, s>>>(p, H, Dh, sc, W);
+    return cudaGetLastError();
+  });
 }
 
 // K2, both directions on the tile variant (`rows` 32, 4 warps):
@@ -672,10 +901,11 @@ extern "C" int gpv_attn_fp32_bi(const void* q1, const void* k1,
                                 const unsigned char* valid1,
                                 const unsigned char* valid2, void* ctx1,
                                 void* ctx2, int B, int T1, int T2, int H,
-                                int Dh, int rows, int warps, int smem_bytes,
-                                void* stream) {
-  if (bad_dims(B, T1, T2, H, Dh) || rows != 32 || warps != kThreads / 32 ||
-      smem_bytes < tile_smem_bytes(Dh, rows))
+                                int Dh, int rows, int warps, int key_tile,
+                                int cols, int smem_bytes, void* stream) {
+  const int W = block_cols(Dh, cols);
+  if (bad_dims(B, T1, T2, H, Dh, cols, smem_bytes) || rows != 32 ||
+      warps != kThreads / 32 || bad_tile(Dh, W, rows, key_tile, smem_bytes))
     return cudaErrorInvalidValue;
   using F = const float*;
   const Problem p1{static_cast<F>(q2), static_cast<F>(k1), static_cast<F>(v1),
@@ -683,5 +913,11 @@ extern "C" int gpv_attn_fp32_bi(const void* q1, const void* k1,
   const Problem p2{static_cast<F>(q1), static_cast<F>(k2), static_cast<F>(v2),
                    valid2, static_cast<float*>(ctx2), T1, T2, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return launch_bi(p1, p2, B, H, Dh, smem_bytes, s);
+  const int tq = T1 > T2 ? T1 : T2;
+  const dim3 grid((tq + rows - 1) / rows, H * col_blocks(Dh, cols), 2 * B);
+  const float sc = head_scale(Dh);
+  return with_tile_shape<true>(rows, key_tile, Dh, W, [&](auto kernel) {
+    kernel<<<grid, kThreads, smem_bytes, s>>>(p1, p2, H, Dh, sc, W);
+    return cudaGetLastError();
+  });
 }

@@ -34,6 +34,15 @@
 // - The warps' (max, sum, acc) are combined once through shared memory and
 //   warp 0 writes the output row in bf16.
 //
+// Any Dh >= 1: rows are copied 16 bytes at a time when Dh is a multiple of
+// 8, 4 bytes when it is even, else one value at a time, and zero-filled to
+// a multiple of 8. Above Dh 128 a block computes at most 128 output
+// columns: the grid's x runs over (head, column block), each block scores
+// the keys over the whole Dh (q and the K rows whole in shared memory) and
+// keeps only its columns of V, so a lane's pairs stay at most two. K rows
+// of 32 keys a warp at Dh 768 take 50 KB, so the wrapper's plan cuts the
+// warps until the block fits 227 KB.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 #include <math.h>
 
@@ -54,31 +63,48 @@ struct Decode {
   bf16* out;                       // (B, 1, H, Dh)
   int Tk, H, Dh, causal;
   float scale2;  // log2(e) / sqrt(Dh)
+  int W;         // output columns a block (block_cols)
 };
 
-// q as fp32 (room for Dh 128), each warp's (max, sum, acc[Dh]), and each
-// warp's K and V rows.
-__host__ __device__ constexpr int part_bytes(int Dh, int warps) {
-  return (warps * (Dh + 2) * 4 + 15) / 16 * 16;
+// q as fp32 (Dh rounded up to 8, room for 128 at least), each warp's
+// (max, sum, acc[W]) and each warp's K rows (Dh wide) and V rows (W wide).
+__host__ __device__ constexpr int q_floats(int Dh) {
+  return ceil8(Dh) > 128 ? ceil8(Dh) : 128;
 }
-constexpr int decode_smem_bytes(int Dh, int warps) {
-  return 128 * 4 + part_bytes(Dh, warps) +
-         warps * 2 * kWarpKeys * row_chunks(Dh) * 16;
+__host__ __device__ constexpr int part_bytes(int W, int warps) {
+  return (warps * (ceil8(W) + 2) * 4 + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int decode_smem_bytes(int Dh, int W,
+                                                    int warps) {
+  return q_floats(Dh) * 4 + part_bytes(W, warps) +
+         warps * kWarpKeys * (row_chunks(Dh) + row_chunks(W)) * 16;
 }
 
-// DP: bf16 pairs a lane owns in P.V (Dh <= 64 * DP).
-template <int DP>
+// DP: bf16 pairs a lane owns in P.V (W <= 64 * DP). GEN: any Dh (column
+// blocks above 128, copies in bf16_unit's units); else Dh <= 128 and a
+// multiple of 8, whose code is what it was before other head dims.
+template <int DP, bool GEN>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     gpv_attn_decode_kernel(Decode p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int nc = GEN ? (p.Dh + p.W - 1) / p.W : 1;  // column blocks a head
+  const int h = blockIdx.x / nc, b = blockIdx.y;
+  const int c0 = GEN ? (blockIdx.x - h * nc) * p.W : 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int Dh = p.Dh, dc = Dh >> 3, ROW = row_chunks(Dh) * 8;
+  const int Dh = p.Dh, D8 = GEN ? ceil8(Dh) : Dh, dc = D8 >> 3;
+  const int ROW = (GEN ? row_chunks(Dh) : (Dh / 8) | 1) * 8;
+  const int VROW = GEN ? row_chunks(p.W) * 8 : ROW;
+  const int PW = GEN ? ceil8(p.W) + 2 : Dh + 2;  // floats of a warp's partials
+  const int wv = GEN ? min(p.W, Dh - c0) : Dh;   // this block's columns
+  const int unit = bf16_unit(Dh);
+  const int qf = GEN ? q_floats(Dh) : 128;
   float* q_s = reinterpret_cast<float*>(smem);
-  float* part = q_s + 128;
-  bf16* k_s = reinterpret_cast<bf16*>(smem + 128 * 4 + part_bytes(Dh, nw)) +
-              warp * 2 * kWarpKeys * ROW;
+  float* part = q_s + qf;
+  bf16* k_s = reinterpret_cast<bf16*>(
+                  smem + qf * 4 +
+                  (GEN ? part_bytes(p.W, nw) : (nw * PW * 4 + 15) / 16 * 16)) +
+              warp * kWarpKeys * (ROW + VROW);
   bf16* v_s = k_s + kWarpKeys * ROW;
 
   const size_t rs = (size_t)p.H * Dh;  // elements between two keys of (b, h)
@@ -88,21 +114,31 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
   const bf16* qg = p.q + ((size_t)b * p.H + h) * Dh;
 
-  // this warp's next rows of K and V: one 16-byte copy per lane at a time
+  // this warp's next rows of K (whole) and V (this block's columns)
   auto copy_rows = [&](int k0) {
     const int nk = min(kWarpKeys, p.Tk - k0);
-    for (int i = lane; i < nk * dc; i += 32) {
-      const int r = i / dc, c = i - r * dc;
-      const size_t off = (size_t)(k0 + r) * rs + c * 8;
-      cp_async16(k_s + r * ROW + c * 8, kg + off, 16);
-      cp_async16(v_s + r * ROW + c * 8, vg + off, 16);
+    if constexpr (!GEN) {
+      for (int i = lane; i < nk * dc; i += 32) {
+        const int r = i / dc, c = i - r * dc;
+        const size_t off = (size_t)(k0 + r) * rs + c * 8;
+        cp_async16(k_s + r * ROW + c * 8, kg + off, 16);
+        cp_async16(v_s + r * ROW + c * 8, vg + off, 16);
+      }
+    } else if (nc == 1) {
+      copy_bf16_rows<2>(unit, {k_s, v_s}, {kg, vg}, k0, nk, p.Tk, 0, D8, Dh,
+                        rs, ROW, lane, 32);
+    } else {
+      copy_bf16_rows<1>(unit, {k_s}, {kg}, k0, nk, p.Tk, 0, D8, Dh, rs, ROW,
+                        lane, 32);
+      copy_bf16_rows<1>(unit, {v_s}, {vg}, k0, nk, p.Tk, c0, ceil8(p.W),
+                        Dh - c0, rs, VROW, lane, 32);
     }
     cp_async_commit();
   };
   const int first = warp * kWarpKeys;
   if (first < p.Tk) copy_rows(first);  // lands while q is read
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x)
-    q_s[d] = __bfloat162float(qg[d]);
+  for (int d = threadIdx.x; d < D8; d += blockDim.x)
+    q_s[d] = !GEN || d < Dh ? __bfloat162float(qg[d]) : 0.f;
   __syncthreads();
 
   float m = -INFINITY, l = 0.f, acc[DP][2];
@@ -158,11 +194,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll 8
     for (int j = 0; j < nk; ++j) {
       const float pj = __shfl_sync(kFull, e, j);
-      const bf16* vr = v_s + j * ROW;
+      const bf16* vr = v_s + j * VROW;
 #pragma unroll
       for (int i = 0; i < DP; ++i) {
         const int d = 2 * lane + 64 * i;
-        if (d < Dh) {
+        if (d < wv) {  // an odd wv's last pair reads a zero-filled pad
           const float2 f = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(vr + d));
           acc[i][0] = fmaf(pj, f.x, acc[i][0]);
@@ -174,7 +210,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (k0 + nw * kWarpKeys < p.Tk) copy_rows(k0 + nw * kWarpKeys);
   }
 
-  float* mine = part + warp * (Dh + 2);
+  float* mine = part + warp * PW;
   if (lane == 0) {
     mine[0] = m;
     mine[1] = l;
@@ -182,7 +218,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
     const int d = 2 * lane + 64 * i;
-    if (d < Dh) {
+    if (d < wv) {
       mine[2 + d] = acc[i][0];
       mine[3 + d] = acc[i][1];
     }
@@ -191,31 +227,36 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   if (warp != 0) return;
 
   float M = -INFINITY;
-  for (int w = 0; w < nw; ++w) M = fmaxf(M, part[w * (Dh + 2)]);
+  for (int w = 0; w < nw; ++w) M = fmaxf(M, part[w * PW]);
   float L = 0.f, o[DP][2];
 #pragma unroll
   for (int i = 0; i < DP; ++i) o[i][0] = o[i][1] = 0.f;
   for (int w = 0; w < nw; ++w) {
-    const float* pw = part + w * (Dh + 2);
+    const float* pw = part + w * PW;
     const float f = ex2(pw[0] - M);  // a warp without keys: 0
     L += f * pw[1];
 #pragma unroll
     for (int i = 0; i < DP; ++i) {
       const int d = 2 * lane + 64 * i;
-      if (d < Dh) {
+      if (d < wv) {
         o[i][0] = fmaf(f, pw[2 + d], o[i][0]);
         o[i][1] = fmaf(f, pw[3 + d], o[i][1]);
       }
     }
   }
-  bf16* og = p.out + ((size_t)b * p.H + h) * Dh;
+  bf16* og = p.out + ((size_t)b * p.H + h) * Dh + c0;
   const float inv = 1.f / L;
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
     const int d = 2 * lane + 64 * i;
-    if (d < Dh)
-      *reinterpret_cast<uint32_t*>(og + d) =
-          pack_bf16(o[i][0] * inv, o[i][1] * inv);
+    if (d < wv) {
+      if constexpr (GEN)
+        store_bf16_pair(og + d, o[i][0] * inv, o[i][1] * inv, (Dh & 1) == 0,
+                        d + 1 < wv);
+      else
+        *reinterpret_cast<uint32_t*>(og + d) =
+            pack_bf16(o[i][0] * inv, o[i][1] * inv);
+    }
   }
 }
 
@@ -224,39 +265,52 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
 using namespace gpv_attn;
 
-// Once per process, after loading: allow both instantiations the dynamic
-// shared memory of the largest block. Returns a cudaError_t.
+// Once per process, after loading: allow each instantiation the dynamic
+// shared memory of its largest block (Dh 128 for those of head dims up to
+// 128 that are multiples of 8, all a block may have for the others).
+// Returns a cudaError_t.
 extern "C" int gpv_attn_decode_init() {
-  constexpr int bytes = decode_smem_bytes(128, kMaxWarps);
-  cudaError_t e = cudaFuncSetAttribute(
-      gpv_attn_decode_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gpv_attn_decode_kernel<2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int narrow = decode_smem_bytes(128, 128, kMaxWarps);
+  cudaError_t e = cudaSuccess;
+#define GPV_SET(DP, GEN, bytes)                                        \
+  if (e == cudaSuccess)                                                \
+    e = cudaFuncSetAttribute(gpv_attn_decode_kernel<DP, GEN>,          \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, \
                              bytes);
+  GPV_SET(1, false, narrow)
+  GPV_SET(2, false, narrow)
+  GPV_SET(1, true, kMaxSmem)
+  GPV_SET(2, true, kMaxSmem)
+#undef GPV_SET
   return e;
 }
 
-// K1 with Tq = 1: q/out (B, 1, H, Dh), k/v (B, Tk, H, Dh); `warps` and
-// `smem_bytes` as the wrapper's plan gives them.
+// K1 with Tq = 1: q/out (B, 1, H, Dh), k/v (B, Tk, H, Dh); `warps`, `cols`
+// and `smem_bytes` as the wrapper's plan gives them.
 extern "C" int gpv_attn_decode(const void* q, const void* k, const void* v,
                                const unsigned char* key_valid, void* out,
                                int B, int Tk, int H, int Dh, int causal,
-                               int warps, int smem_bytes, void* stream) {
-  if (B <= 0 || Tk <= 0 || H <= 0 || Dh <= 0 || Dh > 128 || Dh % 8 ||
-      warps < 1 || warps > kMaxWarps ||
-      smem_bytes < decode_smem_bytes(Dh, warps))
+                               int warps, int cols, int smem_bytes,
+                               void* stream) {
+  if (B <= 0 || Tk <= 0 || H <= 0 || Dh <= 0 || bad_cols(Dh, cols) ||
+      warps < 1 || warps > kMaxWarps || smem_bytes > kMaxSmem ||
+      smem_bytes < decode_smem_bytes(Dh, block_cols(Dh, cols), warps))
     return cudaErrorInvalidValue;
+  const int W = block_cols(Dh, cols);
   const Decode p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                  static_cast<const bf16*>(v), key_valid,
                  static_cast<bf16*>(out), Tk, H, Dh, causal,
-                 (float)(1.4426950408889634 / sqrt((double)Dh))};
-  const dim3 grid(H, B);
+                 (float)(1.4426950408889634 / sqrt((double)Dh)), W};
+  const dim3 grid(H * col_blocks(Dh, cols), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh <= 64)
-    gpv_attn_decode_kernel<1><<<grid, warps * 32, smem_bytes, s>>>(p);
+  const bool gen = Dh > kMaxCols || Dh % 8;
+  if (W <= 64 && !gen)
+    gpv_attn_decode_kernel<1, false><<<grid, warps * 32, smem_bytes, s>>>(p);
+  else if (!gen)
+    gpv_attn_decode_kernel<2, false><<<grid, warps * 32, smem_bytes, s>>>(p);
+  else if (W <= 64)
+    gpv_attn_decode_kernel<1, true><<<grid, warps * 32, smem_bytes, s>>>(p);
   else
-    gpv_attn_decode_kernel<2><<<grid, warps * 32, smem_bytes, s>>>(p);
+    gpv_attn_decode_kernel<2, true><<<grid, warps * 32, smem_bytes, s>>>(p);
   return cudaGetLastError();
 }

@@ -17,8 +17,21 @@
 // rounded to bf16; P . V accumulated in fp32; the output in bf16. Scores,
 // mask and maxima are kept times log2(e) (scale log2(e)/sqrt(Dh), mask
 // -1e9 log2(e)), so each exponential is one ex2. Layout
-// (B, T, H, Dh), contiguous, every pointer 16-byte aligned, Dh a multiple
-// of 8 and at most 128.
+// (B, T, H, Dh), contiguous, every pointer 16-byte aligned, any Dh >= 1.
+// Rows are copied 16 bytes at a time when Dh is a multiple of 8, 4 bytes
+// when it is even, else one value at a time; the padding up to the
+// product's depth is zero-filled, so S and O are unchanged by it.
+//
+// Head dims up to 128 that are multiples of 8 instantiate the product's
+// depth D (Dh rounded up to 16) and keep Q's fragments in registers; each
+// warp's O (16 rows x D) lives in fp32 registers. Every other head dim
+// takes the `wide` instantiations (D = 128, copies in bf16_unit's units).
+// Above 128 a warp's O would spill, so a block computes at most 128
+// columns of O: the grid's y runs over (head, column block), every block
+// recomputes S over the whole Dh from Q and K rows held whole in shared
+// memory (Q's fragments read by ldmatrix at each step), and holds only its
+// own columns of V. The key tile is 64, 32 or 16 keys, and the block 1-4
+// warps, as the wrapper's plan finds them to fit 227 KB.
 //
 // What bounds it on the card: bytes. The DETR-encoder shape does 1.84 GFLOP
 // on 12.3 MB, about 150 operations per byte against the H100's ~295 for bf16
@@ -59,7 +72,6 @@ namespace gpv_attn {
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kKeyTile = 64;  // keys per shared-memory tile
 constexpr int kMaxWarps = 4;  // 16 query rows each
 
 struct Attn {
@@ -71,31 +83,42 @@ struct Attn {
   int Tq, Tk, causal;
 };
 
-// Dynamic shared memory of a block of `warps` warps at padded head dim D:
-// the key mask and K and V in two stages, and the block's Q rows.
-constexpr int tile_smem_bytes(int D, int warps) {
-  return 2 * kKeyTile * 4 + 16 * warps * row_chunks(D) * 16 +
-         2 * 2 * kKeyTile * row_chunks(D) * 16;
+// Dynamic shared memory of a block of `warps` warps at padded head dim Dp
+// whose O has W columns, with key tiles of KT keys: the key mask and K
+// (Dp wide) and V (W wide) in two stages, and the block's Q rows.
+__host__ __device__ constexpr int tile_smem_bytes(int Dp, int W, int warps,
+                                                  int KT) {
+  return 2 * KT * 4 + 16 * warps * row_chunks(Dp) * 16 +
+         2 * KT * (row_chunks(Dp) + row_chunks(W)) * 16;
 }
 
-// Rows [q0, q0 + blockDim.x / 2) of (batch b, head h). D: Dh rounded up to
-// a multiple of 16 (the product's depth); the pad is zero-filled.
-template <int D>
+// Rows [q0, q0 + blockDim.x / 2) of (batch b, head h), output columns
+// [c0, c0 + W). Narrow (WIDE false; Dh <= 128, a multiple of 8): D is Dh
+// rounded up to a multiple of 16, the depth of both products and O's
+// width; c0 = 0, W = D, 16-byte copies (the code of these instantiations
+// is what it was before other head dims). WIDE (any other Dh): D = 128 is
+// O's largest width, W <= D its width here, S's depth Dp is Dh rounded up
+// to 16, and rows are copied in the units bf16_unit gives. KT keys a
+// shared-memory tile.
+template <int D, int KT, bool WIDE>
 __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
                                           float scale2, int b, int h, int q0,
+                                          int c0, int W,
                                           unsigned char* smem) {
-  constexpr int ROW = row_chunks(D) * 8;  // bf16 per shared-memory row
-  constexpr int CH = D / 8;               // 16-byte chunks copied per row
-  constexpr int KS = D / 16;              // k-steps of Q.K^T
-  constexpr int NO = D / 8;               // 8-wide column tiles of O
+  constexpr int NO = D / 8;   // 8-wide column tiles of O (WIDE: at most)
+  constexpr int NJ = KT / 8;  // 8-key column tiles of S
+  constexpr int NK = KT / 16; // 16-key steps of P.V
+  const int Dp = WIDE ? (Dh + 15) / 16 * 16 : D;  // S's depth
+  const int ROW = row_chunks(Dp) * 8;              // bf16 per Q / K row
+  const int VROW = WIDE ? row_chunks(W) * 8 : ROW; // bf16 per V row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, rows = nthreads / 2;
   float* mask_s = reinterpret_cast<float*>(smem);
-  bf16* q_s = reinterpret_cast<bf16*>(smem + 2 * kKeyTile * 4);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + 2 * KT * 4);
   bf16* k_s = q_s + rows * ROW;
-  bf16* v_s = k_s + 2 * kKeyTile * ROW;
+  bf16* v_s = k_s + 2 * KT * ROW;
 
-  const int dc = Dh >> 3;  // chunks that hold data
+  const int unit = bf16_unit(Dh);
   const size_t rs = (size_t)H * Dh;  // elements between two rows of (b, h)
   const bf16* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh;
   const bf16* kg = p.k + ((size_t)b * p.Tk * H + h) * Dh;
@@ -103,38 +126,52 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
   const unsigned char* valid =
       p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
 
-  for (int i = tid; i < rows * CH; i += nthreads) {
-    const int r = i / CH, c = i - r * CH, t = q0 + r;
-    const bool ok = t < p.Tq && c < dc;
-    cp_async16(q_s + r * ROW + c * 8, ok ? qg + t * rs + c * 8 : qg,
-               ok ? 16 : 0);
+  constexpr int CH = D / 8;  // narrow: 16-byte chunks copied per row
+  const int dc = Dh >> 3;    // narrow: chunks that hold data
+  if constexpr (WIDE) {
+    copy_bf16_rows<1>(unit, {q_s}, {qg}, q0, rows, p.Tq, 0, Dp, Dh, rs, ROW,
+                      tid, nthreads);
+  } else {
+    for (int i = tid; i < rows * CH; i += nthreads) {
+      const int r = i / CH, c = i - r * CH, t = q0 + r;
+      const bool ok = t < p.Tq && c < dc;
+      cp_async16(q_s + r * ROW + c * 8, ok ? qg + t * rs + c * 8 : qg,
+                 ok ? 16 : 0);
+    }
   }
   auto load_tile = [&](int tile, int stage) {
-    const int k0 = tile * kKeyTile;
-    bf16* ks = k_s + stage * kKeyTile * ROW;
-    bf16* vs = v_s + stage * kKeyTile * ROW;
-    for (int i = tid; i < kKeyTile * CH; i += nthreads) {
-      const int r = i / CH, c = i - r * CH, key = k0 + r;
-      const bool ok = key < p.Tk && c < dc;
-      const size_t off = ok ? key * rs + c * 8 : 0;
-      cp_async16(ks + r * ROW + c * 8, kg + off, ok ? 16 : 0);
-      cp_async16(vs + r * ROW + c * 8, vg + off, ok ? 16 : 0);
+    const int k0 = tile * KT;
+    bf16* ks = k_s + stage * KT * ROW;
+    bf16* vs = v_s + stage * KT * VROW;
+    if constexpr (WIDE) {
+      copy_bf16_rows<1>(unit, {ks}, {kg}, k0, KT, p.Tk, 0, Dp, Dh, rs, ROW,
+                        tid, nthreads);
+      copy_bf16_rows<1>(unit, {vs}, {vg}, k0, KT, p.Tk, c0, W, Dh - c0, rs,
+                        VROW, tid, nthreads);
+    } else {
+      for (int i = tid; i < KT * CH; i += nthreads) {
+        const int r = i / CH, c = i - r * CH, key = k0 + r;
+        const bool ok = key < p.Tk && c < dc;
+        const size_t off = ok ? key * rs + c * 8 : 0;
+        cp_async16(ks + r * ROW + c * 8, kg + off, ok ? 16 : 0);
+        cp_async16(vs + r * ROW + c * 8, vg + off, ok ? 16 : 0);
+      }
     }
-    for (int i = tid; i < kKeyTile; i += nthreads) {
+    for (int i = tid; i < KT; i += nthreads) {
       const int key = k0 + i;
-      mask_s[stage * kKeyTile + i] =
+      mask_s[stage * KT + i] =
           key >= p.Tk ? -INFINITY : (valid && !valid[key]) ? kNeg2 : 0.f;
     }
   };
 
-  const int n_tiles = (p.Tk + kKeyTile - 1) / kKeyTile;
+  const int n_tiles = (p.Tk + KT - 1) / KT;
   load_tile(0, 0);
   cp_async_commit();  // group 0: Q and the first K/V tile
 
   const int row_base = q0 + warp * 16;
   const bool active = row_base < p.Tq;  // warp-uniform
   const int r_lo = row_base + (lane >> 2), r_hi = r_lo + 8;
-  uint32_t qf[KS][4];
+  uint32_t qf[WIDE ? 1 : D / 16][4];  // narrow: Q's fragments, kept
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -153,40 +190,60 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
     }
     __syncthreads();
     if (active) {
-      if (tile == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * ROW +
-                                  kk * 16 + (lane >> 4) * 8);
-      }
-      const bf16* ks = k_s + stage * kKeyTile * ROW;
-      const bf16* vs = v_s + stage * kKeyTile * ROW;
-      const float* mk = mask_s + stage * kKeyTile;
-      const int k0 = tile * kKeyTile;
+      const bf16* ks = k_s + stage * KT * ROW;
+      const bf16* vs = v_s + stage * KT * VROW;
+      const float* mk = mask_s + stage * KT;
+      const int k0 = tile * KT;
 
-      // S = Q.K^T: 8 column tiles of 8 keys; 16-key groups past Tk skipped
-      float s[8][4];
+      // S = Q.K^T: NJ column tiles of 8 keys; 16-key groups past Tk skipped
+      float s[NJ][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      if constexpr (!WIDE) {
+        constexpr int KS = D / 16;  // k-steps of Q.K^T
+        if (tile == 0) {
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        if (k0 + np * 16 >= p.Tk) break;
+          for (int kk = 0; kk < KS; ++kk)
+            ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * ROW +
+                                    kk * 16 + (lane >> 4) * 8);
+        }
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ROW +
-                              kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        for (int np = 0; np < NK; ++np) {
+          if (k0 + np * 16 >= p.Tk) break;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t bk[4];
+            ldmatrix_x4(bk, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                                     ROW +
+                                kk * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          }
+        }
+      } else {  // Q's fragment of each k-step read again from shared memory
+        for (int kk = 0; kk < Dp / 16; ++kk) {
+          uint32_t qa[4];
+          ldmatrix_x4(qa, q_s + (warp * 16 + (lane & 15)) * ROW + kk * 16 +
+                              (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < NK; ++np) {
+            if (k0 + np * 16 >= p.Tk) break;
+            uint32_t bk[4];
+            ldmatrix_x4(bk, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                                     ROW +
+                                kk * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+          }
         }
       }
 
       // scale and mask in fp32, in the log2 domain (scale2 = log2(e) /
       // sqrt(Dh)); row maxima over the quad that shares a row
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float2 mv =
             *reinterpret_cast<const float2*>(mk + j * 8 + (lane & 3) * 2);
         s[j][0] = s[j][0] * scale2 + mv.x;
@@ -194,9 +251,9 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
         s[j][2] = s[j][2] * scale2 + mv.x;
         s[j][3] = s[j][3] * scale2 + mv.y;
       }
-      if (p.causal && k0 + kKeyTile - 1 > row_base) {  // a diagonal tile
+      if (p.causal && k0 + KT - 1 > row_base) {  // a diagonal tile
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (k0 + j * 8 + (lane & 3) * 2 + (e & 1) > ((e & 2) ? r_hi : r_lo))
@@ -204,7 +261,7 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
       }
       float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
         mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
       }
@@ -220,10 +277,10 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
 
       // P in bf16, laid out as the A fragments of P.V; the rounded values
       // are what the row sum adds up
-      uint32_t pa[4][4];
+      uint32_t pa[NK][4];
       float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const uint32_t p_lo =
             pack_bf16(ex2(s[j][0] - m_lo), ex2(s[j][1] - m_lo));
         const uint32_t p_hi =
@@ -245,13 +302,14 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
 
       // O += P.V, V^T fragments by ldmatrix.trans
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < NK; ++kk) {
         if (k0 + kk * 16 >= p.Tk) break;
 #pragma unroll
         for (int np = 0; np < NO / 2; ++np) {
+          if (WIDE && np * 16 >= W) break;
           uint32_t bv[4];
           ldmatrix_x4_trans(
-              bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
+              bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * VROW +
                       np * 16 + (lane >> 4) * 8);
           mma_bf16(o[2 * np], pa[kk], bv[0], bv[1]);
           mma_bf16(o[2 * np + 1], pa[kk], bv[2], bv[3]);
@@ -268,67 +326,117 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
     l_hi += __shfl_xor_sync(kFull, l_hi, o_);
   }
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  bf16* out_lo = p.out + ((size_t)(b * p.Tq + r_lo) * H + h) * Dh;
-  bf16* out_hi = p.out + ((size_t)(b * p.Tq + r_hi) * H + h) * Dh;
+  if constexpr (!WIDE) {
+    bf16* out_lo = p.out + ((size_t)(b * p.Tq + r_lo) * H + h) * Dh;
+    bf16* out_hi = p.out + ((size_t)(b * p.Tq + r_hi) * H + h) * Dh;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = n * 8 + (lane & 3) * 2;
+      if (d >= Dh) break;
+      if (r_lo < p.Tq)
+        *reinterpret_cast<uint32_t*>(out_lo + d) =
+            pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
+      if (r_hi < p.Tq)
+        *reinterpret_cast<uint32_t*>(out_hi + d) =
+            pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+    }
+    return;
+  }
+  const bool even = (Dh & 1) == 0;
+  bf16* out_lo = p.out + ((size_t)(b * p.Tq + r_lo) * H + h) * Dh + c0;
+  bf16* out_hi = p.out + ((size_t)(b * p.Tq + r_hi) * H + h) * Dh + c0;
+  const int wv = Dh - c0;  // columns of this block inside the row: > d
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int d = n * 8 + (lane & 3) * 2;
-    if (d >= Dh) break;
+    if (d >= W || d >= wv) break;
     if (r_lo < p.Tq)
-      *reinterpret_cast<uint32_t*>(out_lo + d) =
-          pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
+      store_bf16_pair(out_lo + d, o[n][0] * inv_lo, o[n][1] * inv_lo, even,
+                      d + 1 < wv);
     if (r_hi < p.Tq)
-      *reinterpret_cast<uint32_t*>(out_hi + d) =
-          pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+      store_bf16_pair(out_hi + d, o[n][2] * inv_hi, o[n][3] * inv_hi, even,
+                      d + 1 < wv);
   }
 }
 
-template <int D>
+// blockIdx.y = h * col_blocks + column block (one column block up to Dh
+// 128); W: the plan's columns a block (WIDE), else D.
+template <int D, int KT, bool WIDE>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    gpv_attn_tile_kernel(Attn p, int H, int Dh, float scale2) {
+    gpv_attn_tile_kernel(Attn p, int H, int Dh, float scale2, int W) {
   extern __shared__ __align__(16) unsigned char smem[];
-  tile_rows<D>(p, H, Dh, scale2, blockIdx.z, blockIdx.y,
-               blockIdx.x * (blockDim.x / 2), smem);
+  const int nc = WIDE ? (Dh + W - 1) / W : 1;
+  const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
+  tile_rows<D, KT, WIDE>(p, H, Dh, scale2, blockIdx.z, h,
+                         blockIdx.x * (blockDim.x / 2), c * W, W, smem);
 }
 
 // Both co-attention directions in one launch: blockIdx.z = 2 * b + dir.
-template <int D>
+template <int D, int KT, bool WIDE>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    gpv_attn_tile_bi_kernel(Attn p1, Attn p2, int H, int Dh, float scale2) {
+    gpv_attn_tile_bi_kernel(Attn p1, Attn p2, int H, int Dh, float scale2,
+                            int W) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Attn p = (blockIdx.z & 1) ? p2 : p1;
   const int q0 = blockIdx.x * (blockDim.x / 2);
   if (q0 >= p.Tq) return;  // whole block: before any barrier
-  tile_rows<D>(p, H, Dh, scale2, blockIdx.z >> 1, blockIdx.y, q0, smem);
+  const int nc = WIDE ? (Dh + W - 1) / W : 1;
+  const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
+  tile_rows<D, KT, WIDE>(p, H, Dh, scale2, blockIdx.z >> 1, h, q0, c * W, W,
+                         smem);
 }
 
-// f(std::integral_constant<int, D>) for the padded head dim D.
+// One instantiation: O's (largest) width D, KT keys a tile, wide or not.
+template <int D, int KT, bool WIDE>
+struct Inst {
+  static constexpr int d = D, kt = KT;
+  static constexpr bool wide = WIDE;
+};
+
+int padded_dim(int Dh) { return (Dh + 15) / 16 * 16; }
+
+// f(Inst<...>{}) for the instantiation that takes head dim Dh with key
+// tiles of `key_tile` keys (the wide ones: above Dh 128, and a Dh that is
+// not a multiple of 8); cudaErrorInvalidValue where there is none.
 template <typename F>
-cudaError_t with_dim(int D, F f) {
-  switch (D) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 48: return f(std::integral_constant<int, 48>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 80: return f(std::integral_constant<int, 80>{});
-    case 96: return f(std::integral_constant<int, 96>{});
-    case 112: return f(std::integral_constant<int, 112>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return cudaErrorInvalidValue;
+cudaError_t with_inst(int Dh, int key_tile, F f) {
+  if (Dh > kMaxCols || Dh % 8) {
+    switch (key_tile) {
+      case 64: return f(Inst<kMaxCols, 64, true>{});
+      case 32: return f(Inst<kMaxCols, 32, true>{});
+      case 16: return f(Inst<kMaxCols, 16, true>{});
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (key_tile != 64) return cudaErrorInvalidValue;
+  switch (padded_dim(Dh)) {
+    case 16: return f(Inst<16, 64, false>{});
+    case 32: return f(Inst<32, 64, false>{});
+    case 48: return f(Inst<48, 64, false>{});
+    case 64: return f(Inst<64, 64, false>{});
+    case 80: return f(Inst<80, 64, false>{});
+    case 96: return f(Inst<96, 64, false>{});
+    case 112: return f(Inst<112, 64, false>{});
+    default: return f(Inst<128, 64, false>{});
   }
 }
 
-int padded_dim(int Dh) { return (Dh + 15) / 16 * 16; }
 // log2(e) / sqrt(Dh): the softmax scale in the log2 domain
 float head_scale2(int Dh) {
   return (float)(1.4426950408889634 / sqrt((double)Dh));
 }
 
-bool bad_shape(int B, int T1, int T2, int H, int Dh, int warps,
-               int smem_bytes) {
-  return B <= 0 || T1 <= 0 || T2 <= 0 || H <= 0 || Dh <= 0 || Dh > 128 ||
-         Dh % 8 || warps < 1 || warps > kMaxWarps ||
-         smem_bytes < tile_smem_bytes(padded_dim(Dh), warps);
+// O's columns a block: the plan's `cols` above 128, else Dh padded to 16.
+int out_cols(int Dh, int cols) {
+  return Dh > kMaxCols ? cols : padded_dim(Dh);
+}
+
+bool bad_shape(int B, int T1, int T2, int H, int Dh, int warps, int key_tile,
+               int cols, int smem_bytes) {
+  return B <= 0 || T1 <= 0 || T2 <= 0 || H <= 0 || Dh <= 0 || warps < 1 ||
+         warps > kMaxWarps || bad_cols(Dh, cols) || smem_bytes > kMaxSmem ||
+         smem_bytes < tile_smem_bytes(padded_dim(Dh), out_cols(Dh, cols),
+                                      warps, key_tile);
 }
 
 }  // namespace
@@ -337,43 +445,53 @@ bool bad_shape(int B, int T1, int T2, int H, int Dh, int warps,
 using namespace gpv_attn;
 
 // Once per process, after loading: allow every instantiation the dynamic
-// shared memory of its largest block. Returns a cudaError_t.
+// shared memory of its largest block (a wide one: all a block may have).
+// Returns a cudaError_t.
 extern "C" int gpv_attn_tile_init() {
-  for (int D = 16; D <= 128; D += 16) {
-    const cudaError_t err = with_dim(D, [](auto d) {
-      constexpr int kD = decltype(d)::value;
-      constexpr int bytes = tile_smem_bytes(kD, kMaxWarps);
-      cudaError_t e = cudaFuncSetAttribute(
-          gpv_attn_tile_kernel<kD>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(gpv_attn_tile_bi_kernel<kD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 bytes);
-      return e;
-    });
-    if (err != cudaSuccess) return err;
+  for (int Dh = 16; Dh <= kMaxCols + 16; Dh += 16) {  // 144: the wide
+    for (int kt = 16; kt <= 64; kt *= 2) {
+      if (Dh <= kMaxCols && kt != 64) continue;
+      const cudaError_t err = with_inst(Dh, kt, [](auto c) {
+        using C = decltype(c);
+        constexpr int bytes =
+            C::wide ? kMaxSmem : tile_smem_bytes(C::d, C::d, kMaxWarps, C::kt);
+        cudaError_t e = cudaFuncSetAttribute(
+            gpv_attn_tile_kernel<C::d, C::kt, C::wide>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e == cudaSuccess)
+          e = cudaFuncSetAttribute(
+              gpv_attn_tile_bi_kernel<C::d, C::kt, C::wide>,
+              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        return e;
+      });
+      if (err != cudaSuccess) return err;
+    }
   }
   return cudaSuccess;
 }
 
-// K1, Tq >= 1 rows per (b, h); `warps` and `smem_bytes` as the wrapper's
-// plan gives them (smem_bytes at least tile_smem_bytes).
+// K1, Tq >= 1 rows per (b, h); `warps`, `key_tile`, `cols` and
+// `smem_bytes` as the wrapper's plan gives them (smem_bytes at least
+// tile_smem_bytes).
 extern "C" int gpv_attn_tile(const void* q, const void* k, const void* v,
                              const unsigned char* key_valid, void* out, int B,
                              int Tq, int Tk, int H, int Dh, int causal,
-                             int warps, int smem_bytes, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, Dh, warps, smem_bytes))
+                             int warps, int key_tile, int cols,
+                             int smem_bytes, void* stream) {
+  if (bad_shape(B, Tq, Tk, H, Dh, warps, key_tile, cols, smem_bytes))
     return cudaErrorInvalidValue;
   const Attn p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), key_valid,
                static_cast<bf16*>(out), Tq, Tk, causal};
-  const dim3 grid((Tq + 16 * warps - 1) / (16 * warps), H, B);
+  const int W = out_cols(Dh, cols);
+  const dim3 grid((Tq + 16 * warps - 1) / (16 * warps),
+                  H * col_blocks(Dh, cols), B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale2 = head_scale2(Dh);
-  return with_dim(padded_dim(Dh), [&](auto d) {
-    gpv_attn_tile_kernel<decltype(d)::value>
-        <<<grid, warps * 32, smem_bytes, s>>>(p, H, Dh, scale2);
+  return with_inst(Dh, key_tile, [&](auto c) {
+    using C = decltype(c);
+    gpv_attn_tile_kernel<C::d, C::kt, C::wide>
+        <<<grid, warps * 32, smem_bytes, s>>>(p, H, Dh, scale2, W);
     return cudaGetLastError();
   });
 }
@@ -386,9 +504,9 @@ extern "C" int gpv_attn_tile_bi(const void* q1, const void* k1,
                                 const unsigned char* valid1,
                                 const unsigned char* valid2, void* ctx1,
                                 void* ctx2, int B, int T1, int T2, int H,
-                                int Dh, int warps, int smem_bytes,
-                                void* stream) {
-  if (bad_shape(B, T1, T2, H, Dh, warps, smem_bytes))
+                                int Dh, int warps, int key_tile, int cols,
+                                int smem_bytes, void* stream) {
+  if (bad_shape(B, T1, T2, H, Dh, warps, key_tile, cols, smem_bytes))
     return cudaErrorInvalidValue;
   const Attn p1{static_cast<const bf16*>(q2), static_cast<const bf16*>(k1),
                 static_cast<const bf16*>(v1), valid1,
@@ -397,12 +515,15 @@ extern "C" int gpv_attn_tile_bi(const void* q1, const void* k1,
                 static_cast<const bf16*>(v2), valid2,
                 static_cast<bf16*>(ctx2), T1, T2, 0};
   const int tq = T1 > T2 ? T1 : T2;
-  const dim3 grid((tq + 16 * warps - 1) / (16 * warps), H, 2 * B);
+  const int W = out_cols(Dh, cols);
+  const dim3 grid((tq + 16 * warps - 1) / (16 * warps),
+                  H * col_blocks(Dh, cols), 2 * B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale2 = head_scale2(Dh);
-  return with_dim(padded_dim(Dh), [&](auto d) {
-    gpv_attn_tile_bi_kernel<decltype(d)::value>
-        <<<grid, warps * 32, smem_bytes, s>>>(p1, p2, H, Dh, scale2);
+  return with_inst(Dh, key_tile, [&](auto c) {
+    using C = decltype(c);
+    gpv_attn_tile_bi_kernel<C::d, C::kt, C::wide>
+        <<<grid, warps * 32, smem_bytes, s>>>(p1, p2, H, Dh, scale2, W);
     return cudaGetLastError();
   });
 }

@@ -95,3 +95,15 @@ def skimage_resize_exact(img: np.ndarray, output_shape: tuple[int, int],
     x = _axis_lerp(x, 1, w)
     return np.clip(x, in_min, in_max)
 
+
+
+def skimage_read_semantics(img: np.ndarray, imh: int, imw: int) -> np.ndarray:
+    """The full reference `read_image` pixel path after imread
+    (coco_generic_dataset.py:54-61): grayscale -> 3 channels, alpha
+    dropped, then the exact anti-aliased resize. Returns float64 in
+    [0, 1]."""
+    if img.ndim == 2:
+        img = np.tile(img[:, :, None], (1, 1, 3))
+    else:
+        img = img[:, :, :3]
+    return skimage_resize_exact(img, (imh, imw), anti_aliasing=True)

@@ -16,6 +16,13 @@ import torch
 from ..models.gpv import GPV
 
 
+
+def init_cache(model: GPV, batch: int):
+    """The text decoder's empty KV cache for `batch` rows, on the model's
+    device and in its dtype (`gpv_tpu.decode.greedy.init_cache`): one
+    (K, V) pair of (batch, max_text_len, heads, head_dim) zeros a layer."""
+    return model.init_text_cache(batch, next(model.parameters()).device)
+
 @torch.inference_mode()
 def greedy_decode(model: GPV, memory: torch.Tensor,
                   mem_valid: Optional[torch.Tensor], cls_id: int,

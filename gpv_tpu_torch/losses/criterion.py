@@ -95,6 +95,43 @@ def _over(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return x
 
 
+def optax_sigmoid_ce(logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid cross-entropy, written as optax writes it
+    (max(x, 0) - x y + log1p(exp(-|x|)))."""
+    return (logits.clamp_min(0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       num_boxes, alpha: float = 0.25,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """Segmentation focal loss (reference `utils/set_criterion.py` masks
+    branch; unused in the default GPV config where masks=False, kept for
+    capability parity as the JAX package keeps it). logits/targets:
+    (N, P)."""
+    prob = torch.sigmoid(logits)
+    ce = optax_sigmoid_ce(logits, targets)
+    p_t = prob * targets + (1 - prob) * (1 - targets)
+    loss = ce * ((1 - p_t) ** gamma)
+    if alpha >= 0:
+        loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
+    loss = loss.mean(1).sum()
+    return _safe_div(loss, torch.as_tensor(num_boxes, dtype=loss.dtype,
+                                           device=loss.device))
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
+              num_boxes) -> torch.Tensor:
+    """Mask dice loss (same provenance as `sigmoid_focal_loss`)."""
+    probs = torch.sigmoid(logits)
+    numerator = 2 * (probs * targets).sum(1)
+    denominator = probs.sum(1) + targets.sum(1)
+    loss = (1 - (numerator + 1) / (denominator + 1)).sum()
+    return _safe_div(loss, torch.as_tensor(num_boxes, dtype=loss.dtype,
+                                           device=loss.device))
+
+
 def text_ce_losses(answer_logits: torch.Tensor, answer_ids: torch.Tensor,
                    answer_lens: torch.Tensor, task_id: torch.Tensor,
                    has_answer: torch.Tensor,

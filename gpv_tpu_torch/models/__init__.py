@@ -1,4 +1,4 @@
-from .detr import DETR
-from .gpv import GPV
+from .detr import DETR, detr_from_config
+from .gpv import GPV, build_gpv
 
-__all__ = ["DETR", "GPV"]
+__all__ = ["DETR", "detr_from_config", "GPV", "build_gpv"]

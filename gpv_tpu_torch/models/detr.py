@@ -135,3 +135,28 @@ class DETR(nn.Module):
         roi = F.layer_norm(roi.to(dtype), roi.shape[-1:], eps=1e-5)
         out["detr_hs"] = torch.cat([roi, hs], dim=-1)
         return out
+
+
+def detr_from_config(cfg, roi_head: bool, dtype=torch.float32,
+                     device=None) -> DETR:
+    """DETR from the `model.detr` config node (configs/exp/gpv.yaml schema),
+    as `gpv_tpu.models.detr.detr_from_config` builds it (the same fields;
+    the ResNet-50 trunk), cast to `dtype` on `device`: the card unless the
+    caller asks for the CPU."""
+    from ..engine import resolve_device
+    return DETR(
+        num_queries=int(cfg.num_queries),
+        num_classes=int(cfg.num_classes),
+        hidden_dim=int(cfg.hidden_dim),
+        nheads=int(cfg.nheads),
+        num_encoder_layers=int(cfg.num_encoder_layers),
+        num_decoder_layers=int(cfg.num_decoder_layers),
+        dim_feedforward=int(cfg.dim_feedforward),
+        dropout=float(cfg.dropout),
+        dilation=bool(cfg.dilation),
+        last_layer_only=bool(cfg.last_layer_only),
+        aux_loss=bool(cfg.aux_loss),
+        roi_head=roi_head,
+        position_embedding=str(cfg.get("position_embedding", "sine")),
+        pre_norm=bool(cfg.get("pre_norm", False))).to(
+            device=resolve_device(device), dtype=dtype)

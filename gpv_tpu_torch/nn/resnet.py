@@ -12,7 +12,7 @@ the backward (`nn.layers.remat`, the JAX package's stage granularity).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -48,13 +48,18 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet-50/101 trunk: (B, 3, H, W) -> C5 (B, 2048, H/32, W/32)."""
+    """ResNet-50/101 trunk: (B, 3, H, W) -> C5 (B, 2048, H/32, W/32); with
+    `return_layers`, {layer name: its (B, C, h, w) output} for those named
+    (as the JAX trunk returns them)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  dilate_c5: bool = False, stem_s2d: bool = False,
-                 remat: bool = False):
+                 remat: bool = False,
+                 return_layers: Optional[Sequence[str]] = None):
         super().__init__()
         self.stem_s2d, self.remat = stem_s2d, remat
+        self.return_layers = (None if return_layers is None
+                              else tuple(return_layers))
         self.conv1 = (nn.Conv2d(12, 64, 4, bias=False) if stem_s2d else
                       nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False))
         self.bn1 = FrozenBatchNorm(64)
@@ -76,8 +81,23 @@ class ResNet(nn.Module):
             x = F.pad(space_to_depth(x), STEM_PAD)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        outs = {}
         for i in range(4):
-            stage = getattr(self, f"layer{i + 1}")
+            name = f"layer{i + 1}"
+            stage = getattr(self, name)
             x = (remat(stage, x) if self.remat and torch.is_grad_enabled()
                  else stage(x))
-        return x
+            if self.return_layers is not None and name in self.return_layers:
+                outs[name] = x
+        return x if self.return_layers is None else outs
+
+
+def resnet50(return_layers: Sequence[str] = ("layer4",),
+             dilate_c5: bool = False, stem_s2d: bool = False,
+             remat: bool = False) -> ResNet:
+    """The ResNet-50 trunk returning {layer name: feature} for
+    `return_layers` (`gpv_tpu.nn.resnet.resnet50`). It takes (B, 3, H, W);
+    a channel-last (B, H, W, 3) batch goes in as `x.permute(0, 3, 1, 2)`,
+    as DETR passes it, and each map comes back (B, C, h, w)."""
+    return ResNet((3, 4, 6, 3), dilate_c5=dilate_c5, stem_s2d=stem_s2d,
+                  remat=remat, return_layers=return_layers)

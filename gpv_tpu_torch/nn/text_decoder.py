@@ -26,6 +26,14 @@ from .detr_transformer import ffn
 from .layers import MultiHeadAttention, dropout
 
 
+
+def causal_mask(T: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(T, T) additive causal mask: 0 on and below the diagonal, -1e9
+    above (`gpv_tpu.nn.text_decoder.causal_mask`). The decoder's own
+    attention takes `causal=True` instead; this is the mask written out."""
+    keep = torch.ones(T, T, dtype=torch.bool, device=device).tril()
+    return torch.where(keep, 0.0, -1e9).to(dtype)
+
 class TextDecoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, ffn_dim: int = 2048,
                  dropout: float = 0.0):

@@ -23,6 +23,16 @@ dtype and shape:
   block, K/V tiles of 64 keys double buffered, register-blocked
   products for S and P.V.
 
+Every variant takes any head dim the JAX package takes (its einsum path
+and Pallas cell hold the whole (T, Dh) a block). Up to Dh 128 a block
+computes all of a head's output columns. Above it (`Plan.cols`), the head
+dim is split into column blocks of at most 128, one block each: every
+block scores the keys over the whole Dh, so S is recomputed per column
+block, and holds only its own columns of V. `_plan` then shrinks the key
+tile, the rows or the warps of a block until it fits the 227 KB of shared
+memory a block may have, and raises with the bytes it needed where
+nothing fits. No call goes to SDPA or to the plain version instead.
+
 What bounds them on the H100: in bf16 at every main-path shape (Tk <= 300,
 Dh <= 96) the work is far below the card's ~295 operations per byte, so
 the least time is set by the bytes of q, k, v and the output. In fp32 the
@@ -102,14 +112,16 @@ def biattend_plain(q1, k1, v1, q2, k2, v2, valid1=None, valid2=None):
 
 class Plan(NamedTuple):
     """How one call runs: the kernel, warps per block, keys per shared-
-    memory tile, the block's dynamic shared memory in bytes and, for the
-    fp32 kernels, the query rows a block owns (the bf16 kernels derive
-    theirs from `warps`)."""
+    memory tile, the block's dynamic shared memory in bytes, for the fp32
+    kernels the query rows a block owns (the bf16 kernels derive theirs
+    from `warps`) and, above Dh 128, the output columns a block computes
+    (0: all of them)."""
     variant: str  # "tile", "decode", "fp32_tile" or "fp32_decode"
     warps: int
     key_tile: int
     smem_bytes: int
     rows: int = 0
+    cols: int = 0
 
 
 # K1 fp32 calls take the decode variant at up to FP32_DECODE_TQ query rows,
@@ -117,12 +129,18 @@ class Plan(NamedTuple):
 # the tile variant would walk the tiles in series for a few rows)
 FP32_DECODE_TQ, FP32_DECODE_LONG_TQ = 8, 32
 P_STRIDE = 72  # floats in a row of the fp32 tile kernel's P
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may have
+MAX_COLS = 128  # output columns one block computes (`kMaxCols`)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b) * b
 
 
 def _row_bytes(d: int) -> int:
     """Bytes of one shared-memory row of d bf16 values: 16-byte chunks,
     an odd number of them (`row_chunks` in csrc/attention_common.cuh)."""
-    return ((d // 8) | 1) * 16
+    return (-(-d // 8) | 1) * 16
 
 
 def _row_floats(d: int) -> int:
@@ -131,59 +149,94 @@ def _row_floats(d: int) -> int:
     return (-(-d // 4) | 1) * 4
 
 
+def _cols(Dh: int) -> int:
+    """Output columns a block computes above Dh 128 (0 below): the head dim
+    split into the fewest blocks of at most 128, evened out and rounded up
+    to 16 (the bf16 tile kernel's product width)."""
+    if Dh <= MAX_COLS:
+        return 0
+    return _ceil(-(-Dh // -(-Dh // MAX_COLS)), 16)
+
+
+def _first_fit(name: str, Dh: int, candidates) -> Plan:
+    """The first plan that fits a block's shared memory; else raise with
+    the least any of them needed."""
+    candidates = list(candidates)
+    for plan in candidates:
+        if plan.smem_bytes <= SMEM_LIMIT:
+            return plan
+    need = min(p.smem_bytes for p in candidates)
+    raise ValueError(f"{name} at head dim {Dh}: a block needs at least "
+                     f"{need} bytes of shared memory, above the "
+                     f"{SMEM_LIMIT} one H100 block may have")
+
+
 def _plan_fp32(Tq: int, Tk: int, Dh: int, both: bool) -> Plan:
-    """csrc/attention.cu: `decode_smem_bytes` and `tile_smem_bytes`."""
-    if not 0 < Dh <= 128:
-        raise ValueError(f"fp32 head dim {Dh}: the kernels take 1 to 128")
-    f, d4 = _row_floats(Dh), -(-Dh // 4) * 4
+    """csrc/attention.cu: `decode_smem_bytes` and `tile_smem_bytes`. Up to
+    Dh 128 one plan a shape; above it the decode variant cuts warps, the
+    tile variant the key tile (64, 32, 16), then its rows (64 to 32)."""
+    cols = _cols(Dh)
+    f, fv, d4 = _row_floats(Dh), _row_floats(cols or Dh), _ceil(Dh, 4)
     decode = Tq <= FP32_DECODE_TQ or (Tq <= FP32_DECODE_LONG_TQ and Tk > 64)
     if decode and not both:  # a lane a key, no 16-row slots
         rows = min(8, 1 << (Tq - 1).bit_length())  # 8 rows a block at most
         keys = 32
-        warps = min(4, -(-Tk // keys))
-        return Plan("fp32_decode", warps, keys,  # q, then K and V rows
-                    4 * (rows * d4 + warps * 2 * keys * f), rows)
+        return _first_fit("fp32_decode", Dh, (
+            Plan("fp32_decode", warps, keys,  # q, then K and V rows
+                 4 * (rows * d4 + warps * keys * (f + fv)), rows, cols)
+            for warps in range(min(4, -(-Tk // keys)), 0, -1)))
     # 16 row groups of 8 lanes; K2's short direction wastes less at 32
-    keys, rows = 64, 32 if Tq <= 32 or both else 64
-    return Plan("fp32_tile", 4, keys,  # key mask, Q, K and V x 2 stages, P
-                4 * (keys + rows * f + 2 * 2 * keys * f
-                     + rows * P_STRIDE), rows)
+    first = 32 if Tq <= 32 or both else 64
+    return _first_fit("fp32_tile", Dh, (
+        Plan("fp32_tile", 4, keys,  # key mask, Q, K and V x 2 stages, P
+             4 * (keys + rows * f + 2 * keys * (f + fv) + rows * P_STRIDE),
+             rows, cols)
+        for rows in dict.fromkeys((first, 32))
+        for keys in ((64, 32, 16) if cols else (64,))))
 
 
 def _plan(dtype, Tq: int, Tk: int, Dh: int, both: bool = False) -> Plan:
     """The kernel and launch shape for one call (`both`: a K2 call, whose
     Tq is the longer stream). Mirrors the byte counts of the CUDA sources
     (`tile_smem_bytes`, `decode_smem_bytes`), which refuse a launch given
-    less."""
+    less. Up to Dh 128 one plan a shape; above it the bf16 decode variant
+    cuts warps, the tile variant the key tile (64, 32, 16), then warps."""
+    if Dh < 1:
+        raise ValueError(f"head dim {Dh}")
     if dtype == torch.float32:
         return _plan_fp32(Tq, Tk, Dh, both)
     if dtype != torch.bfloat16:
         raise TypeError(f"dtype {dtype} not supported "
                         f"(one of {sorted(map(str, _DTYPES))})")
-    if Dh % 8 or not 0 < Dh <= 128:
-        raise ValueError(f"bf16 head dim {Dh}: the kernels take multiples "
-                         "of 8 up to 128")
+    cols = _cols(Dh)
     if Tq == 1 and not both:  # a warp scores one key a lane
         keys = 32
-        warps = min(4, -(-Tk // keys))
-        part = -(-(4 * warps * (Dh + 2)) // 16) * 16  # (max, sum, acc)
-        return Plan("decode", warps, keys,  # q in fp32, then K and V rows
-                    4 * 128 + part + warps * 2 * keys * _row_bytes(Dh))
-    keys, warps = 64, min(4, -(-Tq // 16))  # a warp owns 16 query rows
-    row = _row_bytes(-(-Dh // 16) * 16)
-    return Plan("tile", warps, keys,  # key mask, Q rows, K and V x 2 stages
-                2 * keys * 4 + 16 * warps * row + 2 * 2 * keys * row)
+        w = cols or Dh
+        return _first_fit("decode", Dh, (
+            Plan("decode", warps, keys,  # q in fp32, (max, sum, acc), K, V
+                 4 * max(128, _ceil(Dh, 8))
+                 + _ceil(4 * warps * (_ceil(w, 8) + 2), 16)
+                 + warps * keys * (_row_bytes(Dh) + _row_bytes(w)), 0, cols)
+            for warps in range(min(4, -(-Tk // keys)), 0, -1)))
+    depth = _row_bytes(_ceil(Dh, 16))  # a Q or K row: the product's depth
+    v_row = _row_bytes(cols) if cols else depth
+    return _first_fit("tile", Dh, (
+        Plan("tile", warps, keys,  # key mask, Q rows, K and V x 2 stages
+             2 * keys * 4 + 16 * warps * depth + 2 * keys * (depth + v_row),
+             0, cols)
+        for warps in range(min(4, -(-Tq // 16)), 0, -1)  # 16 rows a warp
+        for keys in ((64, 32, 16) if cols else (64,))))
 
 
 _SIGNATURES = {  # source -> {function: argtypes}; each returns cudaError_t
     "attention": {"gpv_attn_fp32_init": [],
-                  "gpv_attn_fp32": [_P] * 5 + [_I] * 9 + [_P],
-                  "gpv_attn_fp32_bi": [_P] * 10 + [_I] * 8 + [_P]},
+                  "gpv_attn_fp32": [_P] * 5 + [_I] * 11 + [_P],
+                  "gpv_attn_fp32_bi": [_P] * 10 + [_I] * 10 + [_P]},
     "attention_tile": {"gpv_attn_tile_init": [],
-                       "gpv_attn_tile": [_P] * 5 + [_I] * 8 + [_P],
-                       "gpv_attn_tile_bi": [_P] * 10 + [_I] * 7 + [_P]},
+                       "gpv_attn_tile": [_P] * 5 + [_I] * 10 + [_P],
+                       "gpv_attn_tile_bi": [_P] * 10 + [_I] * 9 + [_P]},
     "attention_decode": {"gpv_attn_decode_init": [],
-                         "gpv_attn_decode": [_P] * 5 + [_I] * 7 + [_P]},
+                         "gpv_attn_decode": [_P] * 5 + [_I] * 8 + [_P]},
 }
 _ready: dict = {}
 _count_lock = threading.Lock()
@@ -250,8 +303,6 @@ def _check(name: str, device, dtype, tensors: dict, shapes: dict,
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name}: {key} must be a contiguous bool "
                              f"{shape} tensor on {device}")
-    if next(iter(shapes.values()))[-1] > 128:
-        raise ValueError(f"{name}: head dim above 128 is not supported")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -305,15 +356,15 @@ def _launch_attention(q, k, v, key_valid, causal) -> torch.Tensor:
     if plan.variant.startswith("fp32"):
         err = _lib("attention").gpv_attn_fp32(
             *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.rows, plan.warps,
-            plan.smem_bytes, stream)
+            plan.key_tile, plan.cols, plan.smem_bytes, stream)
     elif plan.variant == "tile":
         err = _lib("attention_tile").gpv_attn_tile(
-            *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.warps,
-            plan.smem_bytes, stream)
+            *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.warps, plan.key_tile,
+            plan.cols, plan.smem_bytes, stream)
     else:
         err = _lib("attention_decode").gpv_attn_decode(
-            *ptrs, B, Tk, H, Dh, int(causal), plan.warps, plan.smem_bytes,
-            stream)
+            *ptrs, B, Tk, H, Dh, int(causal), plan.warps, plan.cols,
+            plan.smem_bytes, stream)
     _raise_on(f"fused_attention ({plan.variant})", err)
     _count(fused_attention, plan.variant)
     return out
@@ -361,11 +412,12 @@ def _launch_biattention(q1, k1, v1, q2, k2, v2, valid1, valid2):
     stream = torch.cuda.current_stream(q1.device).cuda_stream
     if plan.variant == "fp32_tile":
         err = _lib("attention").gpv_attn_fp32_bi(
-            *ptrs, B, T1, T2, H, Dh, plan.rows, plan.warps, plan.smem_bytes,
-            stream)
+            *ptrs, B, T1, T2, H, Dh, plan.rows, plan.warps, plan.key_tile,
+            plan.cols, plan.smem_bytes, stream)
     else:
         err = _lib("attention_tile").gpv_attn_tile_bi(
-            *ptrs, B, T1, T2, H, Dh, plan.warps, plan.smem_bytes, stream)
+            *ptrs, B, T1, T2, H, Dh, plan.warps, plan.key_tile, plan.cols,
+            plan.smem_bytes, stream)
     _raise_on(f"fused_biattention ({plan.variant})", err)
     _count(fused_biattention, plan.variant)
     return ctx1, ctx2

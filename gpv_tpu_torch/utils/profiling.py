@@ -2,9 +2,11 @@
 `gpv_tpu/utils/profiling.py`): `StepTimer` keeps rolling per-step wall
 times; `start_trace`/`stop_trace` record a torch.profiler trace, CPU and,
 on the card, CUDA activity, to `log_dir/trace.json` (Chrome trace
-format): the trainer's `training.profile_step`."""
+format): the trainer's `training.profile_step`; `trace(log_dir)` wraps
+the two around a block."""
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 
@@ -28,6 +30,18 @@ def stop_trace(prof, log_dir: str | Path) -> Path:
     path = Path(log_dir) / "trace.json"
     prof.export_chrome_trace(str(path))
     return path
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path):
+    """Record a torch.profiler trace of the block into
+    `log_dir/trace.json` (`gpv_tpu.utils.profiling.trace`, which writes a
+    jax.profiler trace there)."""
+    prof = start_trace()
+    try:
+        yield prof
+    finally:
+        stop_trace(prof, log_dir)
 
 
 class StepTimer:

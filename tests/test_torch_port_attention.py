@@ -3,7 +3,8 @@
 On the CPU the port's `fused_attention` / `fused_biattention` take their
 plain versions; these are held against `gpv_tpu.ops.attention`'s Pallas
 kernels in interpret mode on the same numpy inputs, mirroring every case of
-tests/test_pallas.py, at atol 1e-5 in fp32 (both compute the same fp32
+tests/test_pallas.py and the head dims of every config (12 to 384), at
+atol 1e-5 in fp32 (both compute the same fp32
 arithmetic; the slack covers summation order). The CUDA kernels themselves
 are held against the plain versions in tests/test_torch_port_kernels.py.
 """
@@ -117,6 +118,51 @@ class TestFusedBiAttention:
         assert c1.shape == (B, T2, H, Dh) and c2.shape == (B, T1, H, Dh)
         np.testing.assert_allclose(c1.numpy(), np.asarray(r1), atol=1e-5)
         np.testing.assert_allclose(c2.numpy(), np.asarray(r2), atol=1e-5)
+
+
+WIDE_HEAD_DIMS = [12, 136, 192, 256, 384]  # configs with few or many heads
+
+
+@pytest.mark.parametrize("Dh", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("Tq,causal", [(1, False), (5, False), (9, True)])
+def test_k1_head_dims_of_every_config(Dh, Tq, causal):
+    """K1 at the head dims `model.detr.nheads` and
+    `co_att.bi_num_attention_heads` give the 768-wide text decoder and
+    co-attention (Dh 192 at 4 heads, 256 at 3, 384 at 2, 12 at 64, 136 for
+    a dim that is not a multiple of 16): the plain version against the
+    Pallas kernel in interpret mode, fp32 1e-5."""
+    rng = np.random.RandomState(Dh + Tq)
+    Tk = Tq if causal else 11
+    q = rng.randn(2, Tq, 2, Dh).astype(np.float32)
+    k = rng.randn(2, Tk, 2, Dh).astype(np.float32)
+    v = rng.randn(2, Tk, 2, Dh).astype(np.float32)
+    key_valid = rng.rand(2, Tk) > 0.3
+    key_valid[:, 0] = True
+    _check_k1(q, k, v, key_valid, causal=causal)
+
+
+@pytest.mark.parametrize("Dh", WIDE_HEAD_DIMS)
+def test_k1_head_dims_of_every_config_bf16(Dh):
+    rng = np.random.RandomState(Dh)
+    q = rng.randn(2, 7, 2, Dh).astype(np.float32)
+    k = rng.randn(2, 7, 2, Dh).astype(np.float32)
+    _check_k1(q, k, k, causal=True, atol=1e-2, bf16=True)
+
+
+@pytest.mark.parametrize("Dh", WIDE_HEAD_DIMS)
+def test_k2_head_dims_of_every_config(Dh):
+    rng = np.random.RandomState(Dh)
+    B, T1, T2, H = 2, 5, 9, 2
+    xs = [rng.randn(B, T, H, Dh).astype(np.float32)
+          for T in (T1, T1, T1, T2, T2, T2)]
+    valid1 = np.stack([[True] * 3 + [False] * 2, [True] * 5])
+    r1, r2 = jax_attn.fused_biattention(*map(jnp.asarray, xs),
+                                        jnp.asarray(valid1), None,
+                                        interpret=True)
+    c1, c2 = port_attn.fused_biattention(*map(torch.from_numpy, xs),
+                                         torch.from_numpy(valid1), None)
+    np.testing.assert_allclose(c1.numpy(), np.asarray(r1), atol=1e-5)
+    np.testing.assert_allclose(c2.numpy(), np.asarray(r2), atol=1e-5)
 
 
 def test_cpu_path_stays_differentiable():

@@ -18,6 +18,10 @@ Then the fp32 kernels alone (tile and decode variants): Tq in {1, 2, 4, 5,
 64, 96, 128} and 30 (not a multiple of 4: copied element by element),
 causal, a fully masked row, K2 ragged in both directions, a misaligned
 view refused.
+Then every variant at the head dims other configs give: Dh 12 and 20
+(bf16 rows copied 4 bytes at a time), 1, 13 and 131 (odd: one value at a
+time), and 136, 192, 256, 384, 768 (split into column blocks of at most
+128), masked, causal, a fully masked row and K2 ragged both ways.
 Tolerance: fp32 1e-5, bf16 2e-2, both times max(1, max |plain|); fp32 runs
 with TF32 off.
 """
@@ -331,3 +335,95 @@ def test_fp32_misaligned_view_is_refused():
         port_attn.fused_attention(q, q, q)
     with torch.no_grad(), pytest.raises(ValueError, match="16-byte"):
         port_attn.fused_biattention(q, q, q, q, q, q)
+
+
+# ---- every head dim a config gives: any Dh, column blocks above 128
+
+WIDE_DH = [12, 20, 136, 192, 256, 384, 768]
+ODD_DH = [1, 13, 131]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Dh", WIDE_DH + ODD_DH)
+@pytest.mark.parametrize("Tq,Tk", [(1, 20), (1, 120), (5, 120), (20, 20),
+                                   (20, 120), (65, 33)])
+def test_k1_every_head_dim_matches_plain(dtype, tol, Dh, Tq, Tk):
+    """Decode (Tq 1), the beam's rows (5), teacher-forced (20) and a
+    ragged tile shape, on every variant, with key validity."""
+    _cuda_or_skip()
+    _k1_against_plain(dtype, tol, 2, Tq, Tk, 2, Dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Dh", WIDE_DH)
+@pytest.mark.parametrize("T", [1, 20, 65])
+def test_k1_every_head_dim_causal_matches_plain(dtype, tol, Dh, T):
+    _cuda_or_skip()
+    _k1_against_plain(dtype, tol, 2, T, T, 2, Dh, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Dh", [13, 192, 768])
+@pytest.mark.parametrize("Tq", [1, 17])
+def test_k1_every_head_dim_fully_masked_row(dtype, tol, Dh, Tq):
+    """A batch row with every key invalid gives V's mean in every column
+    block."""
+    _cuda_or_skip()
+    B, Tk, H = 2, 45, 2
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(B, T, H, Dh, device="cuda", generator=g)
+               .to(dtype) for T in (Tq, Tk, Tk))
+    kv = torch.ones(B, Tk, dtype=torch.bool, device="cuda")
+    kv[0] = False
+    got = port_attn.fused_attention(q, k, v, kv)
+    ref = port_attn.attend_plain(q, k, v, kv)
+    mean = v[0].float().mean(0).expand(Tq, H, Dh)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert (got[0].float() - mean).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("Dh", WIDE_DH + [13])
+@pytest.mark.parametrize("T1,T2", [(20, 100), (100, 20), (1, 33), (33, 1)])
+def test_k2_every_head_dim_ragged_both_ways(dtype, tol, Dh, T1, T2):
+    _cuda_or_skip()
+    B, H = 2, 2
+    g = torch.Generator(device="cuda").manual_seed(8)
+    xs = [torch.randn(B, T, H, Dh, device="cuda", generator=g).to(dtype)
+          for T in (T1, T1, T1, T2, T2, T2)]
+    v1 = torch.rand(B, T1, device="cuda", generator=g) > 0.3
+    v2 = torch.rand(B, T2, device="cuda", generator=g) > 0.3
+    v1[:, 0] = v2[:, 0] = True
+    variant = port_attn._plan(dtype, max(T1, T2), min(T1, T2), Dh,
+                              both=True).variant
+    n = port_attn.fused_biattention.variant_launches[variant]
+    got = port_attn.fused_biattention(*xs, v1, v2)
+    ref = port_attn.biattend_plain(*xs, v1, v2)
+    torch.cuda.synchronize()
+    assert port_attn.fused_biattention.variant_launches[variant] == n + 1
+    for a, b in zip(got, ref):
+        scale = max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_a_launch_given_too_little_shared_memory_is_refused():
+    """The C entry points hold the plan's bytes to their own count: a wide
+    tile launch given one 16-byte chunk less fails with cudaError_t 1
+    (invalid value) before anything runs."""
+    _cuda_or_skip()
+    q = torch.randn(1, 20, 1, 768, device="cuda").to(torch.bfloat16)
+    plan = port_attn._plan(torch.bfloat16, 20, 20, 768)
+    out = torch.empty_like(q)
+    lib = port_attn._lib("attention_tile")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), q.data_ptr(), q.data_ptr(), None, out.data_ptr(),
+            1, 20, 20, 1, 768, 0, plan.warps, plan.key_tile, plan.cols)
+    assert lib.gpv_attn_tile(*args, plan.smem_bytes - 16, stream) == 1
+    assert lib.gpv_attn_tile(*args, plan.smem_bytes, stream) == 0
+    torch.cuda.synchronize()

@@ -38,13 +38,14 @@ def test_plan_routes_main_path_k1_shapes(case):
     tq, tk, dh = case.tq, case.tk, case.dh
     bf16 = A._plan(torch.bfloat16, tq, tk, dh)
     assert bf16.variant == case.variant  # what chip_smoke's gates expect
+    narrow = dh <= 128  # wider heads may cut warps and keys to fit
     if tq == 1:
         assert bf16.variant == "decode"
-        assert bf16.warps == min(4, -(-tk // 32))
+        assert bf16.warps == min(4, -(-tk // 32)) or not narrow
     else:
         assert bf16.variant == "tile"
-        assert bf16.warps == min(4, -(-tq // 16))
-        assert bf16.key_tile == 64
+        assert bf16.warps == min(4, -(-tq // 16)) or not narrow
+        assert bf16.key_tile == 64 or not narrow
     fp32 = A._plan(torch.float32, tq, tk, dh).variant
     decode = tq <= 8 or (tq <= 32 and tk > 64)
     assert fp32 == ("fp32_decode" if decode else "fp32_tile")
@@ -86,10 +87,15 @@ def test_every_plan_fits_shared_memory(dh):
 
 
 def test_plan_refuses_what_no_kernel_takes():
-    with pytest.raises(ValueError, match="multiples of 8"):
-        A._plan(torch.bfloat16, 4, 4, 12)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        A._plan(torch.bfloat16, 4, 4, 136)
+    """Every head dim a config gives has a launch (Dh 12 and 136 did not
+    before the kernels took any Dh); what no block can hold raises with the
+    bytes it needed, and a dtype without a kernel raises."""
+    assert A._plan(torch.bfloat16, 4, 4, 12).variant == "tile"
+    assert A._plan(torch.bfloat16, 4, 4, 136).cols == 80
+    with pytest.raises(ValueError, match="needs at least 289344 bytes"):
+        A._plan(torch.float32, 300, 300, 1024)
+    with pytest.raises(ValueError, match="head dim 0"):
+        A._plan(torch.bfloat16, 4, 4, 0)
     with pytest.raises(TypeError, match="not supported"):
         A._plan(torch.float16, 4, 4, 32)
 
@@ -150,10 +156,12 @@ def _fp32_decode_bytes(dh, rows, warps):
     return 4 * (rows * d4 + warps * 2 * 32 * _fp32_row(dh))
 
 
-@pytest.mark.parametrize("case", K1_CASES + K2_CASES, ids=lambda c: c.name)
+@pytest.mark.parametrize("case", [c for c in K1_CASES + K2_CASES
+                                  if c.dh <= 128], ids=lambda c: c.name)
 def test_fp32_plan_at_every_path_shape(case):
-    """Every K1 and K2 shape of the paths in fp32: the variant, warps, key
-    tile, rows a block owns and shared memory equal to the hand count."""
+    """Every K1 and K2 shape of the paths in fp32 up to Dh 128 (the wider
+    heads: `test_every_plan_up_to_dh_768`): the variant, warps, key tile,
+    rows a block owns and shared memory equal to the hand count."""
     tq, tk, dh = case.tq, case.tk, case.dh
     plan = A._plan(torch.float32, tq, tk, dh, both=case.k2)
     if (tq <= 8 or (tq <= 32 and tk > 64)) and not case.k2:
@@ -220,8 +228,14 @@ def test_every_fp32_plan_fits_shared_memory(dh):
 
 
 def test_fp32_plan_refuses_head_dims_above_128():
-    with pytest.raises(ValueError, match="1 to 128"):
-        A._plan(torch.float32, 4, 4, 129)
+    """Head dims above 128 are no longer refused: a block computes at most
+    128 output columns (129 splits into two blocks of 80); only a Dh whose
+    block fits no shared memory is refused, with the bytes it needs."""
+    assert A._plan(torch.float32, 4, 4, 129) == A.Plan(
+        "fp32_decode", 1, 32, 4 * (4 * 132 + 32 * (_fp32_row(129) + 84)),
+        4, 80)
+    with pytest.raises(ValueError, match="above the 232448"):
+        A._plan(torch.float32, 4, 4, 4096)
 
 
 def test_fp32_launches_route_by_plan():
@@ -313,3 +327,137 @@ def test_kernels_line_lists_the_fp32_kernels():
                                          3.0, None)}
     fp32 = [e for e in line["kernels"] if "fp32" in e["name"]]
     assert all(e["route"] == "cuda" and "fp32" in e["per"] for e in fp32)
+
+
+# ---- every head dim a config can give: 1 to 768, both dtypes
+
+K1_TQ, K1_TK = (1, 5, 20, 100, 300), (20, 120, 300)
+K2_SHAPES = ((100, 20), (20, 100), (1, 1), (33, 65))  # (longer, shorter)
+
+
+def _cols_hand(dh):
+    """Output columns a block: all up to 128, else Dh split into the
+    fewest blocks of at most 128, evened out, rounded up to 16."""
+    if dh <= 128:
+        return 0
+    n = -(-dh // 128)
+    return -(-(-(-dh // n)) // 16) * 16
+
+
+def _bf16_row(d):
+    """`row_chunks(d) * 16`: ceil(d/8) 16-byte chunks, made odd."""
+    return (-(-d // 8) | 1) * 16
+
+
+def _source_bytes(plan, dh):
+    """The CUDA sources' byte counts, written out from each `*_smem_bytes`
+    (attention_tile.cu, attention_decode.cu, attention.cu) for the plan's
+    warps, key tile, rows and columns."""
+    w = plan.cols or dh
+    if plan.variant == "tile":
+        dp = -(-dh // 16) * 16
+        v = _bf16_row(plan.cols) if plan.cols else _bf16_row(dp)
+        return (2 * plan.key_tile * 4 + 16 * plan.warps * _bf16_row(dp)
+                + 2 * plan.key_tile * (_bf16_row(dp) + v))
+    if plan.variant == "decode":
+        q = 4 * max(128, -(-dh // 8) * 8)
+        part = -(-(4 * plan.warps * (-(-w // 8) * 8 + 2)) // 16) * 16
+        return q + part + plan.warps * 32 * (_bf16_row(dh) + _bf16_row(w))
+    if plan.variant == "fp32_decode":
+        return 4 * (plan.rows * -(-dh // 4) * 4
+                    + plan.warps * 32 * (_fp32_row(dh) + _fp32_row(w)))
+    return 4 * (plan.key_tile + plan.rows * _fp32_row(dh)
+                + 2 * plan.key_tile * (_fp32_row(dh) + _fp32_row(w))
+                + plan.rows * 72)
+
+
+def _plan_before_wide_heads(dtype, tq, tk, dh, both=False):
+    """The plans the kernels took up to Dh 128 before they took every head
+    dim (bf16: multiples of 8 only), written down as they were: the new
+    plans must equal them wherever these exist."""
+    if dtype == torch.float32:
+        f, d4 = _fp32_row(dh), -(-dh // 4) * 4
+        if (tq <= 8 or (tq <= 32 and tk > 64)) and not both:
+            rows = min(8, 1 << (tq - 1).bit_length())
+            warps = min(4, -(-tk // 32))
+            return A.Plan("fp32_decode", warps, 32,
+                          4 * (rows * d4 + warps * 2 * 32 * f), rows)
+        rows = 32 if tq <= 32 or both else 64
+        return A.Plan("fp32_tile", 4, 64,
+                      4 * (64 + rows * f + 4 * 64 * f + rows * 72), rows)
+    if tq == 1 and not both:
+        warps = min(4, -(-tk // 32))
+        part = -(-(4 * warps * (dh + 2)) // 16) * 16
+        return A.Plan("decode", warps, 32,
+                      512 + part + warps * 2 * 32 * _bf16_row(dh))
+    warps, row = min(4, -(-tq // 16)), _bf16_row(-(-dh // 16) * 16)
+    return A.Plan("tile", warps, 64, 512 + 16 * warps * row + 4 * 64 * row)
+
+
+# today's plans at the main path's shapes, literally
+NARROW_PLANS = {
+    ("bfloat16", 300, 300, 32, False): A.Plan("tile", 4, 64, 26112),
+    ("bfloat16", 20, 20, 64, False): A.Plan("tile", 2, 64, 41984),
+    ("bfloat16", 1, 120, 96, False): A.Plan("decode", 4, 32, 55328),
+    ("bfloat16", 1, 20, 96, False): A.Plan("decode", 1, 32, 14224),
+    ("bfloat16", 5, 120, 96, False): A.Plan("tile", 1, 64, 57088),
+    ("bfloat16", 100, 20, 48, True): A.Plan("tile", 4, 64, 36352),
+    ("float32", 300, 300, 32, False): A.Plan("fp32_tile", 4, 64, 64768, 64),
+    ("float32", 1, 120, 96, False): A.Plan("fp32_decode", 4, 32, 102784, 1),
+    ("float32", 20, 120, 96, False): A.Plan("fp32_decode", 4, 32, 105472,
+                                            8),
+    ("float32", 100, 20, 48, True): A.Plan("fp32_tile", 4, 64, 69376, 32),
+}
+
+
+@pytest.mark.parametrize("key", list(NARROW_PLANS), ids=str)
+def test_plans_up_to_dh_128_are_unchanged(key):
+    dtype, tq, tk, dh, both = key
+    plan = A._plan(getattr(torch, dtype), tq, tk, dh, both=both)
+    assert plan == NARROW_PLANS[key] == _plan_before_wide_heads(getattr(torch, dtype), tq,
+                                                tk, dh, both)
+    assert plan.cols == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("first", range(1, 769, 64))
+def test_every_plan_up_to_dh_768(dtype, first):
+    """For every Dh in [first, first + 64), K1 at Tq 1/5/20/100/300 against
+    Tk 20/120/300 and K2 at four stream pairs: `_plan` returns a variant
+    whose block fits 227 KB and whose bytes equal the source's count, with
+    the head split into column blocks above 128; up to 128 the plan is the
+    one the kernels took before (bf16: where Dh was a multiple of 8)."""
+    for dh in range(first, first + 64):
+        calls = [(tq, tk, False) for tq in K1_TQ for tk in K1_TK]
+        calls += [(t1, t2, True) for t1, t2 in K2_SHAPES]
+        for tq, tk, both in calls:
+            plan = A._plan(dtype, tq, tk, dh, both=both)
+            bf16 = dtype == torch.bfloat16
+            one = tq == 1 and not both
+            if bf16:
+                assert plan.variant == ("decode" if one else "tile")
+            else:
+                decode = (tq <= 8 or (tq <= 32 and tk > 64)) and not both
+                assert plan.variant == ("fp32_decode" if decode
+                                        else "fp32_tile")
+            assert plan.cols == _cols_hand(dh)
+            assert plan.smem_bytes == _source_bytes(plan, dh), (dh, tq, tk)
+            assert 0 < plan.smem_bytes <= SMEM_LIMIT, (dh, tq, tk, plan)
+            assert 1 <= plan.warps <= 4
+            if plan.variant == "tile" or plan.variant == "fp32_tile":
+                assert plan.key_tile in ((64,) if dh <= 128 else (64, 32, 16))
+            if dh <= 128 and (not bf16 or dh % 8 == 0):
+                assert plan == _plan_before_wide_heads(dtype, tq, tk, dh, both), (dh, tq)
+
+
+def test_column_blocks_cover_the_head_evenly():
+    """Above Dh 128 the head splits into ceil(Dh / 128) blocks of at most
+    128 columns (a multiple of 16), none of them empty."""
+    for dh in range(129, 2049):
+        cols = A._cols(dh)
+        n = -(-dh // cols)
+        assert cols % 16 == 0 and cols <= 128
+        assert n == -(-dh // 128) and (n - 1) * cols < dh
+    assert [A._cols(d) for d in (136, 192, 256, 384, 768)] == \
+        [80, 96, 128, 128, 128]

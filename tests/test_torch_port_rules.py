@@ -6,7 +6,8 @@
   Of the port's files outside its package and the tests, only the orbax
   converter imports gpv_tpu.
 - Entry points run on the card unless asked: an engine built without a
-  device raises where CUDA is absent.
+  device, and `python -m gpv_tpu_torch.bench` without `device=cpu`, raise
+  where CUDA is absent.
 - CPU tensors take the plain versions and leave the launch counters at 0;
   tensors on any other non-CUDA device are refused.
 - chip_smoke.py exits non-zero, printing no result, without a card and
@@ -156,6 +157,24 @@ def test_engine_without_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         GPVEngine(model, AnswerVocab.debug(size=16),
                   WordPieceTokenizer.debug())
+
+
+def test_scan_covers_the_headline_benchmark():
+    """The scans above read the port's headline workload."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "gpv_tpu_torch/bench.py" in names
+
+
+def test_bench_without_a_card_raises():
+    """`python -m gpv_tpu_torch.bench` runs on the card: without one, and
+    without device=cpu, it raises and prints no line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "-m", "gpv_tpu_torch.bench",
+                          "dims=tiny"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr and res.stdout.strip() == ""
 
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
