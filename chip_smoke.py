@@ -19,7 +19,10 @@ Phases, each printing one JSON line:
              `ms` over 30 back-to-back calls (host cost included) and
              `device_ms`, one launch's device time from a CUDA-graph replay
              of 30 launches; `op_ms`, the same call through the torch op
-             (`torch.ops.gpv.*`, what exported programs call);
+             (`torch.ops.gpv.*`, what exported programs call); `wide`, each
+             case above Dh 128 in short (`vs_sdpa`: device us of the
+             kernel, SDPA, plain and bound, x bound, x SDPA, and the
+             cluster of CTAs it launched with);
   slice      GPVEngine.predict (B=20 uint8 480x640, 12-token queries, bf16,
              BN folded), with the kernels' launch counts read around one
              call;
@@ -196,7 +199,8 @@ Phases, each printing one JSON line:
              file's, bit for bit), and here a one-process `Trainer` that
              resumes the TP run's `ckpts/last` (its state is the gathered
              TP state at the save, bit for bit).
-Then one `kernels` line (each kernel of the paths: launches and per-call
+Then a `total` line (the whole script's seconds) and one `kernels` line
+(each kernel of the paths: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
 predict_beam, embed_vocab, the whole serve run, the whole eval phase, one
 train step, the in-train eval, the exported bundle's B=20 predict,
@@ -578,8 +582,12 @@ def wide_launches(path: str, steps: int, batch: int = WIDE_B,
 def wide_cases() -> list:
     """The text decoder's step and teacher-forced shapes at B with each of
     WIDE_HEADS, and K2 (masks_10's streams) at each of WIDE_K2_HEADS:
-    every head dim a config of the 768-wide streams gives, 12 to 768."""
-    out = []
+    every head dim a config of the 768-wide streams gives, 12 to 768; and
+    the teacher-forced cross-attention of a 1024-wide text decoder at one
+    head (a cluster of 8 CTAs; no fp32 launch took Dh 805 to 2048 before
+    the clusters)."""
+    out = [Case("teacher_forced_cross_dh1024", B, 20, 120, 1, 1024,
+                "memory")]
     for h, dh in WIDE_HEADS:
         s = f"_h{h}"
         out += [Case("decode_step_self" + s, B, 1, 20, h, dh, "cache"),
@@ -737,9 +745,10 @@ def phase_kernels() -> dict:
                     "plain_": lambda: A.attend_plain(q, k, v, kv, causal),
                     "library_": lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal)}
+                plan = A._plan(dtype, tq, tk, dh)
                 rec = {"case": name, "dtype": dname,
                        "shape": [b, tq, tk, h, dh],
-                       "variant": A._plan(dtype, tq, tk, dh).variant,
+                       "variant": plan.variant, "cluster": plan.cluster,
                        "max_abs_err": err, "tol": TOL[dname] * scale,
                        **_timings(calls),
                        "op_ms": time_ms(lambda: torch.ops.gpv.fused_attention(
@@ -781,11 +790,11 @@ def phase_kernels() -> dict:
                     "": lambda: A.fused_biattention(*xs, v1, v2),
                     "plain_": lambda: A.biattend_plain(*xs, v1, v2),
                     "sdpa_two_calls_": sdpa_pair}
+                plan = A._plan(dtype, t2, t1, dh, both=True)
                 rec = {"case": f"masks_{int(has1)}{int(has2)}"
                        + c.name[len("masks_10"):], "dtype": dname,
                        "shape": [b, t2, t1, h, dh],
-                       "variant": A._plan(dtype, t2, t1, dh,
-                                          both=True).variant,
+                       "variant": plan.variant, "cluster": plan.cluster,
                        "max_abs_err": err, "tol": tol, "library_ms": None,
                        "library_device_ms": None, **_timings(calls),
                        "op_ms": time_ms(lambda: torch.ops.gpv
@@ -797,7 +806,24 @@ def phase_kernels() -> dict:
                 rec.update(_bound(nbytes, 2 * 4.0 * b * h * t1 * t2 * dh,
                                   dname))
                 k2.append(rec)
-    return {"phase": "kernels", "K1": k1, "K2": k2}
+    return {"phase": "kernels", "K1": k1, "K2": k2,
+            "wide": [vs_sdpa(r) for r in k1 + k2 if r["shape"][-1] > 128]}
+
+
+def vs_sdpa(rec: dict) -> dict:
+    """One `kernels` case in short: device us a launch of the kernel, SDPA
+    (K2: its two calls) and the plain version, the bound, the kernel's
+    time over the bound and over SDPA, and the cluster it launched with
+    (0: none, Dh <= 128)."""
+    sdpa = rec.get("library_device_ms") or rec["sdpa_two_calls_device_ms"]
+    us = {k: round(1e3 * rec[f], 2) for k, f in (
+        ("device_us", "device_ms"), ("plain_us", "plain_device_ms"),
+        ("bound_us", "bound_ms"))}
+    return {"case": rec["case"], "dtype": rec["dtype"],
+            "shape": rec["shape"], "variant": rec["variant"],
+            "cluster": rec["cluster"], **us, "sdpa_us": round(1e3 * sdpa, 2),
+            "x_bound": round(rec["device_ms"] / rec["bound_ms"], 2),
+            "x_sdpa": round(rec["device_ms"] / sdpa, 3)}
 
 
 def _queries(n: int, rng):
@@ -4613,11 +4639,12 @@ def main() -> None:
         "wide_heads_predict": wide_bf16},
         {"predict": (e2e["fp32_predict"], e2e_counts), **wide_runs})
     records.append(line)
+    seconds = time.perf_counter() - t_start
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(
-            {"records": records,
-             "seconds": time.perf_counter() - t_start}, indent=1))
+            {"records": records, "seconds": seconds}, indent=1))
+    emit({"phase": "total", "seconds": seconds})
     emit(line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

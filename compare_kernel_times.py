@@ -6,11 +6,13 @@
 BASE and OTHER are roots of checkouts (OTHER: this file's directory). Each
 side runs as a fresh process (so it imports its own `gpv_tpu_torch` and
 `chip_smoke.py`), in the order base, other, other, base. A side times every
-K1 and K2 case of its `chip_smoke.path_cases()` up to head dim 128, in fp32
-(TF32 off) and bf16, with its `chip_smoke.device_ms` (a CUDA-graph replay of
-30 launches). Printed: per dtype, the median, least and largest ratio
-other / base of the cases both sides have (each side's two runs averaged),
-and the base's own spread. `--out` writes every time (us per launch).
+K1 and K2 case of its `chip_smoke.path_cases()`, in fp32 (TF32 off) and
+bf16, with its `chip_smoke.device_ms` (a CUDA-graph replay of 30
+launches). Printed: per dtype, for the narrow cases (head dim up to 128)
+and apart for the wide ones (above 128), the median, least and largest
+ratio other / base of the cases both sides have (each side's two runs
+averaged) and the base's own spread; and each wide case's ratio.
+`--out` writes every time (us per launch).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from pathlib import Path
 
 
 def time_side(root: Path) -> dict:
-    """{case/dtype: device us per launch} of the checkout at `root`."""
+    """{narrow|wide/case/dtype: device us per launch} of the checkout at
+    `root`."""
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke as cs
@@ -39,18 +42,14 @@ def time_side(root: Path) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
             for c in cs.k1_cases():
-                if c.dh > 128:
-                    continue
                 q, k, v = (torch.randn(c.b, t, c.h, c.dh, device=dev,
                                        generator=g).to(dtype)
                            for t in (c.tq, c.tk, c.tk))
                 kv = cs._valid(c.mask, c.b, c.tk, dev, g)
                 ms, _ = cs.device_ms(
                     lambda: A.fused_attention(q, k, v, kv, c.causal))
-                out[f"{c.name}/{dn}"] = 1e3 * ms
+                out[f"{_kind(c.dh)}/{c.name}/{dn}"] = 1e3 * ms
             for c, has1, has2 in cs._k2_runs():
-                if c.dh > 128:
-                    continue
                 xs = [torch.randn(c.b, t, c.h, c.dh, device=dev,
                                   generator=g).to(dtype)
                       for t in (c.tk,) * 3 + (c.tq,) * 3]
@@ -59,8 +58,12 @@ def time_side(root: Path) -> dict:
                 ms, _ = cs.device_ms(
                     lambda: A.fused_biattention(*xs, v1, v2))
                 name = f"masks_{int(has1)}{int(has2)}{c.name[8:]}"
-                out[f"{name}/{dn}"] = 1e3 * ms
+                out[f"{_kind(c.dh)}/{name}/{dn}"] = 1e3 * ms
     return out
+
+
+def _kind(dh: int) -> str:
+    return "narrow" if dh <= 128 else "wide"
 
 
 def main() -> None:
@@ -81,17 +84,25 @@ def main() -> None:
                              check=True)
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
     both = [k for k in runs[0] if all(k in r for r in runs)]
+    ratio = {k: (runs[1][k] + runs[2][k]) / (runs[0][k] + runs[3][k])
+             for k in both}
     summary = {}
-    for dtype in ("float32", "bfloat16"):
-        keys = [k for k in both if k.endswith("/" + dtype)]
-        ratio = [(runs[1][k] + runs[2][k]) / (runs[0][k] + runs[3][k])
-                 for k in keys]
-        spread = [abs(runs[0][k] - runs[3][k]) / runs[0][k] for k in keys]
-        summary[dtype] = {"cases": len(keys),
-                          "median_ratio": statistics.median(ratio),
-                          "min_ratio": min(ratio), "max_ratio": max(ratio),
-                          "base_spread_median": statistics.median(spread)}
+    for kind in ("narrow", "wide"):
+        for dtype in ("float32", "bfloat16"):
+            keys = [k for k in both
+                    if k.startswith(kind + "/") and k.endswith("/" + dtype)]
+            if not keys:
+                continue
+            r = [ratio[k] for k in keys]
+            spread = [abs(runs[0][k] - runs[3][k]) / runs[0][k]
+                      for k in keys]
+            summary[f"{kind}/{dtype}"] = {
+                "cases": len(keys), "median_ratio": statistics.median(r),
+                "min_ratio": min(r), "max_ratio": max(r),
+                "base_spread_median": statistics.median(spread)}
     print(json.dumps(summary))
+    print(json.dumps({k[len("wide/"):]: round(v, 3) for k, v in ratio.items()
+                      if k.startswith("wide/")}))
     if args.out:
         args.out.write_text(json.dumps({"summary": summary, "runs": runs},
                                        indent=0))

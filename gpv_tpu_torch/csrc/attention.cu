@@ -14,13 +14,19 @@
 // the CUDA cores: the route exists to hold the plain fp32 version to 1e-5,
 // which TF32 would not. Layout (B, T, H, Dh), contiguous, 16-byte-aligned
 // bases, any Dh >= 1 (a Dh that is not a multiple of 4 is copied element
-// by element). Above Dh 128 a block computes at most 128 output columns:
-// the grid runs over (head, column block), each block scores over the whole
-// Dh (Q and K rows whole in shared memory) and holds only its columns of V,
-// so a thread's O stays at 4 chunks of 4. The wrapper's plan then shrinks
-// the key tile (64, 32 or 16 keys), the tile variant's rows (64 to 32) or
-// the decode variant's warps until the block fits 227 KB: at Dh 768 a tile
-// block holds 32 rows over 16-key tiles, a decode block one warp.
+// by element). Above Dh 128 both variants run on clusters (attention_
+// common.cuh): n = ceil(Dh / C) CTAs own one (batch, head, query block),
+// CTA r holds Q, K and V over its slice of C <= 128 head dims and O's
+// columns of that slice, so a thread's O stays at 4 chunks of 4 and a
+// CTA's shared memory is a Dh-128 block's plus its partial scores. Per key
+// tile the CTAs exchange their partial scores through distributed shared
+// memory and each sums them in rank order: S is computed once per row
+// block, not once per column block, and K and V are read once. A cluster
+// tile CTA owns 32 rows over 32-key tiles (P 40 floats a row), so that its
+// shared memory stays under half an SM's; a cluster decode CTA of
+// teacher-forced rows has 2 warps (the wrapper's plan; measured in
+// PERF.md); K2's blocks over the direction with more keys are
+// dispatched first (`long_first`).
 //
 // What bounds it on the card. With TF32 off the products run at the CUDA
 // cores' 67 TFLOP/s, not the tensor cores' 495, so the line between bytes
@@ -71,7 +77,9 @@ namespace {
 
 constexpr int kThreads = 128;     // tile: 4 warps
 constexpr int kGroups = 16;       // tile: row groups of 8 lanes
-constexpr int kPStride = 72;      // floats per row of P: conflict-free
+// floats per row of P: the key tile plus 8, so that the rows of a warp's
+// 4 row groups start 8 banks apart (conflict-free); 72 at 64 keys
+__host__ __device__ constexpr int p_stride(int KT) { return KT + 8; }
 constexpr int kDecodeRows = 8;    // decode: query rows a block at most
 constexpr int kDecodeWarps = 4;
 constexpr int kWarpKeys = 32;     // decode: keys a warp scores at once
@@ -94,21 +102,32 @@ __host__ __device__ constexpr int row_floats(int d) {
 }
 __host__ __device__ constexpr int dims4(int d) { return (d + 3) / 4 * 4; }
 
-// Shared memory of a tile block owning `rows` query rows, with key tiles
-// of KT keys and O's W columns: the key tile's mask, Q, K (Dh wide) and V
-// (W wide) in two stages, and P.
-__host__ __device__ constexpr int tile_smem_bytes(int Dh, int W, int rows,
-                                                  int KT) {
-  return 4 * (KT + rows * row_floats(Dh) +
-              2 * KT * (row_floats(Dh) + row_floats(W)) + rows * kPStride);
+constexpr int kKeyTile = 64;      // tile: keys a shared-memory tile
+// tile on a cluster: 32-key tiles and 32 rows, so that a CTA's shared
+// memory stays under half an SM's (two CTAs an SM) at slices of 128
+constexpr int kClusterKeyTile = 32, kClusterRows = 32;
+
+// Keys a shared-memory tile of a tile block in a cluster of n.
+__host__ __device__ constexpr int tile_keys(int n) {
+  return n > 1 ? kClusterKeyTile : kKeyTile;
 }
-// Shared memory of a decode block: q (`rows` rows) and each warp's K (Dh
-// wide) and V (W wide) rows; a warp's (max, sum, acc) per row go into its
-// own K rows at the end.
-__host__ __device__ constexpr int decode_smem_bytes(int Dh, int W, int rows,
-                                                    int warps) {
-  return 4 * (rows * dims4(Dh) +
-              warps * kWarpKeys * (row_floats(Dh) + row_floats(W)));
+// Shared memory of a tile block owning `rows` query rows over D head dims
+// (Dh, or a cluster CTA's slice C): the key tile's mask, Q, K and V in two
+// stages, P, and in a cluster of n > 1 its partial scores.
+__host__ __device__ constexpr int tile_smem_bytes(int D, int rows, int n) {
+  return 4 * (tile_keys(n) + rows * row_floats(D) +
+              4 * tile_keys(n) * row_floats(D) +
+              rows * p_stride(tile_keys(n)) +
+              (n > 1 ? rows * tile_keys(n) : 0));
+}
+// Shared memory of a decode block: q (`rows` rows of D dims) and each
+// warp's K and V rows; a warp's (max, sum, acc) per row go into its own K
+// rows at the end; in a cluster of n > 1 each warp's partial scores of its
+// 32 keys.
+__host__ __device__ constexpr int decode_smem_bytes(int D, int rows,
+                                                    int warps, int n) {
+  return 4 * (rows * dims4(D) + 2 * warps * kWarpKeys * row_floats(D) +
+              (n > 1 ? warps * rows * kWarpKeys : 0));
 }
 
 // Rows [r0, r0 + n) of `nsrc` tensors (row stride rs floats; rows past
@@ -188,29 +207,34 @@ __device__ __forceinline__ void scores(float (&s)[R][JK], const float* q_s,
 // One block: rows [q0, q0 + 16R) of (batch b, head h). Thread t belongs to
 // row group g = t / 8 (rows g + 16r, r < R) and owns keys kg + 8j
 // (j < KT / 8) of each tile in S, and 4-dim chunks kg + 8i (i < DPT) of its
-// rows of O, kg = t % 8. WIDE (Dh > 128): only output columns [c0, c0 + W)
-// of the row, V held for those alone; else all of them (c0, W unused, so
-// these instantiations compile as they did before wide heads).
-template <int R, int DPT, int KT, bool WIDE>
+// rows of O, kg = t % 8. CLUSTER (Dh > 128): this CTA of a cluster of
+// ceil(Dh / W) holds head dims [c0, c0 + W) of Q, K, V and O, and S is the
+// cluster's sum of the CTAs' partial scores; else all of Dh (c0 0, W
+// unused, so these instantiations compile as they did before wide heads).
+template <int R, int DPT, int KT, bool CLUSTER>
 __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
                           int b, int h, int q0, int c0, int W, float* smem) {
-  constexpr int BQ = kGroups * R, JK = KT / 8;
-  const int RF = row_floats(Dh), nch = (Dh + 3) >> 2;
-  const int wv = WIDE ? min(W, Dh - c0) : Dh;  // this block's columns
-  const int RV = WIDE ? row_floats(W) : RF;
-  const int nco = WIDE ? (wv + 3) >> 2 : nch;
+  constexpr int BQ = kGroups * R, JK = KT / 8, PS = p_stride(KT);
+  // CLUSTER: this CTA's slice [c0, c0 + wv) of the head dims; the narrow
+  // instantiations keep the expressions they had before the clusters
+  const int RF = row_floats(CLUSTER ? W : Dh);
+  const int wv = CLUSTER ? min(W, Dh - c0) : Dh;
+  const int nch = CLUSTER ? (wv + 3) >> 2 : (Dh + 3) >> 2;
+  const int RV = RF, nco = nch;
   const bool vec = (Dh & 3) == 0;
   float* mask_s = smem;                    // [KT]
   float* q_s = mask_s + KT;                // [BQ][RF]
   float* kv_s = q_s + BQ * RF;             // [2 stages][K: KT][RF, V: KT][RV]
-  float* p_s = kv_s + 2 * KT * (RF + RV);  // [BQ][kPStride]
+  float* p_s = kv_s + 2 * KT * (RF + RV);  // [BQ][PS]
+  float* part = p_s + BQ * PS;  // CLUSTER: [R JK / 4][kThreads][4]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = (tid >> 5) * 4 + (lane >> 3), kg = lane & 7;
   const size_t rs = (size_t)H * Dh;  // floats between two rows of (b, h)
-  const float* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh;
-  const float* kgl = p.k + ((size_t)b * p.Tk * H + h) * Dh;
-  const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh;
+  const int cs = CLUSTER ? c0 : 0;   // the slice's first column
+  const float* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh + cs;
+  const float* kgl = p.k + ((size_t)b * p.Tk * H + h) * Dh + cs;
+  const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh + cs;
   const unsigned char* valid =
       p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
   const int ntiles = (p.Tk + KT - 1) / KT;
@@ -219,20 +243,20 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
   // (stored at the next iteration's top, after this tile's arithmetic)
   auto issue = [&](int t) {
     float* ks = kv_s + (t & 1) * KT * (RF + RV);
-    if (!WIDE) {
+    if constexpr (CLUSTER)
+      copy_rows<2>({ks, ks + KT * RF}, {kgl, vgl}, t * KT, KT, p.Tk, wv, rs,
+                   RF, tid, kThreads, Dh);
+    else
       copy_rows<2>({ks, ks + KT * RF}, {kgl, vgl}, t * KT, KT, p.Tk, Dh, rs,
                    RF, tid, kThreads);
-    } else {
-      copy_rows<1>({ks}, {kgl}, t * KT, KT, p.Tk, Dh, rs, RF, tid,
-                   kThreads);
-      copy_rows<1>({ks + KT * RF}, {vgl + c0}, t * KT, KT, p.Tk, wv, rs, RV,
-                   tid, kThreads, Dh);
-    }
     const int key = t * KT + tid;
     return tid < KT && key < p.Tk && valid ? (int)valid[key] : 1;
   };
   // Q raw (scaled in place once it lands) and key tile 0: one group
-  copy_rows<1>({q_s}, {qg}, q0, BQ, p.Tq, Dh, rs, RF, tid, kThreads);
+  if constexpr (CLUSTER)
+    copy_rows<1>({q_s}, {qg}, q0, BQ, p.Tq, wv, rs, RF, tid, kThreads, Dh);
+  else
+    copy_rows<1>({q_s}, {qg}, q0, BQ, p.Tq, Dh, rs, RF, tid, kThreads);
   int vb = issue(0);
   cp_async_commit();
 
@@ -280,6 +304,21 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
       scores<R, JK, JK>(s, q_s, ks, g, kg, RF, nch);
     else
       scores<R, JK, JK / 2>(s, q_s, ks, g, kg, RF, nch);
+    if constexpr (CLUSTER) {  // the slice's partial scores -> the sum over
+      // the cluster, the same in every CTA
+      float(&flat)[R * JK] = *reinterpret_cast<float(*)[R * JK]>(&s[0][0]);
+      float* slot = part + tid * 4;
+      if (t > 0) cluster_wait();  // every CTA has read the last tile's
+#pragma unroll
+      for (int i = 0; i < R * JK; i += 4)
+        *reinterpret_cast<float4*>(slot + i * kThreads) =
+            make_float4(flat[i], flat[i + 1], flat[i + 2], flat[i + 3]);
+      cluster_arrive();
+      cluster_wait();
+      cluster_sum<R * JK, 4>(flat, slot, 4 * kThreads, (Dh + W - 1) / W,
+                             cluster_rank());
+      cluster_arrive();
+    }
 
     // online softmax: the 8 lanes of a row group hold its KT scores
     float mk8[JK];
@@ -303,7 +342,7 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
       const float alpha = ex2((m[r] - m_new) * kLog2e);
       m[r] = m_new;
       float sum = 0.f;
-      float* prow = p_s + (g + 16 * r) * kPStride + kg;
+      float* prow = p_s + (g + 16 * r) * PS + kg;
 #pragma unroll
       for (int j = 0; j < JK; ++j) {
         const float e = ex2((s[r][j] - m_new) * kLog2e);
@@ -326,8 +365,8 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
       float4 pv[R];
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        pv[r] = *reinterpret_cast<const float4*>(p_s + (g + 16 * r) *
-                                                 kPStride + j);
+        pv[r] = *reinterpret_cast<const float4*>(p_s + (g + 16 * r) * PS +
+                                                 j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
@@ -353,6 +392,8 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
     }
   }
 
+  // no CTA of a cluster leaves while another may read its partial scores
+  if constexpr (CLUSTER) cluster_wait();
   float* og = p.out + ((size_t)b * p.Tq * H + h) * Dh;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -362,7 +403,7 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
     den += __shfl_xor_sync(kFull, den, 4);
     const int t = q0 + g + 16 * r;
     if (t >= p.Tq) continue;
-    float* orow = og + (size_t)t * rs + (WIDE ? c0 : 0);
+    float* orow = og + (size_t)t * rs + cs;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int c = kg + 8 * i;
@@ -382,31 +423,38 @@ __device__ void tile_rows(const Problem& p, int H, int Dh, float scale,
   }
 }
 
-// blockIdx.y = h * col_blocks + column block; W: O's columns a block
-// (block_cols).
-template <int R, int DPT, int KT, bool WIDE>
+// blockIdx.y = h * n + c: the head, and in a cluster (of n CTAs along y)
+// the CTA's slice c of W head dims.
+template <int R, int DPT, bool CLUSTER>
 __global__ void __launch_bounds__(kThreads)
     gpv_attn_fp32_tile_kernel(Problem p, int H, int Dh, float scale, int W) {
   extern __shared__ __align__(16) float smem_f[];
-  const int nc = WIDE ? (Dh + W - 1) / W : 1;
-  const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
-  tile_rows<R, DPT, KT, WIDE>(p, H, Dh, scale, blockIdx.z, h,
-                              blockIdx.x * kGroups * R, c * W, W, smem_f);
+  const int n = CLUSTER ? (Dh + W - 1) / W : 1;
+  const int h = blockIdx.y / n, c = blockIdx.y - h * n;
+  tile_rows<R, DPT, CLUSTER ? kClusterKeyTile : kKeyTile, CLUSTER>(
+      p, H, Dh, scale, blockIdx.z, h, blockIdx.x * kGroups * R, c * W, W,
+      smem_f);
 }
 
-// Both co-attention directions in one launch: blockIdx.z = 2 * b + dir.
-template <int R, int DPT, int KT, bool WIDE>
+// Both co-attention directions in one launch: blockIdx.z = 2 * b + dir; on
+// a cluster blockIdx.z = half * B + b (`long_first`).
+template <int R, int DPT, bool CLUSTER>
 __global__ void __launch_bounds__(kThreads)
     gpv_attn_fp32_bi_kernel(Problem p1, Problem p2, int H, int Dh,
                             float scale, int W) {
   extern __shared__ __align__(16) float smem_f[];
-  const Problem p = (blockIdx.z & 1) ? p2 : p1;
+  int b = blockIdx.z >> 1;
+  bool second = blockIdx.z & 1;
+  if constexpr (CLUSTER) long_first(p1.Tk, p2.Tk, b, second);
+  const Problem p = (CLUSTER ? second : (blockIdx.z & 1)) ? p2 : p1;
   const int q0 = blockIdx.x * kGroups * R;
-  if (q0 >= p.Tq) return;  // whole block: before any barrier
-  const int nc = WIDE ? (Dh + W - 1) / W : 1;
-  const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
-  tile_rows<R, DPT, KT, WIDE>(p, H, Dh, scale, blockIdx.z >> 1, h, q0,
-                              c * W, W, smem_f);
+  // whole block (a cluster shares q0): before any barrier
+  if (q0 >= p.Tq) return;
+  const int n = CLUSTER ? (Dh + W - 1) / W : 1;
+  const int h = blockIdx.y / n, c = blockIdx.y - h * n;
+  tile_rows<R, DPT, CLUSTER ? kClusterKeyTile : kKeyTile, CLUSTER>(
+      p, H, Dh, scale, CLUSTER ? b : blockIdx.z >> 1, h, q0, c * W, W,
+      smem_f);
 }
 
 // --------------------------------------------------------------- decode
@@ -563,46 +611,45 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
   }
 }
 
-// The decode variant above Dh 128: one block per (batch, head and column
-// block of W output columns from c0, ROWS query rows), as
-// gpv_attn_fp32_decode_kernel otherwise; each warp holds its keys' whole
-// K rows and only the block's columns of their V rows.
+// The decode variant above Dh 128, on a cluster of n CTAs (along x) per
+// (batch, head, ROWS query rows): blockIdx.x = h * n + c, and CTA c holds
+// q, K and V over head dims [c0, c0 + W), c0 = c W. Each chunk of 32 keys a
+// warp scores is summed over the cluster (cluster_sum) before the softmax,
+// so every warp walks the same number of chunks (a chunk past Tk has no
+// live key); then as gpv_attn_fp32_decode_kernel on the CTA's V columns.
 template <int ROWS>
 __global__ void __launch_bounds__(kDecodeWarps * 32)
-    gpv_attn_fp32_decode_wide_kernel(Problem p, int H, int Dh, float scale,
-                                     int W) {
+    gpv_attn_fp32_decode_cluster_kernel(Problem p, int H, int Dh,
+                                        float scale, int W) {
   extern __shared__ __align__(16) float smem_f[];
-  const int nc = (Dh + W - 1) / W;
-  const int h = blockIdx.x / nc, b = blockIdx.y, q0 = blockIdx.z * ROWS;
-  const int c0 = (blockIdx.x - h * nc) * W;
-  const int wv = min(W, Dh - c0);
+  const int n = (Dh + W - 1) / W;
+  const int h = blockIdx.x / n, b = blockIdx.y, q0 = blockIdx.z * ROWS;
+  const int c0 = (blockIdx.x - h * n) * W;
+  const int wv = min(W, Dh - c0);  // this CTA's head dims
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int RF = row_floats(Dh), D4 = dims4(Dh), nch = D4 >> 2;
-  const int RV = row_floats(W);
+  const int nw = blockDim.x >> 5, me = cluster_rank();
+  const int RF = row_floats(W), D4 = dims4(W), nch = (wv + 3) >> 2;
   const int PW = dims4(wv) + 2;
-  float* q_s = smem_f;                                   // [ROWS][D4]
-  float* kv0 = q_s + ROWS * D4;  // warp w's K rows, then V rows
-  const int WS = kWarpKeys * (RF + RV);  // floats of a warp's rows
-  float* k_s = kv0 + warp * WS;
+  float* q_s = smem_f;                                  // [ROWS][D4]
+  float* part = q_s + ROWS * D4;  // [ROWS][nw 32]: partial scores
+  float* kv0 = part + nw * ROWS * kWarpKeys;  // warp w's K, V rows
+  float* k_s = kv0 + warp * 2 * kWarpKeys * RF;
   float* v_s = k_s + kWarpKeys * RF;
 
   const size_t rs = (size_t)H * Dh;
-  const float* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh;
-  const float* kgl = p.k + ((size_t)b * p.Tk * H + h) * Dh;
-  const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh;
+  const float* qg = p.q + ((size_t)b * p.Tq * H + h) * Dh + c0;
+  const float* kgl = p.k + ((size_t)b * p.Tk * H + h) * Dh + c0;
+  const float* vgl = p.v + ((size_t)b * p.Tk * H + h) * Dh + c0;
   const unsigned char* valid =
       p.key_valid ? p.key_valid + (size_t)b * p.Tk : nullptr;
 
-  // this warp's K rows (whole) and V rows (this block's columns)
-  auto copy_kv = [&](int k0) {
-    const int n = min(kWarpKeys, p.Tk - k0);
-    copy_rows<1>({k_s}, {kgl}, k0, n, p.Tk, Dh, rs, RF, lane, 32);
-    copy_rows<1>({v_s}, {vgl + c0}, k0, n, p.Tk, wv, rs, RV, lane, 32, Dh);
+  auto copy_kv = [&](int k0) {  // this warp's K and V rows over the slice
+    copy_rows<2>({k_s, v_s}, {kgl, vgl}, k0, min(kWarpKeys, p.Tk - k0),
+                 p.Tk, wv, rs, RF, lane, 32, Dh);
   };
   // q raw (one group for the block), then this warp's first K and V rows
-  copy_rows<1>({q_s}, {qg}, q0, ROWS, p.Tq, Dh, rs, D4, threadIdx.x,
-               blockDim.x);
+  copy_rows<1>({q_s}, {qg}, q0, ROWS, p.Tq, wv, rs, D4, threadIdx.x,
+               blockDim.x, Dh);
   cp_async_commit();
   const int first = warp * kWarpKeys;
   if (first < p.Tk) copy_kv(first);
@@ -621,8 +668,10 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
     for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
   }
 
-  for (int k0 = first; k0 < p.Tk; k0 += nw * kWarpKeys) {
-    const int nk = min(kWarpKeys, p.Tk - k0);
+  const int step = nw * kWarpKeys, chunks = (p.Tk + step - 1) / step;
+  for (int it = 0; it < chunks; ++it) {
+    const int k0 = first + it * step;
+    const int nk = max(0, min(kWarpKeys, p.Tk - k0));
     const int key = k0 + lane;
     const bool live = lane < nk;
     // key validity, read while the rows land
@@ -656,12 +705,23 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
       for (int r = 0; r < ROWS; ++r)
         s[r] = (dot[r][0] + dot[r][1]) + (dot[r][2] + dot[r][3]);
     }
+    // the slice's partial scores -> the cluster's sums, the same everywhere
+    float* slot = part + warp * kWarpKeys + lane;
+    if (it > 0) cluster_wait();  // every CTA has read the last chunk's
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) slot[r * nw * kWarpKeys] = s[r];
+    cluster_arrive();
+    cluster_wait();
+    cluster_sum<ROWS, 1>(s, slot, nw * kWarpKeys, n, me);
+    cluster_arrive();
+
     float e[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       float add = kv;  // key validity + causal, one fp32 sum
       if (p.causal && key > q0 + r) add += kNeg;
       const float sc = live ? s[r] + add : -INFINITY;
+      // finite: chunk 0 of every warp has a key (warps <= ceil(Tk / 32))
       const float m_new = fmaxf(m[r], warp_max(sc));
       const float alpha = ex2((m[r] - m_new) * kLog2e);
       e[r] = live ? ex2((sc - m_new) * kLog2e) : 0.f;
@@ -675,7 +735,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
       float pj[ROWS];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) pj[r] = __shfl_sync(kFull, e[r], j);
-      const float* vr = v_s + j * RV + lane;
+      const float* vr = v_s + j * RF + lane;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (32 * i >= wv) break;  // the same for the whole warp
@@ -685,16 +745,16 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
       }
     }
     __syncwarp();  // every lane is done with the rows before the next copy
-    const int next = k0 + nw * kWarpKeys;
-    if (next < p.Tk) {
-      copy_kv(next);
+    if (k0 + step < p.Tk) {
+      copy_kv(k0 + step);
       cp_async_commit();
     }
   }
+  // no CTA of the cluster leaves while another may read its partials
+  cluster_wait();
 
-  // each warp's (max, sum, acc) per row into its own rows (32 (RF + RV)
-  // floats >= ROWS PW), then one merge over the warps
-  __syncwarp();  // every lane is done with this warp's rows
+  // each warp's (max, sum, acc) per row into its own K rows (32 RF floats
+  // >= ROWS PW), then one merge over the warps
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const float lw = warp_sum(l[r]);
@@ -708,6 +768,7 @@ __global__ void __launch_bounds__(kDecodeWarps * 32)
       if (lane + 32 * i < wv) mine[2 + lane + 32 * i] = acc[r][i];
   }
   __syncthreads();
+  const int WS = 2 * kWarpKeys * RF;  // floats of a warp's rows
   const int rows = min(p.Tq - q0, ROWS);
   for (int i = threadIdx.x; i < rows * wv; i += blockDim.x) {
     const int r = i / wv, d = i - r * wv;
@@ -732,58 +793,69 @@ float head_scale(int Dh) { return (float)(1.0 / sqrt((double)Dh)); }
 int chunks_per_thread(int W) { return (W + 31) / 32; }
 
 // The tile (BI false) or K2 (BI true) kernel of R row slots a thread, DPT
-// chunks of O a thread and KT keys a tile, wide or not.
-template <bool BI, int R, int DPT, int KT, bool WIDE>
+// chunks of O a thread, on a cluster or not.
+template <bool BI, int R, int DPT, bool CLUSTER>
 auto tile_kernel() {
   if constexpr (BI)
-    return gpv_attn_fp32_bi_kernel<R, DPT, KT, WIDE>;
+    return gpv_attn_fp32_bi_kernel<R, DPT, CLUSTER>;
   else
-    return gpv_attn_fp32_tile_kernel<R, DPT, KT, WIDE>;
+    return gpv_attn_fp32_tile_kernel<R, DPT, CLUSTER>;
 }
 
-// f(kernel) for R row slots, `key_tile` keys and head dim Dh whose blocks
-// hold W output columns: up to Dh 128 the 64-key instantiation of Dh's
-// chunks a thread; wider heads 4 chunks a thread (W > 64) and 64, 32 or
-// 16 keys.
+// f(kernel) for R row slots at head dim Dh: up to Dh 128 the instantiation
+// of Dh's chunks a thread; wider heads the cluster one (R 2) of a slice of
+// W dims (3 or 4 chunks a thread).
 template <bool BI, int R, typename F>
-cudaError_t with_tile(int key_tile, int Dh, int W, F f) {
+cudaError_t with_tile(int Dh, int W, F f) {
   if (Dh <= kMaxCols) {
-    if (key_tile != 64) return cudaErrorInvalidValue;
-    switch (chunks_per_thread(W)) {
-      case 1: return f(tile_kernel<BI, R, 1, 64, false>());
-      case 2: return f(tile_kernel<BI, R, 2, 64, false>());
-      case 3: return f(tile_kernel<BI, R, 3, 64, false>());
-      default: return f(tile_kernel<BI, R, 4, 64, false>());
+    switch (chunks_per_thread(Dh)) {
+      case 1: return f(tile_kernel<BI, R, 1, false>());
+      case 2: return f(tile_kernel<BI, R, 2, false>());
+      case 3: return f(tile_kernel<BI, R, 3, false>());
+      default: return f(tile_kernel<BI, R, 4, false>());
     }
   }
-  switch (key_tile) {
-    case 64: return f(tile_kernel<BI, R, 4, 64, true>());
-    case 32: return f(tile_kernel<BI, R, 4, 32, true>());
-    case 16: return f(tile_kernel<BI, R, 4, 16, true>());
-    default: return cudaErrorInvalidValue;
+  if constexpr (R * kGroups == kClusterRows) {
+    if (chunks_per_thread(W) <= 3) return f(tile_kernel<BI, R, 3, true>());
+    return f(tile_kernel<BI, R, 4, true>());
   }
+  return cudaErrorInvalidValue;
 }
 
 // f(kernel) for `rows` rows a block (64 or 32; K2: 32).
 template <bool BI, typename F>
-cudaError_t with_tile_shape(int rows, int key_tile, int Dh, int W, F f) {
+cudaError_t with_tile_shape(int rows, int Dh, int W, F f) {
   if constexpr (!BI) {
-    if (rows == 64) return with_tile<false, 4>(key_tile, Dh, W, f);
+    if (rows == 64) return with_tile<false, 4>(Dh, W, f);
   }
-  if (rows == 32) return with_tile<BI, 2>(key_tile, Dh, W, f);
+  if (rows == 32) return with_tile<BI, 2>(Dh, W, f);
   return cudaErrorInvalidValue;
+}
+
+// Launch a tile kernel on `grid` (y: H * n), as clusters of n along y
+// above Dh 128.
+template <typename K, typename... Args>
+cudaError_t launch_tile(K* kernel, dim3 grid, int n, int smem, cudaStream_t s,
+                        Args... args) {
+  if (n == 1) {
+    kernel<<<grid, kThreads, smem, s>>>(args...);
+    return cudaGetLastError();
+  }
+  return launch_cluster(kernel, grid, dim3(1, n, 1), kThreads, smem, s,
+                        args...);
 }
 
 template <int ROWS>
 cudaError_t launch_decode(const Problem& p, int B, int H, int Dh, int W,
                           int warps, int smem, cudaStream_t s) {
-  const dim3 grid(H * ((Dh + W - 1) / W), B, (p.Tq + ROWS - 1) / ROWS);
-  if (Dh > kMaxCols)
-    gpv_attn_fp32_decode_wide_kernel<ROWS><<<grid, warps * 32, smem, s>>>(
-        p, H, Dh, head_scale(Dh), W);
-  else
-    gpv_attn_fp32_decode_kernel<ROWS><<<grid, warps * 32, smem, s>>>(
-        p, H, Dh, head_scale(Dh));
+  const int n = cluster_size(Dh, W);
+  const dim3 grid(H * n, B, (p.Tq + ROWS - 1) / ROWS);
+  if (n > 1)
+    return launch_cluster(gpv_attn_fp32_decode_cluster_kernel<ROWS>, grid,
+                          dim3(n, 1, 1), warps * 32, smem, s, p, H, Dh,
+                          head_scale(Dh), W);
+  gpv_attn_fp32_decode_kernel<ROWS><<<grid, warps * 32, smem, s>>>(
+      p, H, Dh, head_scale(Dh));
   return cudaGetLastError();
 }
 
@@ -800,12 +872,13 @@ bool bad_dims(int B, int Tq, int Tk, int H, int Dh, int cols,
          bad_cols(Dh, cols) || smem_bytes > kMaxSmem;
 }
 
-// A tile launch the plan may give: 64-key tiles up to Dh 128, and enough
-// shared memory for its block.
+// A tile launch the plan may give: 64-key tiles (a cluster: 32 keys and
+// 32 rows), and enough shared memory for its block (W: the head dims a
+// block holds).
 bool bad_tile(int Dh, int W, int rows, int key_tile, int smem_bytes) {
-  return (Dh <= kMaxCols && key_tile != 64) ||
-         (key_tile != 64 && key_tile != 32 && key_tile != 16) ||
-         smem_bytes < tile_smem_bytes(Dh, W, rows, key_tile);
+  const int n = cluster_size(Dh, W);
+  return key_tile != tile_keys(n) || (n > 1 && rows != kClusterRows) ||
+         smem_bytes < tile_smem_bytes(W, rows, n);
 }
 
 }  // namespace
@@ -814,37 +887,39 @@ bool bad_tile(int Dh, int W, int rows, int key_tile, int smem_bytes) {
 using namespace gpv_attn;
 
 // Once per process, after loading: allow every instantiation the dynamic
-// shared memory of its largest block (Dh 128 for those of head dims up to
-// 128; all a block may have for the wide ones). Returns a cudaError_t.
+// shared memory of its largest block (Dh 128, and a cluster CTA's at a
+// slice of 128), and the cluster ones clusters of up to 16 CTAs. Returns a
+// cudaError_t.
 extern "C" int gpv_attn_fp32_init() {
   cudaError_t e = cudaSuccess;
   for (int rows = 32; rows <= 64; rows += 32) {
-    const int narrow = tile_smem_bytes(kMaxCols, kMaxCols, rows, 64);
+    const int narrow = tile_smem_bytes(kMaxCols, rows, 1);
     auto set = [&](int bytes) {
       return [bytes](auto kernel) { return set_smem(kernel, bytes); };
     };
     for (int W = 32; W <= kMaxCols; W += 32) {  // head dims up to 128
       if (e == cudaSuccess)
-        e = with_tile_shape<false>(rows, 64, W, W, set(narrow));
+        e = with_tile_shape<false>(rows, W, W, set(narrow));
       if (e == cudaSuccess && rows == 32)
-        e = with_tile_shape<true>(rows, 64, W, W, set(narrow));
-    }
-    for (int kt = 16; kt <= 64; kt *= 2) {  // wide heads
-      if (e == cudaSuccess)
-        e = with_tile_shape<false>(rows, kt, 2 * kMaxCols, kMaxCols,
-                                   set(kMaxSmem));
-      if (e == cudaSuccess && rows == 32)
-        e = with_tile_shape<true>(rows, kt, 2 * kMaxCols, kMaxCols,
-                                  set(kMaxSmem));
+        e = with_tile_shape<true>(rows, W, W, set(narrow));
     }
   }
-  const int dec = decode_smem_bytes(kMaxCols, kMaxCols, kDecodeRows,
-                                    kDecodeWarps);
+  const int wide = tile_smem_bytes(kMaxCols, kClusterRows, 2);
+  auto allow = [&](auto kernel) { return allow_cluster(kernel, wide); };
+  for (int W = 96; W <= kMaxCols; W += 32) {  // clusters: 3, 4 chunks
+    if (e == cudaSuccess)
+      e = with_tile_shape<false>(kClusterRows, 2 * kMaxCols, W, allow);
+    if (e == cudaSuccess)
+      e = with_tile_shape<true>(kClusterRows, 2 * kMaxCols, W, allow);
+  }
+  const int dec = decode_smem_bytes(kMaxCols, kDecodeRows, kDecodeWarps, 1);
+  const int dec_cl =
+      decode_smem_bytes(kMaxCols, kDecodeRows, kDecodeWarps, 2);
 #define GPV_SET(ROWS)                                                      \
   if (e == cudaSuccess)                                                    \
     e = set_smem(gpv_attn_fp32_decode_kernel<ROWS>, dec);                  \
   if (e == cudaSuccess)                                                    \
-    e = set_smem(gpv_attn_fp32_decode_wide_kernel<ROWS>, kMaxSmem);
+    e = allow_cluster(gpv_attn_fp32_decode_cluster_kernel<ROWS>, dec_cl);
   GPV_SET(1)
   GPV_SET(2)
   GPV_SET(4)
@@ -856,8 +931,9 @@ extern "C" int gpv_attn_fp32_init() {
 // K1: q/out (B, Tq, H, Dh), k/v (B, Tk, H, Dh), as the wrapper's plan
 // gives it: a block owns `rows` query rows, 1, 2, 4 or 8 for the decode
 // variant with `warps` warps, 32 or 64 for the tile variant (4 warps) with
-// `key_tile` keys a tile; `cols` output columns a block above Dh 128;
-// `smem_bytes` at least what that block needs. Returns a cudaError_t.
+// `key_tile` (64) keys a tile; above Dh 128 a cluster of ceil(Dh / cols)
+// CTAs of `cols` head dims each; `smem_bytes` at least what that block
+// needs. Returns a cudaError_t.
 extern "C" int gpv_attn_fp32(const void* q, const void* k, const void* v,
                              const unsigned char* key_valid, void* out, int B,
                              int Tq, int Tk, int H, int Dh, int causal,
@@ -865,7 +941,8 @@ extern "C" int gpv_attn_fp32(const void* q, const void* k, const void* v,
                              int smem_bytes, void* stream) {
   if (bad_dims(B, Tq, Tk, H, Dh, cols, smem_bytes))
     return cudaErrorInvalidValue;
-  const int W = block_cols(Dh, cols);
+  const int W = Dh > kMaxCols ? cols : Dh;  // head dims a block holds
+  const int n = cluster_size(Dh, cols);
   const Problem p{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), key_valid,
                   static_cast<float*>(out), Tq, Tk, causal};
@@ -873,7 +950,7 @@ extern "C" int gpv_attn_fp32(const void* q, const void* k, const void* v,
   if (rows <= kDecodeRows) {
     if (rows < 1 || (rows & (rows - 1)) || warps < 1 ||
         warps > kDecodeWarps || key_tile != kWarpKeys ||
-        smem_bytes < decode_smem_bytes(Dh, W, rows, warps))
+        smem_bytes < decode_smem_bytes(W, rows, warps, n))
       return cudaErrorInvalidValue;
     switch (rows) {
       case 1: return launch_decode<1>(p, B, H, Dh, W, warps, smem_bytes, s);
@@ -884,11 +961,10 @@ extern "C" int gpv_attn_fp32(const void* q, const void* k, const void* v,
   }
   if (warps != kThreads / 32 || bad_tile(Dh, W, rows, key_tile, smem_bytes))
     return cudaErrorInvalidValue;
-  const dim3 grid((Tq + rows - 1) / rows, H * col_blocks(Dh, cols), B);
+  const dim3 grid((Tq + rows - 1) / rows, H * n, B);
   const float sc = head_scale(Dh);
-  return with_tile_shape<false>(rows, key_tile, Dh, W, [&](auto kernel) {
-    kernel<<<grid, kThreads, smem_bytes, s>>>(p, H, Dh, sc, W);
-    return cudaGetLastError();
+  return with_tile_shape<false>(rows, Dh, W, [&](auto kernel) {
+    return launch_tile(kernel, grid, n, smem_bytes, s, p, H, Dh, sc, W);
   });
 }
 
@@ -903,7 +979,7 @@ extern "C" int gpv_attn_fp32_bi(const void* q1, const void* k1,
                                 void* ctx2, int B, int T1, int T2, int H,
                                 int Dh, int rows, int warps, int key_tile,
                                 int cols, int smem_bytes, void* stream) {
-  const int W = block_cols(Dh, cols);
+  const int W = Dh > kMaxCols ? cols : Dh;
   if (bad_dims(B, T1, T2, H, Dh, cols, smem_bytes) || rows != 32 ||
       warps != kThreads / 32 || bad_tile(Dh, W, rows, key_tile, smem_bytes))
     return cudaErrorInvalidValue;
@@ -914,10 +990,10 @@ extern "C" int gpv_attn_fp32_bi(const void* q1, const void* k1,
                    valid2, static_cast<float*>(ctx2), T1, T2, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tq = T1 > T2 ? T1 : T2;
-  const dim3 grid((tq + rows - 1) / rows, H * col_blocks(Dh, cols), 2 * B);
+  const int n = cluster_size(Dh, cols);
+  const dim3 grid((tq + rows - 1) / rows, H * n, 2 * B);
   const float sc = head_scale(Dh);
-  return with_tile_shape<true>(rows, key_tile, Dh, W, [&](auto kernel) {
-    kernel<<<grid, kThreads, smem_bytes, s>>>(p1, p2, H, Dh, sc, W);
-    return cudaGetLastError();
+  return with_tile_shape<true>(rows, Dh, W, [&](auto kernel) {
+    return launch_tile(kernel, grid, n, smem_bytes, s, p1, p2, H, Dh, sc, W);
   });
 }

@@ -36,12 +36,14 @@
 //
 // Any Dh >= 1: rows are copied 16 bytes at a time when Dh is a multiple of
 // 8, 4 bytes when it is even, else one value at a time, and zero-filled to
-// a multiple of 8. Above Dh 128 a block computes at most 128 output
-// columns: the grid's x runs over (head, column block), each block scores
-// the keys over the whole Dh (q and the K rows whole in shared memory) and
-// keeps only its columns of V, so a lane's pairs stay at most two. K rows
-// of 32 keys a warp at Dh 768 take 50 KB, so the wrapper's plan cuts the
-// warps until the block fits 227 KB.
+// a multiple of 8. Above Dh 128 the kernel runs on a cluster
+// (attention_common.cuh): the grid's x runs over (head, slice), a cluster
+// of n CTAs along x owns one (batch, head), and each CTA holds q, K and V
+// over its slice of at most 128 head dims, so a lane's pairs stay at most
+// two and a CTA's shared memory is a Dh-128 block's. Every warp's chunk of
+// 32 partial scores is summed over the cluster through distributed shared
+// memory before its softmax, so the warps walk the same number of chunks
+// in every CTA (a chunk past Tk has no live key).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 #include <math.h>
@@ -63,48 +65,56 @@ struct Decode {
   bf16* out;                       // (B, 1, H, Dh)
   int Tk, H, Dh, causal;
   float scale2;  // log2(e) / sqrt(Dh)
-  int W;         // output columns a block (block_cols)
+  int W;         // head dims a block holds: Dh, or a cluster CTA's slice
 };
 
-// q as fp32 (Dh rounded up to 8, room for 128 at least), each warp's
-// (max, sum, acc[W]) and each warp's K rows (Dh wide) and V rows (W wide).
-__host__ __device__ constexpr int q_floats(int Dh) {
-  return ceil8(Dh) > 128 ? ceil8(Dh) : 128;
+// q as fp32 (W rounded up to 8, room for 128 at least), each warp's
+// (max, sum, acc[W]), in a cluster of n > 1 each warp's 32 partial
+// scores, and each warp's K and V rows (W wide).
+__host__ __device__ constexpr int q_floats(int W) {
+  return ceil8(W) > 128 ? ceil8(W) : 128;
 }
 __host__ __device__ constexpr int part_bytes(int W, int warps) {
   return (warps * (ceil8(W) + 2) * 4 + 15) / 16 * 16;
 }
-__host__ __device__ constexpr int decode_smem_bytes(int Dh, int W,
-                                                    int warps) {
-  return q_floats(Dh) * 4 + part_bytes(W, warps) +
-         warps * kWarpKeys * (row_chunks(Dh) + row_chunks(W)) * 16;
+__host__ __device__ constexpr int cluster_part_bytes(int warps, int n) {
+  return n > 1 ? warps * kWarpKeys * 4 : 0;
+}
+__host__ __device__ constexpr int decode_smem_bytes(int W, int warps,
+                                                    int n) {
+  return q_floats(W) * 4 + part_bytes(W, warps) +
+         cluster_part_bytes(warps, n) +
+         warps * kWarpKeys * 2 * row_chunks(W) * 16;
 }
 
-// DP: bf16 pairs a lane owns in P.V (W <= 64 * DP). GEN: any Dh (column
-// blocks above 128, copies in bf16_unit's units); else Dh <= 128 and a
-// multiple of 8, whose code is what it was before other head dims.
-template <int DP, bool GEN>
+// DP: bf16 pairs a lane owns in P.V (W <= 64 * DP). GEN: any Dh (copies
+// in bf16_unit's units; CLUSTER: above 128, a cluster of n CTAs); else Dh
+// <= 128 and a multiple of 8, whose code is what it was before other head
+// dims.
+template <int DP, bool GEN, bool CLUSTER = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     gpv_attn_decode_kernel(Decode p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nc = GEN ? (p.Dh + p.W - 1) / p.W : 1;  // column blocks a head
+  const int nc = CLUSTER ? (p.Dh + p.W - 1) / p.W : 1;  // CTAs a head
   const int h = blockIdx.x / nc, b = blockIdx.y;
-  const int c0 = GEN ? (blockIdx.x - h * nc) * p.W : 0;
+  const int c0 = CLUSTER ? (blockIdx.x - h * nc) * p.W : 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int Dh = p.Dh, D8 = GEN ? ceil8(Dh) : Dh, dc = D8 >> 3;
-  const int ROW = (GEN ? row_chunks(Dh) : (Dh / 8) | 1) * 8;
-  const int VROW = GEN ? row_chunks(p.W) * 8 : ROW;
+  const int Dh = p.Dh;
+  const int wv = GEN ? min(p.W, Dh - c0) : Dh;   // this block's head dims
+  const int D8 = GEN ? ceil8(wv) : Dh, dc = D8 >> 3;
+  const int ROW = (GEN ? row_chunks(p.W) : (Dh / 8) | 1) * 8;
   const int PW = GEN ? ceil8(p.W) + 2 : Dh + 2;  // floats of a warp's partials
-  const int wv = GEN ? min(p.W, Dh - c0) : Dh;   // this block's columns
   const int unit = bf16_unit(Dh);
-  const int qf = GEN ? q_floats(Dh) : 128;
+  const int qf = GEN ? q_floats(p.W) : 128;
   float* q_s = reinterpret_cast<float*>(smem);
   float* part = q_s + qf;
+  const int pb = GEN ? part_bytes(p.W, nw) : (nw * PW * 4 + 15) / 16 * 16;
+  float* cpart = reinterpret_cast<float*>(smem + qf * 4 + pb);  // CLUSTER
   bf16* k_s = reinterpret_cast<bf16*>(
-                  smem + qf * 4 +
-                  (GEN ? part_bytes(p.W, nw) : (nw * PW * 4 + 15) / 16 * 16)) +
-              warp * kWarpKeys * (ROW + VROW);
+                  smem + qf * 4 + pb +
+                  (CLUSTER ? cluster_part_bytes(nw, nc) : 0)) +
+              warp * kWarpKeys * (ROW + ROW);
   bf16* v_s = k_s + kWarpKeys * ROW;
 
   const size_t rs = (size_t)p.H * Dh;  // elements between two keys of (b, h)
@@ -124,28 +134,26 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         cp_async16(k_s + r * ROW + c * 8, kg + off, 16);
         cp_async16(v_s + r * ROW + c * 8, vg + off, 16);
       }
-    } else if (nc == 1) {
-      copy_bf16_rows<2>(unit, {k_s, v_s}, {kg, vg}, k0, nk, p.Tk, 0, D8, Dh,
-                        rs, ROW, lane, 32);
     } else {
-      copy_bf16_rows<1>(unit, {k_s}, {kg}, k0, nk, p.Tk, 0, D8, Dh, rs, ROW,
-                        lane, 32);
-      copy_bf16_rows<1>(unit, {v_s}, {vg}, k0, nk, p.Tk, c0, ceil8(p.W),
-                        Dh - c0, rs, VROW, lane, 32);
+      copy_bf16_rows<2>(unit, {k_s, v_s}, {kg, vg}, k0, nk, p.Tk, c0,
+                        ceil8(p.W), Dh - c0, rs, ROW, lane, 32);
     }
     cp_async_commit();
   };
   const int first = warp * kWarpKeys;
   if (first < p.Tk) copy_rows(first);  // lands while q is read
   for (int d = threadIdx.x; d < D8; d += blockDim.x)
-    q_s[d] = !GEN || d < Dh ? __bfloat162float(qg[d]) : 0.f;
+    q_s[d] = !GEN || d < wv ? __bfloat162float(qg[c0 + d]) : 0.f;
   __syncthreads();
 
   float m = -INFINITY, l = 0.f, acc[DP][2];
 #pragma unroll
   for (int i = 0; i < DP; ++i) acc[i][0] = acc[i][1] = 0.f;
 
-  for (int k0 = first; k0 < p.Tk; k0 += nw * kWarpKeys) {
+  // a cluster's warps walk ceil(Tk / step) chunks each (nk <= 0 past Tk)
+  const int step = nw * kWarpKeys;
+  const int end = CLUSTER ? first + (p.Tk + step - 1) / step * step : p.Tk;
+  for (int k0 = first; k0 < end; k0 += nw * kWarpKeys) {
     const int nk = min(kWarpKeys, p.Tk - k0);
     const int key = k0 + lane;
     float mv = 0.f;  // causal + key validity, one fp32 sum, read meanwhile
@@ -155,6 +163,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     __syncwarp();
 
     float s = -INFINITY;  // lanes past the last key take no part
+    float dsum = 0.f;     // CLUSTER: this slice's partial score
     if (lane < nk) {
       const bf16* kr = k_s + lane * ROW;
       float dot[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, summed at the end
@@ -177,7 +186,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         dot[2] = fmaf(qb.z, f.x, dot[2]);
         dot[3] = fmaf(qb.w, f.y, dot[3]);
       }
-      s = ((dot[0] + dot[1]) + (dot[2] + dot[3])) * p.scale2 + mv;
+      if constexpr (CLUSTER)
+        dsum = (dot[0] + dot[1]) + (dot[2] + dot[3]);
+      else
+        s = ((dot[0] + dot[1]) + (dot[2] + dot[3])) * p.scale2 + mv;
+    }
+    if constexpr (CLUSTER) {  // the slice's partial -> the cluster's sum
+      float one[1] = {dsum};
+      float* slot = cpart + warp * kWarpKeys + lane;
+      if (k0 != first) cluster_wait();  // every CTA read the last chunk's
+      *slot = dsum;
+      cluster_arrive();
+      cluster_wait();
+      cluster_sum<1, 1>(one, slot, 0, nc, cluster_rank());
+      cluster_arrive();
+      if (lane < nk) s = one[0] * p.scale2 + mv;
     }
     const float m_new = fmaxf(m, warp_max(s));
     const float alpha = ex2(m - m_new);
@@ -194,7 +217,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll 8
     for (int j = 0; j < nk; ++j) {
       const float pj = __shfl_sync(kFull, e, j);
-      const bf16* vr = v_s + j * VROW;
+      const bf16* vr = v_s + j * ROW;
 #pragma unroll
       for (int i = 0; i < DP; ++i) {
         const int d = 2 * lane + 64 * i;
@@ -209,6 +232,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     __syncwarp();  // every lane is done with the rows before the next copy
     if (k0 + nw * kWarpKeys < p.Tk) copy_rows(k0 + nw * kWarpKeys);
   }
+  // no CTA of a cluster leaves while another may read its partials
+  if constexpr (CLUSTER) cluster_wait();
 
   float* mine = part + warp * PW;
   if (lane == 0) {
@@ -267,10 +292,11 @@ using namespace gpv_attn;
 
 // Once per process, after loading: allow each instantiation the dynamic
 // shared memory of its largest block (Dh 128 for those of head dims up to
-// 128 that are multiples of 8, all a block may have for the others).
-// Returns a cudaError_t.
+// 128, a cluster CTA's at a slice of 128 for the cluster one, which may
+// also form clusters of up to 16 CTAs). Returns a cudaError_t.
 extern "C" int gpv_attn_decode_init() {
-  const int narrow = decode_smem_bytes(128, 128, kMaxWarps);
+  const int narrow = decode_smem_bytes(128, kMaxWarps, 1);
+  const int wide = decode_smem_bytes(128, kMaxWarps, 2);
   cudaError_t e = cudaSuccess;
 #define GPV_SET(DP, GEN, bytes)                                        \
   if (e == cudaSuccess)                                                \
@@ -279,9 +305,11 @@ extern "C" int gpv_attn_decode_init() {
                              bytes);
   GPV_SET(1, false, narrow)
   GPV_SET(2, false, narrow)
-  GPV_SET(1, true, kMaxSmem)
-  GPV_SET(2, true, kMaxSmem)
+  GPV_SET(1, true, narrow)
+  GPV_SET(2, true, narrow)
 #undef GPV_SET
+  if (e == cudaSuccess)
+    e = allow_cluster(gpv_attn_decode_kernel<2, true, true>, wide);
   return e;
 }
 
@@ -292,18 +320,22 @@ extern "C" int gpv_attn_decode(const void* q, const void* k, const void* v,
                                int B, int Tk, int H, int Dh, int causal,
                                int warps, int cols, int smem_bytes,
                                void* stream) {
+  const int W = Dh > kMaxCols ? cols : Dh;  // head dims a block holds
+  const int n = cluster_size(Dh, cols);
   if (B <= 0 || Tk <= 0 || H <= 0 || Dh <= 0 || bad_cols(Dh, cols) ||
       warps < 1 || warps > kMaxWarps || smem_bytes > kMaxSmem ||
-      smem_bytes < decode_smem_bytes(Dh, block_cols(Dh, cols), warps))
+      smem_bytes < decode_smem_bytes(W, warps, n))
     return cudaErrorInvalidValue;
-  const int W = block_cols(Dh, cols);
   const Decode p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                  static_cast<const bf16*>(v), key_valid,
                  static_cast<bf16*>(out), Tk, H, Dh, causal,
                  (float)(1.4426950408889634 / sqrt((double)Dh)), W};
-  const dim3 grid(H * col_blocks(Dh, cols), B);
+  const dim3 grid(H * n, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool gen = Dh > kMaxCols || Dh % 8;
+  if (n > 1)  // a cluster of n CTAs along x a head; W > 64 above Dh 128
+    return launch_cluster(gpv_attn_decode_kernel<2, true, true>, grid,
+                          dim3(n, 1, 1), warps * 32, smem_bytes, s, p);
   if (W <= 64 && !gen)
     gpv_attn_decode_kernel<1, false><<<grid, warps * 32, smem_bytes, s>>>(p);
   else if (!gen)

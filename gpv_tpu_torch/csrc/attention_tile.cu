@@ -25,13 +25,14 @@
 // Head dims up to 128 that are multiples of 8 instantiate the product's
 // depth D (Dh rounded up to 16) and keep Q's fragments in registers; each
 // warp's O (16 rows x D) lives in fp32 registers. Every other head dim
-// takes the `wide` instantiations (D = 128, copies in bf16_unit's units).
-// Above 128 a warp's O would spill, so a block computes at most 128
-// columns of O: the grid's y runs over (head, column block), every block
-// recomputes S over the whole Dh from Q and K rows held whole in shared
-// memory (Q's fragments read by ldmatrix at each step), and holds only its
-// own columns of V. The key tile is 64, 32 or 16 keys, and the block 1-4
-// warps, as the wrapper's plan finds them to fit 227 KB.
+// takes the `wide` instantiation (D = 128, copies in bf16_unit's units,
+// Q's fragments read by ldmatrix at each step). Above 128 a warp's O would
+// spill, so that instantiation runs on a cluster (attention_common.cuh):
+// the grid's y runs over (head, slice), a cluster of n CTAs along y owns a
+// (batch, head, query block), and each CTA holds Q, K and V over its
+// slice of at most 128 head dims. Each key tile's partial scores are
+// summed over the cluster through distributed shared memory, so S is
+// computed once per row block and K and V are read once.
 //
 // What bounds it on the card: bytes. The DETR-encoder shape does 1.84 GFLOP
 // on 12.3 MB, about 150 operations per byte against the H100's ~295 for bf16
@@ -83,40 +84,52 @@ struct Attn {
   int Tq, Tk, causal;
 };
 
-// Dynamic shared memory of a block of `warps` warps at padded head dim Dp
-// whose O has W columns, with key tiles of KT keys: the key mask and K
-// (Dp wide) and V (W wide) in two stages, and the block's Q rows.
-__host__ __device__ constexpr int tile_smem_bytes(int Dp, int W, int warps,
-                                                  int KT) {
-  return 2 * KT * 4 + 16 * warps * row_chunks(Dp) * 16 +
-         2 * KT * (row_chunks(Dp) + row_chunks(W)) * 16;
+constexpr int kKeyTile = 64;  // keys a shared-memory tile
+// clusters of at least this many CTAs exchange their partial scores by
+// cluster_allreduce, smaller ones by cluster_sum: on the H100 the two-step
+// exchange was 0.64x at 8 CTAs, 0.86x at 6, 0.94x at 5, 0.98-1.00x at 4,
+// and 1.13x at 3 (PERF.md)
+constexpr int kAllreduceCtas = 4;
+
+// Dynamic shared memory of a block of `warps` warps holding W head dims
+// (Dh padded to 16, or a cluster CTA's slice): the key mask, the block's Q
+// rows, K and V in two stages, and in a cluster of n > 1 each thread's
+// partial scores of a tile (two CTAs an SM at slices of 128 and 4 warps).
+__host__ __device__ constexpr int tile_smem_bytes(int W, int warps, int n) {
+  return 2 * kKeyTile * 4 + 16 * warps * row_chunks(W) * 16 +
+         2 * kKeyTile * 2 * row_chunks(W) * 16 +
+         (n > 1 ? warps * 32 * kKeyTile / 2 * 4 : 0);
 }
 
-// Rows [q0, q0 + blockDim.x / 2) of (batch b, head h), output columns
-// [c0, c0 + W). Narrow (WIDE false; Dh <= 128, a multiple of 8): D is Dh
-// rounded up to a multiple of 16, the depth of both products and O's
-// width; c0 = 0, W = D, 16-byte copies (the code of these instantiations
-// is what it was before other head dims). WIDE (any other Dh): D = 128 is
-// O's largest width, W <= D its width here, S's depth Dp is Dh rounded up
-// to 16, and rows are copied in the units bf16_unit gives. KT keys a
-// shared-memory tile.
-template <int D, int KT, bool WIDE>
+// Rows [q0, q0 + blockDim.x / 2) of (batch b, head h). Narrow (WIDE false;
+// Dh <= 128, a multiple of 8): D is Dh rounded up to a multiple of 16, the
+// depth of both products and O's width; c0 = 0, W = D, 16-byte copies (the
+// code of these instantiations is what it was before other head dims).
+// WIDE (any other Dh): D = 128 is O's largest width; the block holds head
+// dims [c0, c0 + W) of Q, K, V and O (all of a head up to Dh 128, W its Dh
+// padded to 16; above, one CTA's slice of a cluster of n: CLUSTER), S's
+// depth Dp is the held dims rounded up to 16, rows are copied in the units
+// bf16_unit gives, and on a cluster S is the cluster's sum of the CTAs'
+// partial scores. KT keys a shared-memory tile.
+template <int D, int KT, bool WIDE, bool CLUSTER>
 __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
                                           float scale2, int b, int h, int q0,
-                                          int c0, int W,
+                                          int c0, int W, int n,
                                           unsigned char* smem) {
   constexpr int NO = D / 8;   // 8-wide column tiles of O (WIDE: at most)
   constexpr int NJ = KT / 8;  // 8-key column tiles of S
   constexpr int NK = KT / 16; // 16-key steps of P.V
-  const int Dp = WIDE ? (Dh + 15) / 16 * 16 : D;  // S's depth
-  const int ROW = row_chunks(Dp) * 8;              // bf16 per Q / K row
-  const int VROW = WIDE ? row_chunks(W) * 8 : ROW; // bf16 per V row
+  const int wv = WIDE ? min(W, Dh - c0) : D;         // this block's dims
+  const int Dp = WIDE ? (wv + 15) / 16 * 16 : D;     // S's depth
+  const int ROW = row_chunks(WIDE ? W : D) * 8;      // bf16 per Q, K, V row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, rows = nthreads / 2;
   float* mask_s = reinterpret_cast<float*>(smem);
   bf16* q_s = reinterpret_cast<bf16*>(smem + 2 * KT * 4);
   bf16* k_s = q_s + rows * ROW;
   bf16* v_s = k_s + 2 * KT * ROW;
+  // n > 1: the partial scores, [NJ][nthreads][4] floats
+  float* part = reinterpret_cast<float*>(v_s + 2 * KT * ROW);
 
   const int unit = bf16_unit(Dh);
   const size_t rs = (size_t)H * Dh;  // elements between two rows of (b, h)
@@ -129,8 +142,8 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
   constexpr int CH = D / 8;  // narrow: 16-byte chunks copied per row
   const int dc = Dh >> 3;    // narrow: chunks that hold data
   if constexpr (WIDE) {
-    copy_bf16_rows<1>(unit, {q_s}, {qg}, q0, rows, p.Tq, 0, Dp, Dh, rs, ROW,
-                      tid, nthreads);
+    copy_bf16_rows<1>(unit, {q_s}, {qg}, q0, rows, p.Tq, c0, W, Dh - c0, rs,
+                      ROW, tid, nthreads);
   } else {
     for (int i = tid; i < rows * CH; i += nthreads) {
       const int r = i / CH, c = i - r * CH, t = q0 + r;
@@ -142,12 +155,10 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
   auto load_tile = [&](int tile, int stage) {
     const int k0 = tile * KT;
     bf16* ks = k_s + stage * KT * ROW;
-    bf16* vs = v_s + stage * KT * VROW;
+    bf16* vs = v_s + stage * KT * ROW;
     if constexpr (WIDE) {
-      copy_bf16_rows<1>(unit, {ks}, {kg}, k0, KT, p.Tk, 0, Dp, Dh, rs, ROW,
-                        tid, nthreads);
-      copy_bf16_rows<1>(unit, {vs}, {vg}, k0, KT, p.Tk, c0, W, Dh - c0, rs,
-                        VROW, tid, nthreads);
+      copy_bf16_rows<2>(unit, {ks, vs}, {kg, vg}, k0, KT, p.Tk, c0, W,
+                        Dh - c0, rs, ROW, tid, nthreads);
     } else {
       for (int i = tid; i < KT * CH; i += nthreads) {
         const int r = i / CH, c = i - r * CH, key = k0 + r;
@@ -191,7 +202,7 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
     __syncthreads();
     if (active) {
       const bf16* ks = k_s + stage * KT * ROW;
-      const bf16* vs = v_s + stage * KT * VROW;
+      const bf16* vs = v_s + stage * KT * ROW;
       const float* mk = mask_s + stage * KT;
       const int k0 = tile * KT;
 
@@ -237,6 +248,26 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
             mma_bf16(s[2 * np], qa, bk[0], bk[1]);
             mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
           }
+        }
+        if constexpr (CLUSTER) {  // the slice's partial scores -> the sum
+          // over the cluster, the same in every CTA
+          float(&flat)[NJ * 4] =
+              *reinterpret_cast<float(*)[NJ * 4]>(&s[0][0]);
+          float* slot = part + tid * 4;
+          if (tile > 0) cluster_wait();  // every CTA read the last tile's
+#pragma unroll
+          for (int i = 0; i < NJ * 4; i += 4)
+            *reinterpret_cast<float4*>(slot + i * nthreads) =
+                make_float4(flat[i], flat[i + 1], flat[i + 2], flat[i + 3]);
+          cluster_arrive();
+          cluster_wait();
+          if (n >= kAllreduceCtas)
+            cluster_allreduce<NJ * 4>(flat, slot, 4 * nthreads, n,
+                                      cluster_rank());
+          else
+            cluster_sum<NJ * 4, 4>(flat, slot, 4 * nthreads, n,
+                                   cluster_rank());
+          cluster_arrive();
         }
       }
 
@@ -306,18 +337,29 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
         if (k0 + kk * 16 >= p.Tk) break;
 #pragma unroll
         for (int np = 0; np < NO / 2; ++np) {
-          if (WIDE && np * 16 >= W) break;
+          if (WIDE && np * 16 >= Dp) break;
           uint32_t bv[4];
           ldmatrix_x4_trans(
-              bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * VROW +
+              bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
                       np * 16 + (lane >> 4) * 8);
           mma_bf16(o[2 * np], pa[kk], bv[0], bv[1]);
           mma_bf16(o[2 * np + 1], pa[kk], bv[2], bv[3]);
         }
       }
+    } else if (CLUSTER) {  // a warp past Tq still takes part
+      if (tile > 0) cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+      if (n >= kAllreduceCtas) {
+        cluster_arrive();
+        cluster_wait();
+      }
+      cluster_arrive();
     }
     __syncthreads();  // the next iteration refills this stage
   }
+  // no CTA of a cluster leaves while another may read its partial scores
+  if (CLUSTER) cluster_wait();
 
   if (!active) return;
 #pragma unroll
@@ -345,70 +387,70 @@ __device__ __forceinline__ void tile_rows(const Attn& p, int H, int Dh,
   const bool even = (Dh & 1) == 0;
   bf16* out_lo = p.out + ((size_t)(b * p.Tq + r_lo) * H + h) * Dh + c0;
   bf16* out_hi = p.out + ((size_t)(b * p.Tq + r_hi) * H + h) * Dh + c0;
-  const int wv = Dh - c0;  // columns of this block inside the row: > d
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int d = n * 8 + (lane & 3) * 2;
-    if (d >= W || d >= wv) break;
+  for (int t = 0; t < NO; ++t) {
+    const int d = t * 8 + (lane & 3) * 2;
+    if (d >= wv) break;
     if (r_lo < p.Tq)
-      store_bf16_pair(out_lo + d, o[n][0] * inv_lo, o[n][1] * inv_lo, even,
+      store_bf16_pair(out_lo + d, o[t][0] * inv_lo, o[t][1] * inv_lo, even,
                       d + 1 < wv);
     if (r_hi < p.Tq)
-      store_bf16_pair(out_hi + d, o[n][2] * inv_hi, o[n][3] * inv_hi, even,
+      store_bf16_pair(out_hi + d, o[t][2] * inv_hi, o[t][3] * inv_hi, even,
                       d + 1 < wv);
   }
 }
 
-// blockIdx.y = h * col_blocks + column block (one column block up to Dh
-// 128); W: the plan's columns a block (WIDE), else D.
-template <int D, int KT, bool WIDE>
+// blockIdx.y = h * n + c: the head, and in a cluster (of n CTAs along y,
+// above Dh 128) the CTA's slice c of W head dims; W: the dims a block
+// holds (WIDE), else D.
+template <int D, int KT, bool WIDE, bool CLUSTER>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     gpv_attn_tile_kernel(Attn p, int H, int Dh, float scale2, int W) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nc = WIDE ? (Dh + W - 1) / W : 1;
+  const int nc = CLUSTER ? (Dh + W - 1) / W : 1;
   const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
-  tile_rows<D, KT, WIDE>(p, H, Dh, scale2, blockIdx.z, h,
-                         blockIdx.x * (blockDim.x / 2), c * W, W, smem);
+  tile_rows<D, KT, WIDE, CLUSTER>(p, H, Dh, scale2, blockIdx.z, h,
+                         blockIdx.x * (blockDim.x / 2), c * W, W, nc, smem);
 }
 
-// Both co-attention directions in one launch: blockIdx.z = 2 * b + dir.
-template <int D, int KT, bool WIDE>
+// Both co-attention directions in one launch: blockIdx.z = 2 * b + dir; on
+// a cluster blockIdx.z = half * B + b (`long_first`).
+template <int D, int KT, bool WIDE, bool CLUSTER>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     gpv_attn_tile_bi_kernel(Attn p1, Attn p2, int H, int Dh, float scale2,
                             int W) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Attn p = (blockIdx.z & 1) ? p2 : p1;
+  const int nc = CLUSTER ? (Dh + W - 1) / W : 1;
+  int b = blockIdx.z >> 1;
+  bool second = blockIdx.z & 1;
+  if constexpr (CLUSTER) long_first(p1.Tk, p2.Tk, b, second);
+  const Attn p = second ? p2 : p1;
   const int q0 = blockIdx.x * (blockDim.x / 2);
-  if (q0 >= p.Tq) return;  // whole block: before any barrier
-  const int nc = WIDE ? (Dh + W - 1) / W : 1;
+  // whole block (a cluster shares q0): before any barrier
+  if (q0 >= p.Tq) return;
   const int h = blockIdx.y / nc, c = blockIdx.y - h * nc;
-  tile_rows<D, KT, WIDE>(p, H, Dh, scale2, blockIdx.z >> 1, h, q0, c * W, W,
-                         smem);
+  tile_rows<D, KT, WIDE, CLUSTER>(p, H, Dh, scale2, b, h, q0, c * W, W, nc,
+                                  smem);
 }
 
-// One instantiation: O's (largest) width D, KT keys a tile, wide or not.
-template <int D, int KT, bool WIDE>
+// One instantiation: O's (largest) width D, KT keys a tile, wide or not,
+// on a cluster or not.
+template <int D, int KT, bool WIDE, bool CLUSTER = false>
 struct Inst {
   static constexpr int d = D, kt = KT;
-  static constexpr bool wide = WIDE;
+  static constexpr bool wide = WIDE, cluster = CLUSTER;
 };
 
 int padded_dim(int Dh) { return (Dh + 15) / 16 * 16; }
 
-// f(Inst<...>{}) for the instantiation that takes head dim Dh with key
-// tiles of `key_tile` keys (the wide ones: above Dh 128, and a Dh that is
-// not a multiple of 8); cudaErrorInvalidValue where there is none.
+// f(Inst<...>{}) for the instantiation that takes head dim Dh (the wide
+// ones: above Dh 128 on a cluster, and a Dh that is not a multiple of 8),
+// with 64-key tiles; cudaErrorInvalidValue for another key tile.
 template <typename F>
 cudaError_t with_inst(int Dh, int key_tile, F f) {
-  if (Dh > kMaxCols || Dh % 8) {
-    switch (key_tile) {
-      case 64: return f(Inst<kMaxCols, 64, true>{});
-      case 32: return f(Inst<kMaxCols, 32, true>{});
-      case 16: return f(Inst<kMaxCols, 16, true>{});
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (key_tile != 64) return cudaErrorInvalidValue;
+  if (key_tile != kKeyTile) return cudaErrorInvalidValue;
+  if (Dh > kMaxCols) return f(Inst<kMaxCols, kKeyTile, true, true>{});
+  if (Dh % 8) return f(Inst<kMaxCols, kKeyTile, true>{});
   switch (padded_dim(Dh)) {
     case 16: return f(Inst<16, 64, false>{});
     case 32: return f(Inst<32, 64, false>{});
@@ -426,7 +468,8 @@ float head_scale2(int Dh) {
   return (float)(1.4426950408889634 / sqrt((double)Dh));
 }
 
-// O's columns a block: the plan's `cols` above 128, else Dh padded to 16.
+// The head dims a block holds: the plan's `cols` above 128, else Dh
+// padded to 16.
 int out_cols(int Dh, int cols) {
   return Dh > kMaxCols ? cols : padded_dim(Dh);
 }
@@ -434,9 +477,23 @@ int out_cols(int Dh, int cols) {
 bool bad_shape(int B, int T1, int T2, int H, int Dh, int warps, int key_tile,
                int cols, int smem_bytes) {
   return B <= 0 || T1 <= 0 || T2 <= 0 || H <= 0 || Dh <= 0 || warps < 1 ||
-         warps > kMaxWarps || bad_cols(Dh, cols) || smem_bytes > kMaxSmem ||
-         smem_bytes < tile_smem_bytes(padded_dim(Dh), out_cols(Dh, cols),
-                                      warps, key_tile);
+         warps > kMaxWarps || key_tile != kKeyTile || bad_cols(Dh, cols) ||
+         smem_bytes > kMaxSmem ||
+         smem_bytes < tile_smem_bytes(out_cols(Dh, cols), warps,
+                                      cluster_size(Dh, cols));
+}
+
+// Launch one tile kernel on `grid` (y: H * n), as clusters of n CTAs along
+// y above Dh 128.
+template <typename K, typename... Args>
+cudaError_t launch(K* kernel, dim3 grid, int n, int warps, int smem,
+                   cudaStream_t s, Args... args) {
+  if (n == 1) {
+    kernel<<<grid, warps * 32, smem, s>>>(args...);
+    return cudaGetLastError();
+  }
+  return launch_cluster(kernel, grid, dim3(1, n, 1), warps * 32, smem, s,
+                        args...);
 }
 
 }  // namespace
@@ -445,32 +502,38 @@ bool bad_shape(int B, int T1, int T2, int H, int Dh, int warps, int key_tile,
 using namespace gpv_attn;
 
 // Once per process, after loading: allow every instantiation the dynamic
-// shared memory of its largest block (a wide one: all a block may have).
-// Returns a cudaError_t.
+// shared memory of its largest block (the narrow ones at their D, the
+// wide one of Dh <= 128 at D 128, the cluster one a cluster CTA's at a
+// slice of 128 and clusters of up to 16 CTAs). Returns a cudaError_t.
 extern "C" int gpv_attn_tile_init() {
-  for (int Dh = 16; Dh <= kMaxCols + 16; Dh += 16) {  // 144: the wide
-    for (int kt = 16; kt <= 64; kt *= 2) {
-      if (Dh <= kMaxCols && kt != 64) continue;
-      const cudaError_t err = with_inst(Dh, kt, [](auto c) {
-        using C = decltype(c);
-        constexpr int bytes =
-            C::wide ? kMaxSmem : tile_smem_bytes(C::d, C::d, kMaxWarps, C::kt);
+  // Dh 16-128: the narrow ones; 12: the wide one; 144: the cluster one
+  for (int Dh : {16, 32, 48, 64, 80, 96, 112, 128, 12, kMaxCols + 16}) {
+    const cudaError_t err = with_inst(Dh, kKeyTile, [](auto c) {
+      using C = decltype(c);
+      auto tile = gpv_attn_tile_kernel<C::d, C::kt, C::wide, C::cluster>;
+      auto bi = gpv_attn_tile_bi_kernel<C::d, C::kt, C::wide, C::cluster>;
+      if constexpr (C::cluster) {
+        constexpr int bytes = tile_smem_bytes(kMaxCols, kMaxWarps, 2);
+        cudaError_t e = allow_cluster(tile, bytes);
+        if (e == cudaSuccess) e = allow_cluster(bi, bytes);
+        return e;
+      } else {
+        constexpr int bytes = tile_smem_bytes(C::d, kMaxWarps, 1);
         cudaError_t e = cudaFuncSetAttribute(
-            gpv_attn_tile_kernel<C::d, C::kt, C::wide>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+            tile, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
         if (e == cudaSuccess)
           e = cudaFuncSetAttribute(
-              gpv_attn_tile_bi_kernel<C::d, C::kt, C::wide>,
-              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+              bi, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
         return e;
-      });
-      if (err != cudaSuccess) return err;
-    }
+      }
+    });
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// K1, Tq >= 1 rows per (b, h); `warps`, `key_tile`, `cols` and
+// K1, Tq >= 1 rows per (b, h); `warps`, `key_tile` (64), `cols` (above Dh
+// 128: a cluster of ceil(Dh / cols) CTAs of `cols` head dims) and
 // `smem_bytes` as the wrapper's plan gives them (smem_bytes at least
 // tile_smem_bytes).
 extern "C" int gpv_attn_tile(const void* q, const void* k, const void* v,
@@ -483,16 +546,14 @@ extern "C" int gpv_attn_tile(const void* q, const void* k, const void* v,
   const Attn p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), key_valid,
                static_cast<bf16*>(out), Tq, Tk, causal};
-  const int W = out_cols(Dh, cols);
-  const dim3 grid((Tq + 16 * warps - 1) / (16 * warps),
-                  H * col_blocks(Dh, cols), B);
+  const int W = out_cols(Dh, cols), n = cluster_size(Dh, cols);
+  const dim3 grid((Tq + 16 * warps - 1) / (16 * warps), H * n, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale2 = head_scale2(Dh);
   return with_inst(Dh, key_tile, [&](auto c) {
     using C = decltype(c);
-    gpv_attn_tile_kernel<C::d, C::kt, C::wide>
-        <<<grid, warps * 32, smem_bytes, s>>>(p, H, Dh, scale2, W);
-    return cudaGetLastError();
+    return launch(gpv_attn_tile_kernel<C::d, C::kt, C::wide, C::cluster>,
+                  grid, n, warps, smem_bytes, s, p, H, Dh, scale2, W);
   });
 }
 
@@ -515,15 +576,13 @@ extern "C" int gpv_attn_tile_bi(const void* q1, const void* k1,
                 static_cast<const bf16*>(v2), valid2,
                 static_cast<bf16*>(ctx2), T1, T2, 0};
   const int tq = T1 > T2 ? T1 : T2;
-  const int W = out_cols(Dh, cols);
-  const dim3 grid((tq + 16 * warps - 1) / (16 * warps),
-                  H * col_blocks(Dh, cols), 2 * B);
+  const int W = out_cols(Dh, cols), n = cluster_size(Dh, cols);
+  const dim3 grid((tq + 16 * warps - 1) / (16 * warps), H * n, 2 * B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale2 = head_scale2(Dh);
   return with_inst(Dh, key_tile, [&](auto c) {
     using C = decltype(c);
-    gpv_attn_tile_bi_kernel<C::d, C::kt, C::wide>
-        <<<grid, warps * 32, smem_bytes, s>>>(p1, p2, H, Dh, scale2, W);
-    return cudaGetLastError();
+    return launch(gpv_attn_tile_bi_kernel<C::d, C::kt, C::wide, C::cluster>,
+                  grid, n, warps, smem_bytes, s, p1, p2, H, Dh, scale2, W);
   });
 }

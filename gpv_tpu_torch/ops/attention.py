@@ -23,15 +23,15 @@ dtype and shape:
   block, K/V tiles of 64 keys double buffered, register-blocked
   products for S and P.V.
 
-Every variant takes any head dim the JAX package takes (its einsum path
-and Pallas cell hold the whole (T, Dh) a block). Up to Dh 128 a block
-computes all of a head's output columns. Above it (`Plan.cols`), the head
-dim is split into column blocks of at most 128, one block each: every
-block scores the keys over the whole Dh, so S is recomputed per column
-block, and holds only its own columns of V. `_plan` then shrinks the key
-tile, the rows or the warps of a block until it fits the 227 KB of shared
-memory a block may have, and raises with the bytes it needed where
-nothing fits. No call goes to SDPA or to the plain version instead.
+Every variant takes any head dim up to 2048 (the JAX package's einsum
+path and Pallas cell take any). Up to Dh 128 a block holds all of a
+head's dims. Above it every variant runs on a thread-block cluster
+(`Plan.cluster` CTAs, at most 16): each CTA holds Q, K and V over its
+slice of `Plan.cols` <= 128 head dims and computes O's columns of that
+slice; per key tile the CTAs sum their partial scores through distributed
+shared memory, so S is computed once and K and V read once, and a CTA's
+shared memory does not grow with Dh. No call goes to SDPA or to the plain
+version instead.
 
 What bounds them on the H100: in bf16 at every main-path shape (Tk <= 300,
 Dh <= 96) the work is far below the card's ~295 operations per byte, so
@@ -114,23 +114,30 @@ class Plan(NamedTuple):
     """How one call runs: the kernel, warps per block, keys per shared-
     memory tile, the block's dynamic shared memory in bytes, for the fp32
     kernels the query rows a block owns (the bf16 kernels derive theirs
-    from `warps`) and, above Dh 128, the output columns a block computes
-    (0: all of them)."""
+    from `warps`) and, above Dh 128, the head dims one CTA of a cluster
+    holds (`cols`, 0: all of them) and the cluster's CTAs (`cluster`, 0
+    up to Dh 128)."""
     variant: str  # "tile", "decode", "fp32_tile" or "fp32_decode"
     warps: int
     key_tile: int
     smem_bytes: int
     rows: int = 0
     cols: int = 0
+    cluster: int = 0
 
 
 # K1 fp32 calls take the decode variant at up to FP32_DECODE_TQ query rows,
 # and at up to FP32_DECODE_LONG_TQ against more than one 64-key tile (where
-# the tile variant would walk the tiles in series for a few rows)
+# the tile variant would walk the tiles in series for a few rows); above Dh
+# 128 those teacher-forced rows take 2 warps a CTA (measured on the H100:
+# PERF.md)
 FP32_DECODE_TQ, FP32_DECODE_LONG_TQ = 8, 32
-P_STRIDE = 72  # floats in a row of the fp32 tile kernel's P
-SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may have
-MAX_COLS = 128  # output columns one block computes (`kMaxCols`)
+KEY_TILE = 64  # keys a shared-memory tile of the tile variants
+# fp32 tile CTAs of a cluster: 32-key tiles and 32 rows (two CTAs an SM)
+CLUSTER_KEY_TILE = CLUSTER_ROWS = 32
+WARP_KEYS = 32  # keys a warp of the decode variants scores at once
+MAX_COLS = 128  # head dims one CTA holds at most (`kMaxCols`)
+MAX_CLUSTER = 16  # CTAs a cluster at most (`kMaxCluster`)
 
 
 def _ceil(a: int, b: int) -> int:
@@ -150,57 +157,60 @@ def _row_floats(d: int) -> int:
 
 
 def _cols(Dh: int) -> int:
-    """Output columns a block computes above Dh 128 (0 below): the head dim
-    split into the fewest blocks of at most 128, evened out and rounded up
-    to 16 (the bf16 tile kernel's product width)."""
+    """Head dims one CTA of a cluster holds above Dh 128 (0 below): the
+    head dim split into the fewest slices of at most 128, evened out and
+    rounded up to 16 (the bf16 tile kernel's product depth)."""
     if Dh <= MAX_COLS:
         return 0
     return _ceil(-(-Dh // -(-Dh // MAX_COLS)), 16)
 
 
-def _first_fit(name: str, Dh: int, candidates) -> Plan:
-    """The first plan that fits a block's shared memory; else raise with
-    the least any of them needed."""
-    candidates = list(candidates)
-    for plan in candidates:
-        if plan.smem_bytes <= SMEM_LIMIT:
-            return plan
-    need = min(p.smem_bytes for p in candidates)
-    raise ValueError(f"{name} at head dim {Dh}: a block needs at least "
-                     f"{need} bytes of shared memory, above the "
-                     f"{SMEM_LIMIT} one H100 block may have")
+def _cluster(Dh: int, cols: int) -> int:
+    """CTAs of a head's cluster (`cluster_size`): 0 up to Dh 128; raises
+    above the MAX_CLUSTER one H100 cluster may hold (Dh 2048)."""
+    if not cols:
+        return 0
+    n = -(-Dh // cols)
+    if n > MAX_CLUSTER:
+        raise ValueError(f"head dim {Dh}: a cluster of {n} CTAs of {cols} "
+                         f"head dims, above the {MAX_CLUSTER} one H100 "
+                         "cluster may hold")
+    return n
 
 
 def _plan_fp32(Tq: int, Tk: int, Dh: int, both: bool) -> Plan:
-    """csrc/attention.cu: `decode_smem_bytes` and `tile_smem_bytes`. Up to
-    Dh 128 one plan a shape; above it the decode variant cuts warps, the
-    tile variant the key tile (64, 32, 16), then its rows (64 to 32)."""
+    """csrc/attention.cu: `decode_smem_bytes` and `tile_smem_bytes`, over
+    Dh, or above Dh 128 over one CTA's `cols` with the cluster's partial
+    scores."""
     cols = _cols(Dh)
-    f, fv, d4 = _row_floats(Dh), _row_floats(cols or Dh), _ceil(Dh, 4)
-    decode = Tq <= FP32_DECODE_TQ or (Tq <= FP32_DECODE_LONG_TQ and Tk > 64)
+    n = _cluster(Dh, cols)
+    w = cols or Dh  # head dims a block holds
+    f = _row_floats(w)
+    forced = Tq > FP32_DECODE_TQ  # teacher-forced rows over a long memory
+    decode = not forced or (Tq <= FP32_DECODE_LONG_TQ and Tk > KEY_TILE)
     if decode and not both:  # a lane a key, no 16-row slots
         rows = min(8, 1 << (Tq - 1).bit_length())  # 8 rows a block at most
-        keys = 32
-        return _first_fit("fp32_decode", Dh, (
-            Plan("fp32_decode", warps, keys,  # q, then K and V rows
-                 4 * (rows * d4 + warps * keys * (f + fv)), rows, cols)
-            for warps in range(min(4, -(-Tk // keys)), 0, -1)))
+        warps = min(2 if forced and n else 4, -(-Tk // WARP_KEYS))
+        return Plan("fp32_decode", warps, WARP_KEYS,  # q, part, K and V
+                    4 * (rows * _ceil(w, 4) + 2 * warps * WARP_KEYS * f
+                         + (warps * rows * WARP_KEYS if n else 0)),
+                    rows, cols, n)
     # 16 row groups of 8 lanes; K2's short direction wastes less at 32
-    first = 32 if Tq <= 32 or both else 64
-    return _first_fit("fp32_tile", Dh, (
-        Plan("fp32_tile", 4, keys,  # key mask, Q, K and V x 2 stages, P
-             4 * (keys + rows * f + 2 * keys * (f + fv) + rows * P_STRIDE),
-             rows, cols)
-        for rows in dict.fromkeys((first, 32))
-        for keys in ((64, 32, 16) if cols else (64,))))
+    rows = CLUSTER_ROWS if n else 32 if Tq <= 32 or both else 64
+    keys = CLUSTER_KEY_TILE if n else KEY_TILE
+    return Plan("fp32_tile", 4, keys,  # key mask, Q, K, V x 2, P, part
+                4 * (keys + rows * f + 4 * keys * f + rows * (keys + 8)
+                     + (rows * keys if n else 0)),
+                rows, cols, n)
 
 
 def _plan(dtype, Tq: int, Tk: int, Dh: int, both: bool = False) -> Plan:
     """The kernel and launch shape for one call (`both`: a K2 call, whose
     Tq is the longer stream). Mirrors the byte counts of the CUDA sources
     (`tile_smem_bytes`, `decode_smem_bytes`), which refuse a launch given
-    less. Up to Dh 128 one plan a shape; above it the bf16 decode variant
-    cuts warps, the tile variant the key tile (64, 32, 16), then warps."""
+    less. Above Dh 128 every variant runs on a cluster of `cluster` CTAs
+    of `cols` head dims each, whose shared memory is a Dh-128 block's plus
+    its partial scores: every Dh up to 2048 plans."""
     if Dh < 1:
         raise ValueError(f"head dim {Dh}")
     if dtype == torch.float32:
@@ -209,23 +219,23 @@ def _plan(dtype, Tq: int, Tk: int, Dh: int, both: bool = False) -> Plan:
         raise TypeError(f"dtype {dtype} not supported "
                         f"(one of {sorted(map(str, _DTYPES))})")
     cols = _cols(Dh)
+    n = _cluster(Dh, cols)
     if Tq == 1 and not both:  # a warp scores one key a lane
-        keys = 32
+        warps = min(4, -(-Tk // WARP_KEYS))
         w = cols or Dh
-        return _first_fit("decode", Dh, (
-            Plan("decode", warps, keys,  # q in fp32, (max, sum, acc), K, V
-                 4 * max(128, _ceil(Dh, 8))
-                 + _ceil(4 * warps * (_ceil(w, 8) + 2), 16)
-                 + warps * keys * (_row_bytes(Dh) + _row_bytes(w)), 0, cols)
-            for warps in range(min(4, -(-Tk // keys)), 0, -1)))
-    depth = _row_bytes(_ceil(Dh, 16))  # a Q or K row: the product's depth
-    v_row = _row_bytes(cols) if cols else depth
-    return _first_fit("tile", Dh, (
-        Plan("tile", warps, keys,  # key mask, Q rows, K and V x 2 stages
-             2 * keys * 4 + 16 * warps * depth + 2 * keys * (depth + v_row),
-             0, cols)
-        for warps in range(min(4, -(-Tq // 16)), 0, -1)  # 16 rows a warp
-        for keys in ((64, 32, 16) if cols else (64,))))
+        return Plan("decode", warps, WARP_KEYS,  # q in fp32, (max, sum,
+                    # acc), partial scores, K and V
+                    4 * max(128, _ceil(w, 8))
+                    + _ceil(4 * warps * (_ceil(w, 8) + 2), 16)
+                    + (warps * WARP_KEYS * 4 if n else 0)
+                    + warps * WARP_KEYS * 2 * _row_bytes(w), 0, cols, n)
+    warps = min(4, -(-Tq // 16))  # 16 rows a warp
+    row = _row_bytes(cols or _ceil(Dh, 16))  # a Q, K or V row
+    return Plan("tile", warps, KEY_TILE,  # key mask, Q rows, K and V x 2,
+                # each thread's partial scores
+                2 * KEY_TILE * 4 + 16 * warps * row + 4 * KEY_TILE * row
+                + (warps * 32 * KEY_TILE // 2 * 4 if n else 0),
+                0, cols, n)
 
 
 _SIGNATURES = {  # source -> {function: argtypes}; each returns cudaError_t

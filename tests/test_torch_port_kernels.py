@@ -20,8 +20,11 @@ causal, a fully masked row, K2 ragged in both directions, a misaligned
 view refused.
 Then every variant at the head dims other configs give: Dh 12 and 20
 (bf16 rows copied 4 bytes at a time), 1, 13 and 131 (odd: one value at a
-time), and 136, 192, 256, 384, 768 (split into column blocks of at most
-128), masked, causal, a fully masked row and K2 ragged both ways.
+time), and 136, 192, 256, 384, 768 (a cluster of CTAs over slices of at
+most 128 dims), masked, causal, a fully masked row and K2 ragged both
+ways; and the wide route at the text decoder's and co-attention's shapes
+(B 20: teacher-forced cross 20 x 120 and K2 100 x 20 at 4 x 192 and
+1 x 768) and at Dh 1024 and 2048 (clusters of 8 and 16 CTAs).
 Tolerance: fp32 1e-5, bf16 2e-2, both times max(1, max |plain|); fp32 runs
 with TF32 off.
 """
@@ -337,7 +340,7 @@ def test_fp32_misaligned_view_is_refused():
         port_attn.fused_biattention(q, q, q, q, q, q)
 
 
-# ---- every head dim a config gives: any Dh, column blocks above 128
+# ---- every head dim a config gives: any Dh, clusters above 128
 
 WIDE_DH = [12, 20, 136, 192, 256, 384, 768]
 ODD_DH = [1, 13, 131]
@@ -427,3 +430,50 @@ def test_a_launch_given_too_little_shared_memory_is_refused():
     assert lib.gpv_attn_tile(*args, plan.smem_bytes - 16, stream) == 1
     assert lib.gpv_attn_tile(*args, plan.smem_bytes, stream) == 0
     torch.cuda.synchronize()
+
+
+def _k2_against_plain(dtype, tol, B, T1, T2, H, Dh):
+    """One K2 call with both streams key-masked: it must take the variant
+    `_plan` names and match the plain version in both directions."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    xs = [torch.randn(B, T, H, Dh, device="cuda", generator=g).to(dtype)
+          for T in (T1, T1, T1, T2, T2, T2)]
+    v1 = torch.rand(B, T1, device="cuda", generator=g) > 0.3
+    v2 = torch.rand(B, T2, device="cuda", generator=g) > 0.3
+    v1[:, 0] = v2[:, 0] = True
+    variant = port_attn._plan(dtype, max(T1, T2), min(T1, T2), Dh,
+                              both=True).variant
+    n = port_attn.fused_biattention.variant_launches[variant]
+    got = port_attn.fused_biattention(*xs, v1, v2)
+    ref = port_attn.biattend_plain(*xs, v1, v2)
+    torch.cuda.synchronize()
+    assert port_attn.fused_biattention.variant_launches[variant] == n + 1
+    for a, b in zip(got, ref):
+        scale = max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("kind,B,Tq,Tk,H,Dh", [
+    ("k1", 20, 20, 120, 4, 192),   # teacher-forced cross, 4 heads
+    ("k1", 20, 20, 120, 1, 768),   # teacher-forced cross, 1 head
+    ("k1", 20, 1, 120, 1, 768),    # decode step over the memory
+    ("k2", 20, 20, 100, 4, 192),   # co-attention, text 20 x vision 100
+    ("k2", 20, 20, 100, 1, 768),
+    ("k1", 2, 20, 120, 1, 1024),   # a cluster of 8 CTAs
+    ("k1", 2, 1, 120, 1, 1024),
+    ("k2", 2, 20, 100, 1, 1024),
+    ("k1", 2, 65, 33, 1, 2048),    # a non-portable cluster of 16
+    ("k1", 2, 1, 33, 1, 2048),
+    ("k2", 2, 20, 100, 1, 2048),
+])
+def test_wide_route_matches_plain(dtype, tol, kind, B, Tq, Tk, H, Dh):
+    """The wide route at the shapes its users give (the text decoder at 4
+    heads of 192 or one of 768, co-attention at the same) and at Dh 1024
+    and 2048, which took no launch before the clusters in fp32."""
+    _cuda_or_skip()
+    if kind == "k1":
+        _k1_against_plain(dtype, tol, B, Tq, Tk, H, Dh)
+    else:
+        _k2_against_plain(dtype, tol, B, Tq, Tk, H, Dh)

@@ -1,8 +1,9 @@
 """How the port's attention wrappers choose and size their kernels, on the
 CPU (no launch): `_plan` routes each dtype and shape to the bf16 tile or
 decode kernel, or the fp32 tile or decode kernel, with a block that fits
-the card, and `_aligned` refuses a tensor whose data is not 16-byte
-aligned. Also `chip_smoke`'s launch routing by variant and its bound.
+the card (above Dh 128: a cluster of CTAs, each over a slice of the head
+dims), and `_aligned` refuses a tensor whose data is not 16-byte aligned.
+Also `chip_smoke`'s launch routing by variant and its bound.
 
 The byte counts mirror `tile_smem_bytes` and `decode_smem_bytes` in
 gpv_tpu_torch/csrc; the CUDA entry points refuse a launch given fewer
@@ -88,12 +89,14 @@ def test_every_plan_fits_shared_memory(dh):
 
 def test_plan_refuses_what_no_kernel_takes():
     """Every head dim a config gives has a launch (Dh 12 and 136 did not
-    before the kernels took any Dh); what no block can hold raises with the
-    bytes it needed, and a dtype without a kernel raises."""
+    before the kernels took any Dh, fp32 Dh 805 to 2048 not before the
+    clusters); a head that needs more CTAs than one cluster may hold (Dh
+    above 2048) raises naming them, and a dtype without a kernel raises."""
     assert A._plan(torch.bfloat16, 4, 4, 12).variant == "tile"
     assert A._plan(torch.bfloat16, 4, 4, 136).cols == 80
-    with pytest.raises(ValueError, match="needs at least 289344 bytes"):
-        A._plan(torch.float32, 300, 300, 1024)
+    assert A._plan(torch.float32, 300, 300, 1024).cluster == 8
+    with pytest.raises(ValueError, match="a cluster of 17 CTAs of 128"):
+        A._plan(torch.float32, 300, 300, 2049)
     with pytest.raises(ValueError, match="head dim 0"):
         A._plan(torch.bfloat16, 4, 4, 0)
     with pytest.raises(TypeError, match="not supported"):
@@ -227,14 +230,15 @@ def test_every_fp32_plan_fits_shared_memory(dh):
                 assert 1 <= plan.warps <= 4
 
 
-def test_fp32_plan_refuses_head_dims_above_128():
-    """Head dims above 128 are no longer refused: a block computes at most
-    128 output columns (129 splits into two blocks of 80); only a Dh whose
-    block fits no shared memory is refused, with the bytes it needs."""
+def test_fp32_plan_takes_head_dims_above_128():
+    """Head dims above 128 are not refused: they run on a cluster of CTAs
+    over slices of at most 128 dims (129 splits into two of 80: q and each
+    warp's K and V rows over 80 dims, and the warp's partial scores of 4
+    rows); only a head that needs more CTAs than a cluster
+    may hold is refused, naming them."""
     assert A._plan(torch.float32, 4, 4, 129) == A.Plan(
-        "fp32_decode", 1, 32, 4 * (4 * 132 + 32 * (_fp32_row(129) + 84)),
-        4, 80)
-    with pytest.raises(ValueError, match="above the 232448"):
+        "fp32_decode", 1, 32, 4 * (4 * 80 + 2 * 32 * 84 + 4 * 32), 4, 80, 2)
+    with pytest.raises(ValueError, match="above the 16 one H100 cluster"):
         A._plan(torch.float32, 4, 4, 4096)
 
 
@@ -329,15 +333,17 @@ def test_kernels_line_lists_the_fp32_kernels():
     assert all(e["route"] == "cuda" and "fp32" in e["per"] for e in fp32)
 
 
-# ---- every head dim a config can give: 1 to 768, both dtypes
+# ---- every head dim: 1 to 2048, both dtypes
 
 K1_TQ, K1_TK = (1, 5, 20, 100, 300), (20, 120, 300)
 K2_SHAPES = ((100, 20), (20, 100), (1, 1), (33, 65))  # (longer, shorter)
+CALLS = ([(tq, tk, False) for tq in K1_TQ for tk in K1_TK]
+         + [(t1, t2, True) for t1, t2 in K2_SHAPES])
 
 
 def _cols_hand(dh):
-    """Output columns a block: all up to 128, else Dh split into the
-    fewest blocks of at most 128, evened out, rounded up to 16."""
+    """Head dims a CTA holds: all up to 128, else Dh split into the fewest
+    slices of at most 128, evened out, rounded up to 16."""
     if dh <= 128:
         return 0
     n = -(-dh // 128)
@@ -352,23 +358,24 @@ def _bf16_row(d):
 def _source_bytes(plan, dh):
     """The CUDA sources' byte counts, written out from each `*_smem_bytes`
     (attention_tile.cu, attention_decode.cu, attention.cu) for the plan's
-    warps, key tile, rows and columns."""
-    w = plan.cols or dh
+    warps, rows, key tile and the head dims a block holds (Dh, or a cluster
+    CTA's slice, with every thread's partial scores of a tile)."""
+    w, wide, kt = plan.cols or dh, plan.cluster > 1, plan.key_tile
     if plan.variant == "tile":
-        dp = -(-dh // 16) * 16
-        v = _bf16_row(plan.cols) if plan.cols else _bf16_row(dp)
-        return (2 * plan.key_tile * 4 + 16 * plan.warps * _bf16_row(dp)
-                + 2 * plan.key_tile * (_bf16_row(dp) + v))
+        row = _bf16_row(plan.cols or -(-dh // 16) * 16)
+        return (2 * 64 * 4 + 16 * plan.warps * row + 2 * 64 * 2 * row
+                + (plan.warps * 32 * 32 * 4 if wide else 0))
     if plan.variant == "decode":
-        q = 4 * max(128, -(-dh // 8) * 8)
+        q = 4 * max(128, -(-w // 8) * 8)
         part = -(-(4 * plan.warps * (-(-w // 8) * 8 + 2)) // 16) * 16
-        return q + part + plan.warps * 32 * (_bf16_row(dh) + _bf16_row(w))
+        return (q + part + (plan.warps * 32 * 4 if wide else 0)
+                + plan.warps * 32 * 2 * _bf16_row(w))
     if plan.variant == "fp32_decode":
-        return 4 * (plan.rows * -(-dh // 4) * 4
-                    + plan.warps * 32 * (_fp32_row(dh) + _fp32_row(w)))
-    return 4 * (plan.key_tile + plan.rows * _fp32_row(dh)
-                + 2 * plan.key_tile * (_fp32_row(dh) + _fp32_row(w))
-                + plan.rows * 72)
+        return 4 * (plan.rows * -(-w // 4) * 4
+                    + plan.warps * 2 * 32 * _fp32_row(w)
+                    + (plan.warps * plan.rows * 32 if wide else 0))
+    return 4 * (kt + plan.rows * _fp32_row(w) + 4 * kt * _fp32_row(w)
+                + plan.rows * (kt + 8) + (plan.rows * kt if wide else 0))
 
 
 def _plan_before_wide_heads(dtype, tq, tk, dh, both=False):
@@ -421,17 +428,33 @@ def test_plans_up_to_dh_128_are_unchanged(key):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
+@pytest.mark.parametrize("first", range(1, 2049, 128))
+def test_every_head_dim_up_to_2048_plans(dtype, first):
+    """F5: every Dh in [first, first + 128) plans at the K1 shapes (Tq
+    1/5/20/100/300 over Tk 20/120/300) and K2's four stream pairs, with a
+    block of at most 227 KB. Before the clusters, fp32 refused from Dh 805
+    and bf16 from 2321 (a block held whole Dh-wide Q and K rows)."""
+    for dh in range(first, first + 128):
+        for tq, tk, both in CALLS:
+            plan = A._plan(dtype, tq, tk, dh, both=both)
+            assert 0 < plan.smem_bytes <= SMEM_LIMIT, (dh, tq, tk, plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("first", range(1, 769, 64))
 def test_every_plan_up_to_dh_768(dtype, first):
     """For every Dh in [first, first + 64), K1 at Tq 1/5/20/100/300 against
-    Tk 20/120/300 and K2 at four stream pairs: `_plan` returns a variant
-    whose block fits 227 KB and whose bytes equal the source's count, with
-    the head split into column blocks above 128; up to 128 the plan is the
-    one the kernels took before (bf16: where Dh was a multiple of 8)."""
+    Tk 20/120/300 and K2 at four stream pairs: `_plan` returns the variant
+    of the routing (fp32 teacher-forced rows, Tq <= 32 over Tk > 64, on the
+    decode variant, above Dh 128 with 2 warps a CTA), 64-key tiles (fp32
+    tiles on a cluster: 32 keys and 32 rows), a cluster of
+    ceil(Dh / 128) CTAs above Dh 128 whose slices cover the head, a block
+    whose bytes equal the source's count and fit 227 KB; up to 128 the
+    plan is the one the kernels took before (bf16: where Dh was a multiple
+    of 8)."""
     for dh in range(first, first + 64):
-        calls = [(tq, tk, False) for tq in K1_TQ for tk in K1_TK]
-        calls += [(t1, t2, True) for t1, t2 in K2_SHAPES]
-        for tq, tk, both in calls:
+        for tq, tk, both in CALLS:
             plan = A._plan(dtype, tq, tk, dh, both=both)
             bf16 = dtype == torch.bfloat16
             one = tq == 1 and not both
@@ -441,23 +464,64 @@ def test_every_plan_up_to_dh_768(dtype, first):
                 decode = (tq <= 8 or (tq <= 32 and tk > 64)) and not both
                 assert plan.variant == ("fp32_decode" if decode
                                         else "fp32_tile")
+                if decode:  # teacher-forced rows on a cluster: 2 warps
+                    two = tq > 8 and dh > 128
+                    assert plan.warps == min(2 if two else 4, -(-tk // 32))
             assert plan.cols == _cols_hand(dh)
+            n = -(-dh // 128) if dh > 128 else 0
+            assert plan.cluster == n
+            assert not n or (n - 1) * plan.cols < dh <= n * plan.cols
             assert plan.smem_bytes == _source_bytes(plan, dh), (dh, tq, tk)
             assert 0 < plan.smem_bytes <= SMEM_LIMIT, (dh, tq, tk, plan)
             assert 1 <= plan.warps <= 4
-            if plan.variant == "tile" or plan.variant == "fp32_tile":
-                assert plan.key_tile in ((64,) if dh <= 128 else (64, 32, 16))
+            if plan.variant == "tile" or (plan.variant == "fp32_tile"
+                                          and not n):
+                assert plan.key_tile == 64
+            elif plan.variant == "fp32_tile":
+                assert (plan.key_tile, plan.rows) == (32, 32)
             if dh <= 128 and (not bf16 or dh % 8 == 0):
                 assert plan == _plan_before_wide_heads(dtype, tq, tk, dh, both), (dh, tq)
 
 
 def test_column_blocks_cover_the_head_evenly():
-    """Above Dh 128 the head splits into ceil(Dh / 128) blocks of at most
-    128 columns (a multiple of 16), none of them empty."""
+    """Above Dh 128 a head runs on a cluster of ceil(Dh / 128) CTAs (a
+    portable cluster of at most 8 up to Dh 1024, 16 at most up to 2048),
+    each holding a slice of at most 128 dims (a multiple of 16), none of
+    them empty; a CTA's shared memory is the same at every Dh from 1024 up
+    (slices of 128)."""
     for dh in range(129, 2049):
         cols = A._cols(dh)
-        n = -(-dh // cols)
+        n = A._cluster(dh, cols)
         assert cols % 16 == 0 and cols <= 128
-        assert n == -(-dh // 128) and (n - 1) * cols < dh
+        assert n == -(-dh // 128) and (n - 1) * cols < dh <= n * cols
+        assert n <= (8 if dh <= 1024 else 16)
     assert [A._cols(d) for d in (136, 192, 256, 384, 768)] == \
         [80, 96, 128, 128, 128]
+    assert [A._cluster(d, A._cols(d)) for d in (136, 192, 256, 384, 768,
+                                               1024, 2048)] == \
+        [2, 2, 2, 3, 6, 8, 16]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tq, tk, both in CALLS:
+            at = {dh: A._plan(dtype, tq, tk, dh, both).smem_bytes
+                  for dh in (1024, 1536, 2048)}
+            assert len(set(at.values())) == 1, (dtype, tq, tk, at)
+
+
+def test_kernels_record_summarises_each_wide_case():
+    """`chip_smoke.vs_sdpa`: a `kernels` case in short, as the `wide` list
+    prints it: device, plain, bound and SDPA (K2: its two calls) in us, the
+    kernel over its bound and over SDPA, and the cluster it launched
+    with."""
+    rec = {"case": "teacher_forced_cross_h1", "dtype": "float32",
+           "shape": [20, 20, 120, 1, 768], "variant": "fp32_decode",
+           "cluster": 6, "device_ms": 0.0371, "plain_device_ms": 0.0344,
+           "bound_ms": 0.00514, "library_device_ms": 0.0551}
+    got = CHIP_SMOKE.vs_sdpa(rec)
+    assert got == {"case": "teacher_forced_cross_h1", "dtype": "float32",
+                   "shape": [20, 20, 120, 1, 768], "variant": "fp32_decode",
+                   "cluster": 6, "device_us": 37.1, "plain_us": 34.4,
+                   "bound_us": 5.14, "sdpa_us": 55.1, "x_bound": 7.22,
+                   "x_sdpa": 0.673}
+    k2 = dict(rec, library_device_ms=None, sdpa_two_calls_device_ms=0.0742)
+    assert CHIP_SMOKE.vs_sdpa(k2)["x_sdpa"] == 0.5
+    assert A._plan(torch.float32, 20, 120, 768).cluster == 6
