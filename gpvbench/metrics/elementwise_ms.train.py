@@ -1,0 +1,19 @@
+"""Device ms a train step of the kernels that are neither attention, a
+convolution, a matrix product nor a copy (`kernels/*.json`): the eager
+elementwise, normalisation, softmax, dropout, loss and optimizer work of
+`parallel/train_step.py`, `losses/criterion.py` and `nn/layers.py`."""
+from gpvbench.trace import group_of, group_table
+
+LAYER = "train step (parallel/train_step.py, losses/criterion.py, nn/layers.py)"
+UNIT = "ms"
+MOVES = "train_images_per_s"
+
+
+def read(trace):
+    p = trace.profile
+    if p is None or not p.events:
+        return None
+    table = group_table()
+    busy = sum(e.end - e.start for e in p.events
+               if group_of(e.name, table) == "elementwise")
+    return 1e3 * busy / p.counts["steps"]
