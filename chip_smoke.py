@@ -88,7 +88,7 @@ Phases, each printing one JSON line:
              seeded COCO-schema data at COCO's sizes, exact resize on 8
              forked loader processes, seeded random weights): 2 warm-up
              and 5 timed steps through the loader, 3 on one resident
-             batch, one step split by stage, the matcher's parts, one
+             batch, one step's host ms by span, the matcher's parts, one
              profiled step, peak memory, the in-train eval (40 samples a
              task), a save and a resume. Gates: every loss key finite,
              frozen parameters bit-unchanged and every other leaf moved,
@@ -2110,6 +2110,7 @@ def phase_train(vocab_path: Path, tmp: Path, checked: set):
     import torch
     from gpv_tpu_torch.parallel.train_step import batch_to_device
     from gpv_tpu_torch.train.trainer import Trainer
+    from gpv_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     cfg = train_config(tmp / "train_data", vocab_path)
@@ -2182,10 +2183,19 @@ def phase_train(vocab_path: Path, tmp: Path, checked: set):
         torch.cuda.synchronize()
         rec["images_per_s_resident"] = TRAIN_RESIDENT * TRAIN_B / (
             time.perf_counter() - t0)
-        split = {}  # from the host batch: the upload is part of it
-        trainer.train_step(trainer.state, batch, timings=split)
-        rec["step_ms_by_stage"] = split
-        rec["step_ms"] = sum(split.values())
+        # from the host batch (the upload is part of it): host ms by span
+        profiling.drain()
+        profiling.enable()
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        profiling.disable()
+        split = {}
+        for r in profiling.drain():
+            split[r.name] = split.get(r.name, 0.0) + 1e-6 * (r.end_ns
+                                                             - r.start_ns)
+        rec["step_host_ms_by_span"] = split
         rec["matcher"], costs = _matcher_ms(model, resident, trainer.dtype)
         one_step = train_step_launches(rows[-1], True)
         prof = phase_profile(
@@ -3348,9 +3358,9 @@ def rank_cli(spec: dict, d: Path) -> dict:
     def counted_step(*args, **kwargs):
         step = make_step(*args, **kwargs)
 
-        def run(state, batch, timings=None):
+        def run(state, batch):
             before = _read_counts()[1]
-            losses = step(state, batch, timings)
+            losses = step(state, batch)
             after = _read_counts()[1]
             for w, variants in after.items():
                 acc = out["train_launches"].setdefault(
@@ -3877,7 +3887,7 @@ def rank_tp(spec: dict, d: Path) -> dict:
     data 1, the deterministic fp32 forward (`fwd_rank<r>.pt`) and a bf16
     one, launches by variant; (c) with data 1, TP_TIMED_STEPS timed bf16
     steps at the released batch (dropout as released), peak memory, the
-    TP all-reduces a step and their ms, and the dropout draws' ms."""
+    TP all-reduces a step and their bytes, and the dropout draws' ms."""
     import copy
 
     import torch
@@ -4019,13 +4029,6 @@ def rank_tp(spec: dict, d: Path) -> dict:
              k: n / TP_TIMED_STEPS for k, n in tpl.STATS.by_kind.items()}}
     mesh.host_barrier()
     tpl.STATS.reset()
-    tpl.STATS.timed = True
-    t0 = time.perf_counter()
-    step(state, big)
-    _sync()
-    c["timed_all_reduce_step_ms"] = 1e3 * (time.perf_counter() - t0)
-    c["all_reduce_ms"] = tpl.STATS.ms
-    tpl.STATS.timed = False
     c["dropout_draws"] = _tp_draw_ms(c["rows"], dev)
     out["c"] = c
     return out

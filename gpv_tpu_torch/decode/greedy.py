@@ -5,7 +5,10 @@ Reference greedy loop (`exp/gpv/models/gpv.py:178-196`): start from
 `__cls__`, take the top-1 each step, optional additive vocab mask, for
 `max_text_len - 1` steps. The reference re-runs the decoder on the whole
 prefix every step; with causal masking that equals one KV-cached token per
-step, which is what runs here. The loop is a host loop over CUDA launches.
+step, which is what runs here. The loop is a host loop over CUDA launches;
+its spans (`utils.profiling`) are `decode.prepare` (the memory's keys and
+values, the cache), `decode.step` (one iteration) and, inside it,
+`decode.stop_wait` (the host's per-step wait on the card).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Optional
 import torch
 
 from ..models.gpv import GPV
-
+from ..utils.profiling import span
 
 
 def init_cache(model: GPV, batch: int):
@@ -44,24 +47,28 @@ def greedy_decode(model: GPV, memory: torch.Tensor,
     """
     B, dev = memory.shape[0], memory.device
     T1 = model.max_text_len - 1
-    mem_state = model.precompute_text_memory(memory)
-    caches = model.init_text_cache(B, dev)
-    tok = torch.full((B,), cls_id, dtype=torch.long, device=dev)
-    tokens = torch.full((B, T1), cls_id if stop_id is None else stop_id,
-                        dtype=torch.int32, device=dev)
-    logits_buf = torch.zeros(B, T1, model.vocab_size, device=dev)
-    stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+    with span("decode.prepare"):
+        mem_state = model.precompute_text_memory(memory)
+        caches = model.init_text_cache(B, dev)
+        tok = torch.full((B,), cls_id, dtype=torch.long, device=dev)
+        tokens = torch.full((B, T1), cls_id if stop_id is None else stop_id,
+                            dtype=torch.int32, device=dev)
+        logits_buf = torch.zeros(B, T1, model.vocab_size, device=dev)
+        stopped = torch.zeros(B, dtype=torch.bool, device=dev)
     steps = 0
     for t in range(T1):
-        steps += 1
-        logits = model.text_step(tok, mem_state, mem_valid, caches, t)
-        if vocab_mask is not None:
-            logits = logits + vocab_mask
-        tok = logits.argmax(-1)
-        tokens[:, t] = tok
-        logits_buf[:, t] = logits
-        if stop_id is not None:
-            stopped |= tok == stop_id
-            if bool(stopped.all()):
-                break
+        with span("decode.step"):
+            steps += 1
+            logits = model.text_step(tok, mem_state, mem_valid, caches, t)
+            if vocab_mask is not None:
+                logits = logits + vocab_mask
+            tok = logits.argmax(-1)
+            tokens[:, t] = tok
+            logits_buf[:, t] = logits
+            if stop_id is not None:
+                stopped |= tok == stop_id
+                with span("decode.stop_wait"):
+                    done = bool(stopped.all())
+                if done:
+                    break
     return tokens, logits_buf, steps

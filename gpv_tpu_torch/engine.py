@@ -42,6 +42,7 @@ from .ops.image import normalize_image
 from .ops.stem_s2d import apply_stem_s2d
 from .text.vocab import AnswerVocab
 from .text.wordpiece import WordPieceTokenizer
+from .utils.profiling import span
 from .weights import StateDict, init_random
 
 
@@ -185,15 +186,19 @@ class GPVEngine:
     def _greedy_shard(self, k, images, qids, qvalid, vocab_mask,
                       image_valid=None):
         dev, model = self.devices[k], self.replicas[k]
-        memory, mem_valid, boxes, rel = encode_sorted(
-            model, self._tensor(images, dev), self._tensor(qids, dev),
-            self._tensor(qvalid, dev), self._tensor(image_valid, dev))
+        with span("engine.upload"):
+            images, qids, qvalid, image_valid, vocab_mask = (
+                self._tensor(a, dev) for a in (images, qids, qvalid,
+                                               image_valid, vocab_mask))
+        with span("engine.encode"):
+            memory, mem_valid, boxes, rel = encode_sorted(
+                model, images, qids, qvalid, image_valid)
         tokens, _, steps = greedy_decode(model, memory, mem_valid,
-                                         self.vocab.cls_id,
-                                         self._tensor(vocab_mask, dev),
+                                         self.vocab.cls_id, vocab_mask,
                                          stop_id=self.vocab.stop_id)
-        return (tokens.cpu().numpy(), boxes.cpu().numpy(),
-                rel.cpu().numpy(), steps)
+        with span("engine.fetch"):
+            return (tokens.cpu().numpy(), boxes.cpu().numpy(),
+                    rel.cpu().numpy(), steps)
 
     def _greedy(self, images, qids, qvalid, vocab_mask, image_valid=None):
         """Greedy prediction of host rows: (tokens, boxes, rel) numpy."""
@@ -220,13 +225,15 @@ class GPVEngine:
 
         Returns list of B dicts {answer, boxes, relevance}.
         """
-        qids, qvalid = self.tokenizer.batch_encode(list(queries),
-                                                   self.max_query_len)
+        with span("engine.tokenize"):
+            qids, qvalid = self.tokenizer.batch_encode(list(queries),
+                                                       self.max_query_len)
         tokens, boxes, rel = self._greedy(images_uint8, qids, qvalid,
                                           vocab_mask)
-        answers = self.vocab.decode_ids(tokens)
-        return [{"answer": answers[i], "boxes": boxes[i],
-                 "relevance": rel[i]} for i in range(len(queries))]
+        with span("engine.detokenize"):
+            answers = self.vocab.decode_ids(tokens)
+            return [{"answer": answers[i], "boxes": boxes[i],
+                     "relevance": rel[i]} for i in range(len(queries))]
 
     def predict_native(self, images_uint8: List[np.ndarray],
                        queries: List[str],

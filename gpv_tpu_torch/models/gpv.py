@@ -42,6 +42,7 @@ from ..nn.text_decoder import TextDecoder
 from ..ops.posenc import sine_position_encoding_1d
 from ..parallel.sharding_rules import (ShardingRules, make_param_shardings,
                                        shard_tensor)
+from ..utils.profiling import span
 from .detr import DETR, POSITION_EMBEDDINGS
 
 
@@ -149,38 +150,43 @@ class GPV(nn.Module):
         """images (B,H,W,3) normalised, query_ids (B,Tl). `query_enc`
         (B,Tl,768), when given, is an `encode_queries` output and BERT is
         skipped. Returns (memory (B,Q+Tl,D), mem_valid (B,Q+Tl) or None,
-        outputs)."""
-        outputs = self.detr(images, image_valid, train)
-        vl_hs = self.detr_joiner(outputs.pop("detr_hs"))     # (B,Q,D)
-        if query_enc is None:
-            query_enc = self.encode_queries(query_ids, query_valid)
-        lv_hs = self.bert_joiner(query_enc)
-        # mask_query_pads=True: padded query positions are invisible to
-        # fusion and decode; False: the reference's batched no-mask
-        # semantics (PARITY.md #12)
-        fusion_valid = query_valid if self.mask_query_pads else None
-        for layer in self.co_att_transformer:
-            if self.remat and torch.is_grad_enabled():
-                lv_hs, vl_hs = remat_region(layer, lv_hs, vl_hs,
-                                            fusion_valid, None, not train)
-            else:
-                lv_hs, vl_hs = layer(lv_hs, vl_hs, fusion_valid, None,
-                                     not train)
-        relevance = self.relevance_predictor(vl_hs)
-        outputs["pred_relevance_logits"] = (
-            outputs["pred_relevance_logits"] + relevance)
-        if "aux_pred_relevance_logits" in outputs:
-            outputs["aux_pred_relevance_logits"] = (
-                outputs["aux_pred_relevance_logits"] + relevance[None])
-        vl_hs = self.condition_on_relevance(outputs["pred_relevance_logits"],
-                                            vl_hs)
-        memory = torch.cat([vl_hs, lv_hs], dim=1)
-        mem_valid = None
-        if fusion_valid is not None:
-            B, Q = vl_hs.shape[:2]
-            mem_valid = torch.cat([torch.ones(B, Q, dtype=torch.bool,
-                                              device=memory.device),
-                                   fusion_valid], dim=1)
+        outputs). Its stages are the spans `encode.detr`, `encode.bert` and
+        `encode.coattention` (`utils.profiling`)."""
+        with span("encode.detr"):
+            outputs = self.detr(images, image_valid, train)
+            vl_hs = self.detr_joiner(outputs.pop("detr_hs"))  # (B,Q,D)
+        with span("encode.bert"):
+            if query_enc is None:
+                query_enc = self.encode_queries(query_ids, query_valid)
+            lv_hs = self.bert_joiner(query_enc)
+        with span("encode.coattention"):
+            # mask_query_pads=True: padded query positions are invisible to
+            # fusion and decode; False: the reference's batched no-mask
+            # semantics (PARITY.md #12)
+            fusion_valid = query_valid if self.mask_query_pads else None
+            for layer in self.co_att_transformer:
+                if self.remat and torch.is_grad_enabled():
+                    lv_hs, vl_hs = remat_region(layer, lv_hs, vl_hs,
+                                                fusion_valid, None,
+                                                not train)
+                else:
+                    lv_hs, vl_hs = layer(lv_hs, vl_hs, fusion_valid, None,
+                                         not train)
+            relevance = self.relevance_predictor(vl_hs)
+            outputs["pred_relevance_logits"] = (
+                outputs["pred_relevance_logits"] + relevance)
+            if "aux_pred_relevance_logits" in outputs:
+                outputs["aux_pred_relevance_logits"] = (
+                    outputs["aux_pred_relevance_logits"] + relevance[None])
+            vl_hs = self.condition_on_relevance(
+                outputs["pred_relevance_logits"], vl_hs)
+            memory = torch.cat([vl_hs, lv_hs], dim=1)
+            mem_valid = None
+            if fusion_valid is not None:
+                B, Q = vl_hs.shape[:2]
+                mem_valid = torch.cat([torch.ones(B, Q, dtype=torch.bool,
+                                                  device=memory.device),
+                                       fusion_valid], dim=1)
         return memory, mem_valid, outputs
 
     def condition_on_relevance(self, relevance_logits, fused_hs):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .boxes import box_cxcywh_to_xyxy, generalized_box_iou
 
 
@@ -76,8 +77,13 @@ def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     pred_logits (B,Q,K+1), pred_boxes (B,Q,4) cxcywh; tgt_labels (B,M),
     tgt_boxes (B,M,4), tgt_valid (B,M) bool. Returns query4target (B,M)
     int64 on the inputs' device; only entries with tgt_valid are
-    meaningful. One device-to-host copy of the costs per call."""
+    meaningful. One device-to-host copy of the costs per call (the span
+    `train.matcher.wait`: the host waits there for the forward), then the
+    solve and the assignment's upload (`train.matcher.solve`: the card
+    has nothing queued)."""
     costs = match_costs(pred_logits, pred_boxes, tgt_labels, tgt_boxes,
                         tgt_valid, cost_class, cost_bbox, cost_giou)
-    return torch.from_numpy(solve_costs(costs.cpu().numpy())).to(
-        pred_logits.device)
+    with span("train.matcher.wait"):
+        costs = costs.cpu().numpy()
+    with span("train.matcher.solve"):
+        return torch.from_numpy(solve_costs(costs)).to(pred_logits.device)

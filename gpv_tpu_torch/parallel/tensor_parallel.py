@@ -43,12 +43,11 @@ all-reduce of one flat buffer. The replicated leaves then take one
 gradient, clip and AdamW update on every rank of the group and stay
 bit-equal.
 
-`STATS` counts the all-reduces (every one, forward and backward) and, with
-`STATS.timed` set, times each between two synchronisations of the card.
+`STATS` counts the all-reduces (every one, forward and backward) and
+their bytes.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, NamedTuple, Optional
 
@@ -72,23 +71,16 @@ class ModelGroup(NamedTuple):
 @dataclass
 class Stats:
     """All-reduces over model groups since the last `reset`: their count,
-    bytes and (with `timed`) wall ms, each between synchronisations."""
+    bytes, and count by kind."""
     calls: int = 0
     bytes: int = 0
-    ms: float = 0.0
-    timed: bool = False
     by_kind: Dict[str, int] = field(default_factory=dict)
 
     def reset(self) -> None:
-        self.calls, self.bytes, self.ms, self.by_kind = 0, 0, 0.0, {}
+        self.calls, self.bytes, self.by_kind = 0, 0, {}
 
 
 STATS = Stats()
-
-
-def _sync(t: torch.Tensor) -> None:
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
 
 
 def all_reduce(x: torch.Tensor, mg: ModelGroup, kind: str,
@@ -98,14 +90,7 @@ def all_reduce(x: torch.Tensor, mg: ModelGroup, kind: str,
     STATS.calls += 1
     STATS.bytes += x.numel() * x.element_size()
     STATS.by_kind[kind] = STATS.by_kind.get(kind, 0) + 1
-    if not STATS.timed:
-        dist.all_reduce(x, op=op, group=mg.group)
-        return x
-    _sync(x)
-    t0 = time.perf_counter()
     dist.all_reduce(x, op=op, group=mg.group)
-    _sync(x)
-    STATS.ms += 1e3 * (time.perf_counter() - t0)
     return x
 
 

@@ -53,9 +53,8 @@ over the group (`tensor_parallel.check_replicated`).
 from __future__ import annotations
 
 import contextlib
-import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -67,6 +66,7 @@ from ..losses.criterion import LossConfig, gpv_criterion
 from ..nn.layers import dropout_generator
 from ..ops.image import normalize_image
 from ..train.optimizer import clip_detr_grads, frozen_names
+from ..utils.profiling import span
 from . import mesh
 from .tensor_parallel import sync_replicated_grads
 
@@ -96,40 +96,24 @@ def batch_to_device(batch: Dict[str, np.ndarray],
     return out
 
 
-class _Marks:
-    """Wall ms per stage of a step, synchronising the card at each mark;
-    a no-op unless asked for."""
-
-    def __init__(self, timings: Optional[dict], device):
-        self.timings, self.device = timings, device
-        self.t = time.perf_counter()
-
-    def __call__(self, name: str) -> None:
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + 1e3 * (now -
-                                                                 self.t)
-        self.t = now
-
-
 def make_train_step(model: nn.Module, loss_cfg: LossConfig,
                     clip_max_norm: float = 0.1, grad_accum: int = 1,
                     freeze_detr: bool = False, frozen_detr_paths=None,
                     dtype: torch.dtype = torch.float32, seed: int = 1):
     """Freeze `model`'s frozen parameters and return
-    `step(state, batch, timings=None) -> losses`, which updates `state`
-    in place and returns the step's mean losses as 0-d tensors.
+    `step(state, batch) -> losses`, which updates `state` in place and
+    returns the step's mean losses as 0-d tensors.
 
     `batch`: a collated dict (numpy or tensors): image (B,H,W,3) uint8 or
     normalised fp32; query_ids/query_valid (B,Tq); answer_ids (B,S);
     answer_lens, task_id, has_answer (B,); boxes (B,M,4); box_labels,
     box_valid (B,M); has_boxes (B,); optionally query_uniq_ids/valid
-    (U,Tq) and query_gather (B,). `timings`, a dict, receives the ms of
-    upload, query_encode, forward (with the matching), backward, clip
-    and adamw, each after a synchronisation.
+    (U,Tq) and query_gather (B,). The step's stages are the spans
+    `train.upload`, `train.query_encode`, then per microbatch
+    `train.forward` (the forward and the criterion, with the matcher's
+    `train.matcher.wait` and `train.matcher.solve` inside) and
+    `train.backward`, then `train.clip` and `train.adamw`
+    (`utils.profiling`; none synchronises the card).
 
     In a joined process group the step runs as one rank of it under DDP
     (module docstring): `batch` is then this rank's rows; under tensor
@@ -172,24 +156,23 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
             find_unused_parameters=not getattr(
                 model, "relevance_conditioning", True))
 
-    def step(state: TrainState, batch, timings: Optional[dict] = None):
+    def step(state: TrainState, batch):
         device = next(model.parameters()).device
         autocast = torch.autocast(device.type, dtype=dtype,
                                   enabled=dtype != torch.float32)
-        mark = _Marks(timings, device)
-        b = batch_to_device(batch, device)
-        mark("upload")
+        with span("train.upload"):
+            b = batch_to_device(batch, device)
         gen = torch.Generator(device=device)
         # the CPU generator keeps 32 bits of a seed; a data index's offset
         # (a 32-bit golden-ratio multiple) leaves index 0's seed as it was
         gen.manual_seed((seed * 1000003 + state.step
                          + data_index * 2654435761) % 2 ** 32)
         if "query_uniq_ids" in b:
-            with autocast:
-                uniq = model.encode_queries(b.pop("query_uniq_ids"),
-                                            b.pop("query_uniq_valid"))
-            b["query_enc"] = uniq[b.pop("query_gather")]
-        mark("query_encode")
+            with span("train.query_encode"):
+                with autocast:
+                    uniq = model.encode_queries(b.pop("query_uniq_ids"),
+                                                b.pop("query_uniq_valid"))
+                b["query_enc"] = uniq[b.pop("query_gather")]
         B = b["query_ids"].shape[0]
         if B % grad_accum:
             raise ValueError(f"batch {B} not divisible by grad_accum "
@@ -200,37 +183,38 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
         for i in range(grad_accum):
             mb = {k: v[i * m:(i + 1) * m] for k, v in b.items()}
             images = mb["image"]
-            if images.dtype == torch.uint8:
-                images = normalize_image(images.float() / 255.0)
             # DDP all-reduces the accumulated gradients once, at the last
             sync = (forward.no_sync() if distributed and i < grad_accum - 1
                     else contextlib.nullcontext())
             with sync:
-                with dropout_generator(gen), autocast:
-                    outputs = forward(
-                        images, mb["query_ids"], mb["answer_ids"],
-                        image_valid=mb.get("image_valid"),
-                        query_valid=mb["query_valid"], train=True,
-                        query_enc=mb.get("query_enc"))
-                    total, losses = gpv_criterion(outputs, mb, loss_cfg,
-                                                  group, replicas=tp)
-                mark("forward")
-                (total / grad_accum).backward()
-            mark("backward")
+                with span("train.forward"):
+                    if images.dtype == torch.uint8:
+                        images = normalize_image(images.float() / 255.0)
+                    with dropout_generator(gen), autocast:
+                        outputs = forward(
+                            images, mb["query_ids"], mb["answer_ids"],
+                            image_valid=mb.get("image_valid"),
+                            query_valid=mb["query_valid"], train=True,
+                            query_enc=mb.get("query_enc"))
+                        total, losses = gpv_criterion(
+                            outputs, mb, loss_cfg, group, replicas=tp)
+                with span("train.backward"):
+                    (total / grad_accum).backward()
             for k, v in losses.items():
                 total_losses[k] = total_losses.get(k, 0.0) + v.detach()
-        # a trainable leaf the forward did not reach takes a zero gradient
-        # (AdamW then still decays it, as the JAX optimizer does)
-        for p in trainable:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        sync_replicated_grads(sliced, replicated, tp)
-        clip_detr_grads(model, clip_max_norm)
-        mark("clip")
-        state.optimizer.step()
-        state.scheduler.step()
+        with span("train.clip"):
+            # a trainable leaf the forward did not reach takes a zero
+            # gradient (AdamW then still decays it, as the JAX optimizer
+            # does)
+            for p in trainable:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            sync_replicated_grads(sliced, replicated, tp)
+            clip_detr_grads(model, clip_max_norm)
+        with span("train.adamw"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
-        mark("adamw")
         out = {k: v / grad_accum for k, v in total_losses.items()}
         if distributed:  # the mean over data peers: the global batch's
             flat = torch.stack([out[k] for k in out]).float()

@@ -7,6 +7,13 @@ fits, run on the engine by a pool of worker threads (two keep one batch's
 host work going while another runs on the card) and resolved through
 futures. The engine's CUDA work releases the interpreter lock, so the
 workers overlap.
+
+Spans (`utils.profiling`): `serve.queue` for each request, from its
+submit to the start of the batch that runs it; then, in the worker,
+`serve.coalesce` (from its first pop to the batch closed),
+`serve.execute` (the engine call, whose own spans nest inside) and
+`serve.resolve` (the futures). The workers' spans also carry their
+thread CPU time.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ from concurrent.futures import Future
 from typing import Optional
 
 import numpy as np
+
+from .utils.profiling import record, span, thread_cpu
 
 
 class GPVServer:
@@ -98,7 +107,7 @@ class GPVServer:
             if self._closed.is_set() or self._closing.is_set():
                 raise RuntimeError("server closed")
             self._q.put((image_uint8, query, vocab_mask, beam, fut,
-                         time.monotonic()))
+                         time.perf_counter_ns()))
         with self._stats_lock:
             self._submitted += 1
         return fut
@@ -131,6 +140,13 @@ class GPVServer:
         # in neither _q nor _pending
         with self._lifecycle_lock:
             self._busy += 1
+        with span("serve.coalesce"):
+            return self._fill(first)
+
+    def _fill(self, first) -> list:
+        """`first` and the requests of its batch key that join it within
+        the coalescing window, up to batch_size; requests of other keys
+        are deferred."""
         items = [first]
         key = self._batch_key(first)
         deferred = []
@@ -169,6 +185,7 @@ class GPVServer:
         return items
 
     def _worker(self):
+        thread_cpu()   # whether the workers wait off a core is the question
         while not self._closed.is_set():
             items = self._collect()
             if items:
@@ -180,6 +197,9 @@ class GPVServer:
 
     def _execute(self, items):
         """Run one coalesced batch and resolve its futures."""
+        start = time.perf_counter_ns()
+        for it in items:
+            record("serve.queue", it[5], start)
         n = len(items)
         images = [it[0] for it in items]
         queries = [it[1] for it in items]
@@ -189,28 +209,32 @@ class GPVServer:
             images.append(images[-1])
             queries.append(queries[-1])
         try:
-            if beam:
-                outs = self.engine.predict_beam(np.stack(images), queries,
-                                                beam_size=beam,
-                                                vocab_mask=mask)
-                for o in outs:
-                    o["answer"] = o["answers"][0]
-            else:
-                outs = self.engine.predict(np.stack(images), queries, mask)
-            done = time.monotonic()
-            resolved = []
-            for (_, _, _, _, fut, t0), out in zip(items, outs[:n]):
-                # a client may have cancelled a queued future: that must
-                # neither fail the batch nor count as completed
-                if fut.set_running_or_notify_cancel():
-                    fut.set_result(out)
-                    resolved.append(done - t0)
-            with self._stats_lock:
-                self._batches[target] = self._batches.get(target, 0) + 1
-                self._occupied_rows += n
-                self._padded_rows += target - n
-                self._completed += len(resolved)
-                self._latencies.extend(resolved)
+            with span("serve.execute"):
+                if beam:
+                    outs = self.engine.predict_beam(
+                        np.stack(images), queries, beam_size=beam,
+                        vocab_mask=mask)
+                    for o in outs:
+                        o["answer"] = o["answers"][0]
+                else:
+                    outs = self.engine.predict(np.stack(images), queries,
+                                               mask)
+            with span("serve.resolve"):
+                done = time.perf_counter_ns()
+                resolved = []
+                for (_, _, _, _, fut, t0), out in zip(items, outs[:n]):
+                    # a client may have cancelled a queued future: that
+                    # must neither fail the batch nor count as completed
+                    if fut.set_running_or_notify_cancel():
+                        fut.set_result(out)
+                        resolved.append((done - t0) * 1e-9)
+                with self._stats_lock:
+                    self._batches[target] = self._batches.get(target,
+                                                              0) + 1
+                    self._occupied_rows += n
+                    self._padded_rows += target - n
+                    self._completed += len(resolved)
+                    self._latencies.extend(resolved)
         except Exception as e:  # the batch fails; the server keeps serving
             failed = 0
             for _, _, _, _, fut, _ in items:
