@@ -5,19 +5,56 @@ Reference greedy loop (`exp/gpv/models/gpv.py:178-196`): start from
 `__cls__`, take the top-1 each step, optional additive vocab mask, for
 `max_text_len - 1` steps. The reference re-runs the decoder on the whole
 prefix every step; with causal masking that equals one KV-cached token per
-step, which is what runs here. The loop is a host loop over CUDA launches;
-its spans (`utils.profiling`) are `decode.prepare` (the memory's keys and
-values, the cache), `decode.step` (one iteration) and, inside it,
-`decode.stop_wait` (the host's per-step wait on the card).
+step, which is what runs here. Its spans (`utils.profiling`) are
+`decode.prepare` (the memory's keys and values, the cache), `decode.step`
+(one iteration), inside it `decode.stop_wait` (the host's per-step wait on
+the card) and, in the first step of a graphed call, `decode.capture`.
+
+A step is about fifty small launches, and issuing them from Python costs
+the host far more than they cost the card. So on a CUDA device, with the
+text decoder not sharded (`_graphable`), a call captures one step as a
+CUDA graph in its first step and replays it for every step: the step
+reads its position `t` from a 0-d tensor on the device and ends by
+writing the next token, the stop flags and `t + 1` there, so a replay
+needs nothing from the host. Every other call (the CPU, a tensor-parallel
+decoder, whose row-parallel FFN issues collectives) runs the same steps
+as a host loop. Both give the same tokens, logits and step count.
+
+A graph is captured per call and never replayed after it: it reads the
+call's caches and buffers, which a graph kept per batch shape would hold
+alive under the next call's encode (the memory's cross-attention K/V
+alone is about 22 MB at B=20). What is kept is the last graph captured on
+each stream, never replayed again, so that the next capture there takes
+its memory pool: none of the pool's blocks is allocated between calls,
+while a pool dropped with its graph stays reserved until the allocator
+runs short or its cache is emptied, and each call would reserve anew.
+
+The capture runs on the caller's current stream when that is not the
+default stream (which cannot be captured), so the caller must not share
+that stream with another thread during the call; `GPVEngine` gives each
+calling thread streams of its own. On the default stream the capture
+forks onto a stream of the calling thread's own, whose cuBLAS workspace
+(one per stream and thread, 33 MiB on the H100) it then keeps.
+
+Counters, in the style of the kernels' `launches`:
+`greedy_decode.captures`, `greedy_decode.replays` and
+`greedy_decode.eager_steps`; `replays / (replays + eager_steps)` is the
+share of decode steps that ran graphed.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
 from ..models.gpv import GPV
+from ..ops.attention import add_counts, count_into, load_kernels
 from ..utils.profiling import span
+
+_stats_lock = threading.Lock()
+_own = threading.local()   # .streams: {device index: the thread's stream}
+_pool_of: dict = {}        # capture stream -> its last graph (its pool)
 
 
 def init_cache(model: GPV, batch: int):
@@ -25,6 +62,15 @@ def init_cache(model: GPV, batch: int):
     device and in its dtype (`gpv_tpu.decode.greedy.init_cache`): one
     (K, V) pair of (batch, max_text_len, heads, head_dim) zeros a layer."""
     return model.init_text_cache(batch, next(model.parameters()).device)
+
+
+def _graphable(model: GPV, device: torch.device) -> bool:
+    """Whether a decode on `device` replays a captured step: on a CUDA
+    device, with no layer of the text decoder sharded."""
+    return device.type == "cuda" and all(
+        layer.self_attn.tp is None and layer.multihead_attn.tp is None
+        and layer.ffn_tp is None for layer in model.text_decoder.layers)
+
 
 @torch.inference_mode()
 def greedy_decode(model: GPV, memory: torch.Tensor,
@@ -55,8 +101,25 @@ def greedy_decode(model: GPV, memory: torch.Tensor,
                             dtype=torch.int32, device=dev)
         logits_buf = torch.zeros(B, T1, model.vocab_size, device=dev)
         stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+    state = (model, mem_state, mem_valid, caches, tok, tokens, logits_buf,
+             stopped, vocab_mask, stop_id)
+    if _graphable(model, dev):
+        steps = _device_loop(*state, capture=_capture)
+    else:
+        steps = _host_loop(*state)
+    return tokens, logits_buf, steps
+
+
+greedy_decode.captures = 0
+greedy_decode.replays = 0
+greedy_decode.eager_steps = 0
+
+
+def _host_loop(model, mem_state, mem_valid, caches, tok, tokens, logits_buf,
+               stopped, vocab_mask, stop_id) -> int:
+    """The steps as launches issued from the host, `t` a Python int."""
     steps = 0
-    for t in range(T1):
+    for t in range(tokens.shape[1]):
         with span("decode.step"):
             steps += 1
             logits = model.text_step(tok, mem_state, mem_valid, caches, t)
@@ -71,4 +134,93 @@ def greedy_decode(model: GPV, memory: torch.Tensor,
                     done = bool(stopped.all())
                 if done:
                     break
-    return tokens, logits_buf, steps
+    with _stats_lock:
+        greedy_decode.eager_steps += steps
+    return steps
+
+
+def _device_loop(model, mem_state, mem_valid, caches, tok, tokens,
+                 logits_buf, stopped, vocab_mask, stop_id, capture) -> int:
+    """The steps as one step whose state lives on the device: `capture(
+    step, device)` returns what runs it (on the card, a graph's replay)."""
+    dev = tok.device
+    t = torch.zeros((), dtype=torch.long, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def step():
+        logits = model.text_step(tok, mem_state, mem_valid, caches, t)
+        if vocab_mask is not None:
+            logits = logits + vocab_mask
+        nxt = logits.argmax(-1)
+        at = t.view(1)
+        tokens.index_copy_(1, at, nxt[:, None].to(tokens.dtype))
+        logits_buf.index_copy_(1, at, logits[:, None])
+        tok.copy_(nxt)
+        if stop_id is not None:
+            stopped.logical_or_(nxt == stop_id)
+            torch.all(stopped, out=done)
+        t.add_(1)
+
+    steps, run = 0, None
+    for _ in range(tokens.shape[1]):
+        with span("decode.step"):
+            steps += 1
+            if run is None:
+                with span("decode.capture"):
+                    run = capture(step, dev)
+            run()
+            if stop_id is not None:
+                with span("decode.stop_wait"):
+                    stop = bool(done)
+                if stop:
+                    break
+    return steps
+
+
+def _own_stream(device: torch.device) -> torch.cuda.Stream:
+    """The calling thread's stream on `device`, made at its first use."""
+    streams = getattr(_own, "streams", None)
+    if streams is None:
+        streams = _own.streams = {}
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    stream = streams.get(index)
+    if stream is None:
+        stream = streams[index] = torch.cuda.Stream(device)
+    return stream
+
+
+def _capture(step, device: torch.device):
+    """`step` captured as a CUDA graph; returns its replay, which also
+    counts the K1 launches the graph runs (`ops.attention.count_into`).
+    Captured with `capture_begin`/`capture_end` and not the
+    `torch.cuda.graph` context, which synchronises the card, collects
+    garbage and empties the allocator's cache on each entry; in
+    "thread_local" mode, so another thread keeps launching meanwhile."""
+    load_kernels()
+    cur = torch.cuda.current_stream(device)
+    cap = cur if cur != torch.cuda.default_stream(device) \
+        else _own_stream(device)
+    if cap != cur:
+        cap.wait_stream(cur)
+    held = _pool_of.get(cap.cuda_stream)
+    graph, tally = torch.cuda.CUDAGraph(), {}
+    with torch.cuda.stream(cap), count_into(tally):
+        graph.capture_begin(pool=None if held is None else held.pool(),
+                            capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    if cap != cur:
+        cur.wait_stream(cap)
+    _pool_of[cap.cuda_stream] = graph
+    with _stats_lock:
+        greedy_decode.captures += 1
+
+    def replay():
+        graph.replay()
+        add_counts(tally)
+        with _stats_lock:
+            greedy_decode.replays += 1
+    return replay

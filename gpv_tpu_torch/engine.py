@@ -15,13 +15,20 @@ Data-parallel inference (the JAX engine's `mesh=`, `gpv_tpu/engine.py:
 device and splits every batch's rows over the devices, in order; a batch
 whose size does not divide their number is padded by repeating its last
 row, and the outputs are sliced back. Each device's shard runs on a
-thread of its own, on a CUDA stream of its own: a plain loop over the
-devices would wait on each shard's greedy loop (a host sync every step)
-before launching the next. The threads share the interpreter lock, so
-the host work of the shards adds up: a host-bound predict gains nothing
-from them (PERF.md §6, PR 8). A list may repeat a device (its shards then
-share one replica). With one device the engine is the plain one-device
-engine.
+thread of its own: a plain loop over the devices would wait on each
+shard's greedy loop (a host sync every step) before launching the next.
+The threads share the interpreter lock, so the host work of the shards
+adds up: a host-bound predict gains nothing from them (PERF.md §6).
+A list may repeat a device (its shards then share one replica). With one
+device the engine is the plain one-device engine.
+
+Every call runs on CUDA streams of the calling thread's own, one a shard
+(made at the thread's first call), after the work the caller had queued
+on its current stream: the greedy decode captures its step as a CUDA
+graph on the stream it runs on (`decode.greedy`), and a capture would
+take in another thread's launches on that stream. A one-device engine's
+call does all of its work on the one stream, whose cuBLAS workspace is
+then the thread's only one.
 """
 from __future__ import annotations
 
@@ -89,15 +96,12 @@ class GPVEngine:
                         for d in (devices if devices else [device])]
         self.device = self.devices[0]
         self.fold_bn, self.dtype = fold_bn, dtype
-        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
-                         for d in self.devices] \
-            if len(self.devices) > 1 else [None]
+        self._local = threading.local()
         self.load_weights(model)
         self.vocab = vocab
         self.tokenizer = tokenizer
         # queries can never exceed the BERT position table
         self.max_query_len = min(max_query_len, model.bert_max_len)
-        self._local = threading.local()
 
     def load_weights(self, model: GPV) -> None:
         """Serve `model`'s current weights: a fresh copy, BN folded, cast
@@ -119,6 +123,16 @@ class GPVEngine:
             for d in distinct:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
+
+    def _streams(self) -> list:
+        """The calling thread's stream for each shard (None on the CPU),
+        made at its first call (module docstring)."""
+        streams = getattr(self._local, "streams", None)
+        if streams is None:
+            streams = self._local.streams = [
+                torch.cuda.Stream(d) if d.type == "cuda" else None
+                for d in self.devices]
+        return streams
 
     @property
     def last_decode_steps(self) -> int:
@@ -162,23 +176,28 @@ class GPVEngine:
         rows; also the shards' decode steps (the `steps` each `run`
         returns last). `rows`: arrays (or None) with n leading rows."""
         D = len(self.devices)
+        streams = self._streams()
+        for d, stream in zip(self.devices, streams):
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(d))
+
+        def shard(k, *part):
+            ctx = (torch.cuda.stream(streams[k]) if streams[k] is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                return run(k, *part)
         if D == 1:
-            *out, steps = run(0, *rows)
+            *out, steps = shard(0, *rows)
             return out, [steps]
         pad = (-n) % D
         per = (n + pad) // D
         rows = [None if a is None else np.concatenate(
             [a, np.repeat(a[-1:], pad, axis=0)]) for a in rows]
-
-        def shard(k):
-            stream = self._streams[k]
-            ctx = (torch.cuda.stream(stream) if stream is not None
-                   else contextlib.nullcontext())
-            with ctx:
-                return run(k, *(None if a is None
-                                else a[k * per:(k + 1) * per] for a in rows))
         with ThreadPoolExecutor(D, thread_name_prefix="gpv-shard") as pool:
-            outs = list(pool.map(shard, range(D)))
+            outs = list(pool.map(
+                lambda k: shard(k, *(None if a is None
+                                     else a[k * per:(k + 1) * per]
+                                     for a in rows)), range(D)))
         return ([np.concatenate(parts)[:n]
                  for parts in list(zip(*outs))[:-1]], [o[-1] for o in outs])
 

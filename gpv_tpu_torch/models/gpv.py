@@ -255,6 +255,9 @@ class GPV(nn.Module):
     def text_step(self, token_t, mem_state, mem_valid, caches, t: int,
                   beam_group: int = 1):
         """(B,) ids at position t -> (B,V) fp32 logits; caches in place.
+        `t` is an int, or a 0-d int64 tensor on the device (an exported
+        step, a step captured as a CUDA graph): then nothing of the step
+        reads it on the host.
 
         beam_group K > 1: token_t and the caches hold B·K sample-major beam
         rows while mem_state/mem_valid stay untiled at (B, ·)
@@ -262,7 +265,9 @@ class GPV(nn.Module):
         mem_kvs, classifier = mem_state
         x_t = self.embed_answer_tokens(token_t[:, None])      # (B,1,D)
         if self.text_pos_enc:
-            x_t = x_t + self.pos_enc_table[t].to(x_t.dtype)
+            pe = (self.pos_enc_table.index_select(0, t.view(1))
+                  if isinstance(t, torch.Tensor) else self.pos_enc_table[t])
+            x_t = x_t + pe.to(x_t.dtype)
         y = self.text_decoder.step(x_t, mem_kvs, mem_valid, caches, t,
                                    beam_group)
         return self.answer_logits_head(y[:, 0], classifier)

@@ -58,6 +58,7 @@ no autograd formula is registered.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import NamedTuple, Optional
@@ -321,10 +322,51 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _count(wrapper, variant: str) -> None:
     """One launch of `variant` on `wrapper`'s counters, under a lock: the
-    serving workers launch from several threads."""
+    serving workers launch from several threads. While the calling thread
+    captures a CUDA graph (`count_into`) nothing runs, and the launch goes
+    to the capture's tally instead."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        key = (wrapper, variant)
+        tally[key] = tally.get(key, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
         wrapper.variant_launches[variant] += 1
+
+
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def count_into(tally: dict):
+    """Count the launches the calling thread makes inside the block into
+    `tally` ({(wrapper, variant): launches}) and not on the wrappers'
+    counters: the block captures a CUDA graph, which runs no kernel. Each
+    replay of the graph then adds the tally (`add_counts`), so the counters
+    hold the kernels that ran. The other threads count as usual."""
+    saved = getattr(_capturing, "tally", None)
+    _capturing.tally = tally
+    try:
+        yield
+    finally:
+        _capturing.tally = saved
+
+
+def add_counts(tally: dict) -> None:
+    """Add a capture's tally (`count_into`) to the wrappers' counters: one
+    replay of its graph."""
+    with _count_lock:
+        for (wrapper, variant), n in tally.items():
+            wrapper.launches += n
+            wrapper.variant_launches[variant] += n
+
+
+def load_kernels() -> None:
+    """Load every kernel library (building it at first use) and set its
+    kernels' limits, here and not inside a CUDA graph capture."""
+    for source in _SIGNATURES:
+        _lib(source)
 
 
 def _traced(t: torch.Tensor) -> bool:
