@@ -1,8 +1,9 @@
 """Set-up shared by the drivers: the program's engine on seeded weights, and
 the seeded pools of images and queries a cell's traffic draws from.
 
-The weights are drawn on the device from the seed by the reference's own
-spec (`reference.gpv.make_weights`) and loaded into the program's model
+The weights are drawn on the device from the seed by the spec of the
+configuration's family (`make_weights` of `reference/<family>.py`, found
+through `family.reference`) and loaded into the program's model
 strictly, so the program and the reference get the same numbers and
 neither takes them from the other. The answer vocabulary is generated:
 `answer_words(n)` plain words and the four specials in the program's
@@ -15,7 +16,7 @@ from __future__ import annotations
 import time
 from typing import List
 
-from .reference import gpv as ref
+from . import family
 
 SPECIALS = ("__pad__", "__cls__", "__stop__", "__unk__")
 BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "?")
@@ -89,6 +90,7 @@ def seeded_weights(ctx):
     program loads them, and the reference draws them again once the
     program is gone."""
     import torch
+    ref = family.reference(ctx.config)
     V = int(ctx.config["vocab_size"])
     return ref.make_weights(ref.param_spec(ctx.model, V),
                             seed_of(ctx.seed, 0), torch.device(ctx.device))

@@ -8,6 +8,13 @@ order), `templates` and `objects` (the queries), `max_query_len` (the
 padded query length), `check_rows` (answers the reference checks),
 `profile_s` (the traced run's profiler window), `warmup_calls`.
 
+A traced run's profile counts hold what the per-layer readers take from
+the configuration's family (`family.counts`): `flops_per_call`, and
+`bound_ms[kind]`, the least device ms of each kernel kind's work items
+(`predict_work`) summed over the profiled calls; and the program's
+launches of each kind with `counters` in `kernels/` (`launches[kind]`),
+which the trace has to hold (`trace.launch_gaps`).
+
 End-to-end: `predict_images_per_s` (images answered over the window, from
 its start to the end of the call that crosses its end), `request_p95_ms`
 (95th percentile of every call's latency, a call being one request),
@@ -16,14 +23,15 @@ start to the first timed call).
 """
 from __future__ import annotations
 
+import importlib
 import time
 
 import numpy as np
 
-from gpvbench import build, judge
-from gpvbench.flops import predict_flops
+from gpvbench import build, family, judge
+from gpvbench.flops import launches_bound_ms
 from gpvbench.trace import (Profile, Spans, TraceData, breakdown,
-                            clock_offset, launch_gaps, profiler,
+                            clock_offset, counters, launch_gaps, profiler,
                             read_profile, settle, warm_profiler)
 
 PROFILE_TRIES = 5      # profiler windows a traced run may take
@@ -35,12 +43,35 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def _counted_launches() -> dict:
-    """The program's launch counters of K1 and K2, by variant."""
-    from gpv_tpu_torch.ops.attention import fused_attention, fused_biattention
-    return {f"{fn.__name__}.{v}": n for fn in (fused_attention,
-                                             fused_biattention)
-            for v, n in fn.variant_launches.items()}
+def _counters() -> dict:
+    """{kind: {function name: program function}} of the `counters` that
+    `kernels/<kind>-*.json` name."""
+    out = {}
+    for kind, names in counters().items():
+        out[kind] = {}
+        for name in names:
+            module, fn = name.split(":")
+            out[kind][fn] = getattr(importlib.import_module(module), fn)
+    return out
+
+
+def _counted_launches(fns: dict) -> dict:
+    """{kind: {"<function>.<variant>": launches}} as the program's counters
+    read now."""
+    return {kind: {f"{name}.{v}": n for name, fn in by_name.items()
+                   for v, n in fn.variant_launches.items()}
+            for kind, by_name in fns.items()}
+
+
+def _window_work(counts, model: dict, B: int, H: int, W: int, L: int,
+                 steps: list) -> dict:
+    """{kind: the least device ms of the work items of the calls that
+    decoded `steps`}."""
+    out = {}
+    for s in steps:
+        for kind, items in counts.predict_work(model, B, H, W, L, s).items():
+            out[kind] = out.get(kind, 0) + launches_bound_ms(items)
+    return out
 
 
 def run(ctx) -> dict:
@@ -51,6 +82,7 @@ def run(ctx) -> dict:
     eng = build.make_engine(ctx)
     pool = build.Pool(ctx, int(tr["pool_batches"]), B)
     rng = np.random.default_rng(build.seed_of(ctx.seed, 2))
+    counted = _counters()
 
     def draw(r):
         return int(r.integers(len(pool.images))), pool.queries(r, B)
@@ -97,7 +129,7 @@ def run(ctx) -> dict:
             prof.__enter__()
             _sync(dev)
             p_t0, p_calls, p_launch = time.perf_counter(), 0, \
-                _counted_launches()
+                _counted_launches(counted)
             p_steps = []
             p_tries += 1
         t_due = time.perf_counter()
@@ -113,18 +145,21 @@ def run(ctx) -> dict:
             if t_done - p_t0 >= prof_len:
                 _sync(dev)
                 p_t1 = time.perf_counter()
-                launches = {v: n - p_launch[v]
-                            for v, n in _counted_launches().items()}
+                launches = {
+                    kind: {v: n - p_launch[kind].get(v, 0)
+                           for v, n in by_v.items()}
+                    for kind, by_v in _counted_launches(counted).items()}
                 settle(dev.type)
                 prof.__exit__(None, None, None)
                 profile = Profile(read_profile(prof, clock_offset()), p_t0,
                                   p_t1, {"calls": p_calls,
                                          "images": p_calls * B,
                                          "steps": p_steps,
-                                         "attn_launches": launches})
+                                         "launches": launches})
                 prof = None
                 # a window whose trace lost records is profiled again
-                gaps = launch_gaps(profile.events, launches)
+                gaps = [f"{kind}: {gap}" for kind, n in launches.items()
+                        for gap in launch_gaps(profile.events, n, kind)]
                 if gaps and p_tries < PROFILE_TRIES:
                     ctx.log(f"gpvbench: profiler window {p_tries} lost "
                             f"records ({'; '.join(gaps)}); profiling again")
@@ -154,12 +189,14 @@ def run(ctx) -> dict:
     if ctx.trace:
         result["breakdown"] = breakdown(profile.events, spans, profile.t0,
                                         profile.t1)
-        profile.counts["flops_per_call"] = predict_flops(
-            ctx.model, int(ctx.config["vocab_size"]), B, H, W,
-            int(tr["max_query_len"]), int(np.mean(profile.counts["steps"])))
-        trace = TraceData(ctx.model, spans, profile,
-                          {"batch": B, "image_h": H, "image_w": W,
-                           "query_len": int(tr["max_query_len"])})
+        counts = family.counts(ctx.config)
+        L = int(tr["max_query_len"])
+        profile.counts["flops_per_call"] = counts.predict_flops(
+            ctx.model, int(ctx.config["vocab_size"]), B, H, W, L,
+            int(np.mean(profile.counts["steps"])))
+        profile.counts["bound_ms"] = _window_work(
+            counts, ctx.model, B, H, W, L, profile.counts["steps"])
+        trace = TraceData(ctx.model, spans, profile)
     result["trace"] = trace
     if dev.type == "cuda":
         result["device"] = build.device_info(peak, profile)
@@ -183,10 +220,7 @@ def run(ctx) -> dict:
                      "answer": r["answer"], "boxes": r["boxes"],
                      "relevance": r["relevance"]})
     t = time.perf_counter()
-    result["readings"] = judge.readings(
-        rows, ctx.model, build.seeded_weights(ctx), words,
-        build.bert_words(tr), int(tr["max_query_len"]),
-        int(ctx.model["max_text_len"]) - 1, dev, control=ctx.control)
+    result["readings"] = judge.readings(ctx, rows, words)
     ctx.log(f"gpvbench: reference over {len(rows)} rows "
             f"{time.perf_counter() - t:.3f} s")
     return result

@@ -193,10 +193,7 @@ def run(ctx) -> dict:
         rows.append({"image": pool.images[k // POOL_BATCH][k % POOL_BATCH],
                      "query": q, "answer": out["answer"],
                      "boxes": out["boxes"], "relevance": out["relevance"]})
-    result["readings"] = judge.readings(
-        rows, ctx.model, build.seeded_weights(ctx), words,
-        build.bert_words(tr), int(tr["max_query_len"]),
-        int(ctx.model["max_text_len"]) - 1, dev, control=ctx.control)
+    result["readings"] = judge.readings(ctx, rows, words)
     if failed:
         result["readings"]["token_gap"] = float("inf")
     return result

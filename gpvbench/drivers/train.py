@@ -27,8 +27,7 @@ import time
 
 import numpy as np
 
-from gpvbench import build, judge
-from gpvbench.flops import train_flops
+from gpvbench import build, family, judge
 from gpvbench.trace import (Profile, Spans, TraceData, breakdown,
                             clock_offset, profiler, read_profile,
                             warm_profiler)
@@ -218,7 +217,8 @@ def run(ctx) -> dict:
     result = {"metrics": metrics, "attempted": n, "failed": 0, "trace": None}
     if ctx.trace:
         U = len(batches[0].get("query_uniq_ids", batches[0]["query_ids"]))
-        profile.counts["flops_per_step"] = train_flops(
+        counts = family.counts(ctx.config)
+        profile.counts["flops_per_step"] = counts.train_flops(
             ctx.model, V, B, U, *tr["image_hw"], int(tr["max_query_len"]),
             int(ctx.model["max_text_len"]))
         result["breakdown"] = breakdown(profile.events, spans, profile.t0,
@@ -236,8 +236,7 @@ def run(ctx) -> dict:
         torch.cuda.empty_cache()
     checked = int(tr["checked_steps"])
     t = time.perf_counter()
-    result["readings"] = judge.train_readings(
-        ctx, items[:checked], prog, control=ctx.control)
+    result["readings"] = judge.train_readings(ctx, items[:checked], prog)
     ctx.log(f"gpvbench: reference over {checked} steps "
             f"{time.perf_counter() - t:.3f} s")
     return result

@@ -24,10 +24,16 @@ ends at `__stop__` or `__pad__`, so a row shorter than the decode is
 aligned one place at a time, taking at each place whichever token the
 string allows that the reference ranks highest.
 
-`readings(..., control=True)` also gives the control's numbers: the same
-reference computed in float8 (`reference.gpv.Precision`), its best token
-at each place judged by the fp32 logits, and its own boxes and relevance
-sorted and judged as the program's are.
+With the run's `control` set, `readings` also gives the control's
+numbers: the same reference computed in float8 (the family reference's
+`Precision`), its best token at each place judged by the fp32 logits, and
+its own boxes and relevance sorted and judged as the program's are.
+
+The reference is the configuration's family's (`family.reference`: its
+`param_spec`, `make_weights`, `Precision`, `tokenize`, `encode`, which
+gives `memory`, `mem_valid`, `relevance` and `boxes`, and
+`answer_logits`); the training check also takes its training reference
+(`family.train_reference`).
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .reference import gpv as ref
+from . import build, family
 
 CHECKS = ("token_gap", "box_err", "unsorted")
 
@@ -58,7 +64,7 @@ def _gap(logits: torch.Tensor, tok: int) -> float:
     return float(logits.max() - logits[tok])
 
 
-def align(P, W, model, memory, mem_valid, words: List[str], index,
+def align(ref, P, W, model, memory, mem_valid, words: List[str], index,
           steps: int, cls_id: int, ends) -> List[int]:
     """The served token ids of one row whose answer has fewer words than
     `steps` (module docstring); None where the words cannot be placed."""
@@ -84,11 +90,18 @@ def align(P, W, model, memory, mem_valid, words: List[str], index,
 
 
 @torch.no_grad()
-def readings(rows: List[dict], model: dict, W, answer_words: List[str],
-             bert_words: List[str], query_len: int, steps: int, device,
-             control: bool = False, block: int = 8) -> Dict[str, float]:
+def readings(ctx, rows: List[dict], answer_words: List[str],
+             block: int = 8) -> Dict[str, float]:
     """The program's readings over `rows` (each {image, query, answer,
-    boxes, relevance}), and with `control` the control's (`control_*`)."""
+    boxes, relevance}) against the reference on the cell's seeded weights,
+    at the traffic's query length and the configuration's decode steps;
+    with `ctx.control` also the control's (`control_*`)."""
+    ref = family.reference(ctx.config)
+    model, control, device = ctx.model, ctx.control, torch.device(ctx.device)
+    W = build.seeded_weights(ctx)
+    bert_words = build.bert_words(ctx.traffic)
+    query_len = int(ctx.traffic["max_query_len"])
+    steps = int(model["max_text_len"]) - 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     P32, P8 = ref.Precision("float32"), ref.Precision("float8")
@@ -126,7 +139,7 @@ def readings(rows: List[dict], model: dict, W, answer_words: List[str],
             if len(words) == steps and all(w in index for w in words):
                 toks = [index[w] for w in words]
             else:
-                toks = align(P32, W, model, mem[j:j + 1], mv[j:j + 1],
+                toks = align(ref, P32, W, model, mem[j:j + 1], mv[j:j + 1],
                              words, index, steps, cls_id, ends)
             if toks is None:
                 out["token_gap"] = float("inf")
@@ -289,15 +302,16 @@ def dropout_rates(model: dict) -> List[float]:
             "v_attention_probs_dropout_prob", "v_hidden_dropout_prob")]
 
 
-def train_readings(ctx, items: List[List[dict]], prog: dict,
-                   control: bool = False) -> Dict[str, float]:
+def train_readings(ctx, items: List[List[dict]],
+                   prog: dict) -> Dict[str, float]:
     """The training cell's readings: the program's checked steps (its
     losses, first gradient and parameters in `prog`) against the
-    reference's steps over the same raw items from the same weights; with `control` also the control's, the reference in
-    float8 in the program's place (`control_*`). The configuration's
-    dropout rates have to be 0: the reference cannot see the masks."""
-    from . import build
-    from .reference import train as rtrain
+    reference's steps over the same raw items from the same weights;
+    with `ctx.control` also the control's, the reference in float8 in the
+    program's place (`control_*`). The configuration's dropout rates have
+    to be 0: the reference cannot see the masks."""
+    ref = family.reference(ctx.config)
+    rtrain = family.train_reference(ctx.config)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(ctx.device)
@@ -334,7 +348,7 @@ def train_readings(ctx, items: List[List[dict]], prog: dict,
     del again
     out = compare_training(ref_run, start, prog, left_out)
     ctx.log(f"gpvbench: worst parts {WORST}")
-    if control:
+    if ctx.control:
         ctl, _ = reference(ref.Precision("float8"), batches)
         out.update({f"control_{k}": v for k, v in compare_training(
             ref_run, start, ctl, left_out).items()})

@@ -1,7 +1,8 @@
-"""Device ms a train step of the kernels that are neither attention, a
-convolution, a matrix product nor a copy (`kernels/*.json`): the eager
-elementwise, normalisation, softmax, dropout, loss and optimizer work of
-`parallel/train_step.py`, `losses/criterion.py` and `nn/layers.py`."""
+"""Device ms a train step of the kernels of no kind that `kernels/*.json`
+defines (attention, convolution, matrix product, copy, and any kind a
+later file adds): the eager elementwise, normalisation, softmax, dropout,
+loss and optimizer work of `parallel/train_step.py`,
+`losses/criterion.py` and `nn/layers.py`."""
 from gpvbench.trace import group_of, group_table
 
 LAYER = "train step (parallel/train_step.py, losses/criterion.py, nn/layers.py)"

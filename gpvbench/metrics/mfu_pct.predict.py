@@ -1,6 +1,7 @@
 """The whole predict call's share of the card's bf16 peak: model FLOPs of
-the calls completed in the profiled window (`flops.predict_flops`, from
-the configuration's shapes) over the window, against 989 TFLOP/s."""
+the calls completed in the profiled window (`flops_per_call`: the
+family's `predict_flops`, from the configuration's shapes) over the
+window, against 989 TFLOP/s."""
 from gpvbench.peaks import PEAK_FLOPS
 
 LAYER = "whole predict call"

@@ -1,7 +1,8 @@
 """The whole train step's share of the card's bf16 peak: model FLOPs of
-the steps run in the profiled window (`flops.train_flops`: the forward,
-and twice the forward of every part the backward runs through) over the
-window, against 989 TFLOP/s."""
+the steps run in the profiled window (`flops_per_step`: the family's
+`train_flops`; GPV-1's counts the forward, and twice the forward of
+every part the backward runs through) over the window, against 989
+TFLOP/s."""
 from gpvbench.peaks import PEAK_FLOPS
 
 LAYER = "whole train step"

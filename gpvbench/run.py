@@ -10,6 +10,28 @@ names `gpvbench/drivers/<driver>.py`, and each per-layer metric in
 `gpvbench/metrics/<metric name>.py`. A cell, a traffic mix, a driver or
 a metric is added as new files and manifest entries.
 
+What depends on the model's architecture is its configuration's family
+(`family.py`), so a new architecture comes as new files too, in this
+order:
+
+1. the configuration, `gpvbench/configs/<name>.json`, with its `family`
+   (F), its `reduced` list (every key changed from the source) and its
+   `assumed` list;
+2. `reference/F.py`: the plain forward pass and weights in fp32 torch
+   with TF32 off, importing nothing of the program (`family.REFERENCE`
+   names what it exposes), and `reference/F_train.py` where a cell
+   trains;
+3. `counts/F.py`: the model FLOPs and each kernel kind's work items of a
+   call (`family.COUNTS`), importing nothing of the program;
+4. `kernels/<kind>-<name>.json` for a new kernel: its name `fragments`,
+   its counted `variants` and the program functions that count them
+   (`counters`);
+5. per-layer readers over the profile's `counts["bound_ms"]` and
+   `counts["launches"]`, which the drivers fill from 3 and 4;
+6. the traffic, if the cell needs a new one;
+7. the cell's name appended to the `workloads` lists of the end-to-end
+   (and per-layer) metrics it reports.
+
 The traffic's driver module sets up (counted in `setup_s`, with its
 parts on standard error), measures for `--seconds`, then the run checks
 what the timed path produced against the plain reference (`judge.py`).
@@ -35,6 +57,8 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, Optional
+
+from gpvbench import family
 
 ROOT = Path(__file__).resolve().parent.parent
 CACHE = ROOT / ".bench_cache"
@@ -121,6 +145,7 @@ def make_ctx(man: dict, cell: str, seed: int, seconds: float, trace: bool,
     work, _, _ = cell_entries(man, cell)
     conf = next(c for c in man["configs"] if c["name"] == work["config"])
     config = json.loads((root / conf["file"]).read_text())
+    family.name(config)            # a configuration names its family
     traffic = json.loads((root / "gpvbench" / "traffic" /
                           f"{work['traffic']}.json").read_text())
     return Ctx(cell, int(seed), float(seconds), bool(trace), device, config,

@@ -1,6 +1,7 @@
-"""Work counted from shapes: `flops.py` against torch's FLOP counter on the
-reference, and the frozen copy of the bound against `chip_smoke.py`'s
-arithmetic on the kernel table's cases (counts, not times)."""
+"""Work counted from shapes: GPV-1's counts (`counts/gpv.py`) against
+torch's FLOP counter on the reference, and the frozen copy of the bound
+against `chip_smoke.py`'s arithmetic on the kernel table's cases (counts,
+not times)."""
 from __future__ import annotations
 
 import sys
@@ -11,6 +12,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from gpvbench import flops, peaks
+from gpvbench.counts import gpv as counts
 from gpvbench.build import answer_words
 from gpvbench.reference import gpv as ref
 from gpvbench.tests.tiny import TINY_MODEL, merge
@@ -38,7 +40,7 @@ def test_predict_flops_match_the_flop_counter(dilation):
     with FlopCounterMode(display=False) as fc:
         e = ref.encode(P, w, model, images, ids, valid)
         ref.answer_logits(P, w, model, e["memory"], e["mem_valid"], tokens)
-    assert fc.get_total_flops() == flops.predict_flops(model, V, B, H, W,
+    assert fc.get_total_flops() == counts.predict_flops(model, V, B, H, W,
                                                        L, S)
     assert len(answer_words(V)) == V
 
@@ -56,15 +58,15 @@ def test_train_forward_flops_match_the_flop_counter():
         e = ref.encode(P, w, model, images, ids, valid)
         ref.answer_logits(P, w, model, e["memory"], e["mem_valid"],
                           torch.randint(0, V, (B, S)))
-    assert fc.get_total_flops() == flops.train_forward_flops(
+    assert fc.get_total_flops() == counts.train_forward_flops(
         model, V, B, B, H, W, L, S)
-    total = flops.train_flops(model, V, B, B, H, W, L, S)
+    total = counts.train_flops(model, V, B, B, H, W, L, S)
     assert 2 * fc.get_total_flops() < total < 3 * fc.get_total_flops()
 
 
 def test_launches_follow_the_shapes():
     model = _model(True)
-    ls = {x.name: x for x in flops.predict_launches(model, 20, 480, 640, 20,
+    ls = {x.name: x for x in counts.predict_launches(model, 20, 480, 640, 20,
                                                     19)}
     # DC5 at 480x640: C5 at stride 16, 30 x 40 tokens
     assert ls["detr_encoder_self"].tq == ls["detr_encoder_self"].tk == 1200

@@ -1,6 +1,7 @@
 """The manifest keeps to the benchmark's contract, every part it names is a
-file found by name, and nothing the benchmark runs reads JAX, the JAX
-package or the JAX package's benchmark."""
+file found by name (a configuration's family's modules through
+`family.py`), and nothing the benchmark runs reads JAX, the JAX package
+or the JAX package's benchmark."""
 from __future__ import annotations
 
 import ast
@@ -59,16 +60,23 @@ def test_names_and_units(section):
 
 
 def test_every_part_found_by_name():
+    from gpvbench import family
+    confs = {}
     for c in MAN["configs"]:
         conf = json.loads((ROOT / c["file"]).read_text())
         assert conf["name"] == c["name"] and conf["reduced"] == c["reduced"]
         assert c["file"].startswith("gpvbench/")
+        family.reference(conf)
+        family.counts(conf)
+        confs[c["name"]] = conf
     for w in MAN["workloads"]:
         assert w["chips"] in (1, 4)
         assert any(c["name"] == w["config"] for c in MAN["configs"])
         traffic = json.loads((BENCH / "traffic" /
                               f"{w['traffic']}.json").read_text())
         assert (BENCH / "drivers" / f"{traffic['driver']}.py").is_file()
+        if traffic["driver"] == "train":
+            family.train_reference(confs[w["config"]])
     for m in MAN["per_layer"]:
         mod = metric_module(m["name"])
         assert (mod.LAYER, mod.UNIT, mod.MOVES) == (m["layer"], m["unit"],
@@ -107,12 +115,54 @@ def _imports(path: Path):
 def test_import_rule(path):
     """No module of the benchmark imports JAX or the JAX package (top-level
     names compared whole: `gpv_tpu_torch` is the system under test); the
-    reference imports nothing of the program; nothing reads the JAX
-    package's benchmark or its results."""
+    references and the counts import nothing of the program; nothing reads
+    the JAX package's benchmark or its results."""
     tops = {m.split(".", 1)[0] for m in _imports(path)}
     assert not tops & FORBIDDEN
-    if "reference" in path.parts:
+    if {"reference", "counts"} & set(path.relative_to(BENCH).parts):
         assert "gpv_tpu_torch" not in tops
     text = path.read_text()
     for name in ("bench" + ".py", "BENCH" + "_r0", "gpv_tpu" + "/"):
         assert name not in text
+
+
+FAMILY_MODULES = {("reference", "gpv"), ("reference", "gpv_train"),
+                  ("counts", "gpv")}
+
+
+def _names(path: Path):
+    """Every module a file imports, as absolute dotted names, with each
+    name it takes from one."""
+    package = list(path.relative_to(ROOT).parent.parts)
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            parts = package[:len(package) + 1 - node.level] \
+                if node.level else []
+            base = ".".join(parts + (node.module or "").split(".")).strip(".")
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+def _not_a_family_module(path: Path) -> bool:
+    rel = path.relative_to(BENCH)
+    return "tests" not in rel.parts and rel != Path("family.py") and \
+        (rel.parts[0], rel.stem) not in FAMILY_MODULES
+
+
+@pytest.mark.parametrize("path", sorted(filter(_not_a_family_module,
+                                               BENCH.rglob("*.py"))),
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_only_the_lookup_names_a_family(path):
+    """A family's modules are found through `family.py`: no other module of
+    the harness imports GPV-1's reference, training reference or counts
+    by name."""
+    for name in _names(path):
+        assert tuple(name.split(".")[-2:]) not in FAMILY_MODULES, name
+
+
+def test_the_family_modules_are_named_as_the_rule_knows():
+    gpv_train = BENCH / "reference" / "gpv_train.py"
+    assert "gpvbench.reference.gpv" in set(_names(gpv_train))
+    assert not _not_a_family_module(gpv_train)

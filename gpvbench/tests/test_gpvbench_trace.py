@@ -59,15 +59,16 @@ def test_launch_gaps_hold_the_trace_to_the_counters():
               DeviceEvent("void gpv_attn_tile_bi_kernel<4>", 3.0, 4.0)]
     counted = {"fused_attention.tile": 2, "fused_attention.decode": 1,
                "fused_biattention.tile": 1}
-    assert launch_gaps(events, counted) == []
+    assert launch_gaps(events, counted, "attention") == []
     # a record lost: read as a gap, never filled in from the others' mean
-    assert launch_gaps(events[1:], counted) == [
+    assert launch_gaps(events[1:], counted, "attention") == [
         "fused_attention.tile: 1 traced, 2 launched"]
     # K2 under a name no data file holds: its variant reads short
     renamed = events[:3] + [DeviceEvent("void other_bi_kernel", 3.0, 4.0)]
-    assert launch_gaps(renamed, counted) == [
+    assert launch_gaps(renamed, counted, "attention") == [
         "fused_biattention.tile: 0 traced, 1 launched"]
     # a counter no data file names
-    assert launch_gaps(events, dict(counted, **{"fused_attention.new": 3})
-                       ) == ["3 launches of fused_attention.new, which no "
-                             "kernels/attention-*.json names"]
+    assert launch_gaps(events, dict(counted, **{"fused_attention.new": 3}),
+                       "attention") == [
+        "3 launches of fused_attention.new, which no "
+        "kernels/attention-*.json names"]

@@ -7,7 +7,11 @@ window of device activity over a steady stretch of the measured window
 
 Busy time is the union of the device's kernel, copy and set intervals:
 work on two streams at once, or a copy beside a kernel, counts once.
-Kernel groups come from name fragments in data files under `kernels/`.
+Kernel groups come from name fragments in data files under `kernels/`:
+`kernels/<kind>-<name>.json` holds `fragments` of the device kernels that
+do one kind of work, and, for a hand kernel of the program, its counted
+`variants` and the program functions whose `variant_launches` count them
+(`counters`, as "module:function").
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 KERNELS = Path(__file__).resolve().parent / "kernels"
+FIRST_KINDS = ("attention", "conv", "gemm", "copy")
 
 Interval = Tuple[float, float]
 
@@ -109,27 +114,52 @@ class TraceData:
     counts: Dict[str, float] = field(default_factory=dict)
 
 
+def _kind(path: Path) -> str:
+    return path.stem.split("-", 1)[0]
+
+
+def kinds() -> Tuple[str, ...]:
+    """Every kind of work a `kernels/<kind>-*.json` defines: the attention,
+    convolution, matrix product and copy groups first, then the others
+    sorted (a kernel is grouped by the first whose fragments match)."""
+    found = {_kind(path) for path in KERNELS.glob("*-*.json")}
+    return FIRST_KINDS + tuple(sorted(found - set(FIRST_KINDS)))
+
+
 def patterns(kind: str) -> Dict[str, List[str]]:
-    """{file stem: name fragments} of every `kernels/<kind>*.json`: the
+    """{file stem: name fragments} of every `kernels/<kind>-*.json`: the
     device kernels that do one kind of work."""
     out = {}
-    for path in sorted(KERNELS.glob(f"{kind}*.json")):
+    for path in sorted(KERNELS.glob(f"{kind}-*.json")):
         out[path.stem] = list(json.loads(path.read_text())["fragments"])
     return out
 
 
 def variants(kind: str) -> Dict[str, List[str]]:
     """{program counter: name fragments} of the `variants` of every
-    `kernels/<kind>*.json`: which device kernels one counted launch of
+    `kernels/<kind>-*.json`: which device kernels one counted launch of
     the program runs as."""
     out: Dict[str, List[str]] = {}
-    for path in sorted(KERNELS.glob(f"{kind}*.json")):
+    for path in sorted(KERNELS.glob(f"{kind}-*.json")):
         out.update(json.loads(path.read_text()).get("variants", {}))
     return out
 
 
+def counters() -> Dict[str, List[str]]:
+    """{kind: program functions ("module:function")} of every kind whose
+    `kernels/<kind>-*.json` name `counters`: each function's
+    `variant_launches` counts its launches by variant, under the variant
+    names `<function>.<variant>`."""
+    out: Dict[str, List[str]] = {}
+    for path in sorted(KERNELS.glob("*-*.json")):
+        names = json.loads(path.read_text()).get("counters", [])
+        if names:
+            out.setdefault(_kind(path), []).extend(names)
+    return out
+
+
 def launch_gaps(events: Sequence["DeviceEvent"], counted: Dict[str, int],
-                kind: str = "attention") -> List[str]:
+                kind: str) -> List[str]:
     """Where a trace's kernels of `kind` differ from the launches the
     program counted over its window (`counted`: {counter: launches}): a
     counted launch that no data file names, or a variant traced more or
@@ -150,23 +180,20 @@ def matches(name: str, fragments: Sequence[str]) -> bool:
     return any(f.lower() in low for f in fragments)
 
 
-GROUPS = ("attention", "conv", "gemm", "copy")
-
-
 def group_of(name: str, table: Dict[str, List[str]]) -> str:
-    """The first group (in GROUPS order) whose fragments match, else
-    "elementwise": every kernel that is not attention, a convolution, a
-    matrix product or a copy."""
-    for g in GROUPS:
-        if matches(name, table[g]):
+    """The first group (in `kinds()` order, as `group_table` holds them)
+    whose fragments match, else "elementwise": every kernel of no kind a
+    data file defines."""
+    for g, frags in table.items():
+        if matches(name, frags):
             return g
     return "elementwise"
 
 
 def group_table() -> Dict[str, List[str]]:
-    table = {g: [f for frags in patterns(g).values() for f in frags]
-             for g in GROUPS}
-    return table
+    """{kind: name fragments} in `kinds()` order."""
+    return {g: [f for frags in patterns(g).values() for f in frags]
+            for g in kinds()}
 
 
 def profiler(device_type: str):
