@@ -23,6 +23,15 @@ Phases, each printing one JSON line:
              case above Dh 128 in short (`vs_sdpa`: device us of the
              kernel, SDPA, plain and bound, x bound, x SDPA, and the
              cluster of CTAs it launched with);
+  msdeform   the multi-scale deformable attention kernel
+             (`ops.ms_deform_attn`) against its plain version in fp32 at
+             GPV-1 on Deformable DETR's shapes (B=20, 4 levels of a 480x640
+             image: S=6380 rows, 8 heads of 32, 4 points; the encoder's
+             Q=S and the decoder's Q=300), bf16 and fp32, timed beside the
+             plain version and through the op, with its bound; then a
+             Deformable GPV's predict in each dtype
+             (`gpvbench/configs/gpv1-deformable-r50.json`'s overrides),
+             its launches by variant;
   slice      GPVEngine.predict (B=20 uint8 480x640, 12-token queries, bf16,
              BN folded), with the kernels' launch counts read around one
              call;
@@ -200,7 +209,8 @@ Phases, each printing one JSON line:
              resumes the TP run's `ckpts/last` (its state is the gathered
              TP state at the save, bit for bit).
 Then a `total` line (the whole script's seconds) and one `kernels` line
-(each kernel of the paths: launches and per-call
+(each kernel of the paths, the deformable sampling's per Deformable
+predict: launches and per-call
 ms, device ms, bound in the measured predict, and the same for
 predict_beam, embed_vocab, the whole serve run, the whole eval phase, one
 train step, the in-train eval, the exported bundle's B=20 predict,
@@ -240,6 +250,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max(1, |plain| max)
 B, IMG_H, IMG_W, QUERY_TOKENS, VOCAB = 20, 480, 640, 12, 10000
+# GPV-1 on Deformable DETR (gpvbench/configs/gpv1-deformable-r50.json):
+# the levels of a 480x640 image, heads, head dim, points, queries, layers
+DEFORM_OVERRIDES = ("model.detector=deformable_detr",
+                    "model.detr.num_queries=300",
+                    "model.detr.dim_feedforward=1024")
+DEFORM_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
+DEFORM_H, DEFORM_DH, DEFORM_P, DEFORM_Q, DEFORM_LAYERS = 8, 32, 4, 300, 6
 BEAM, E2E_BEAM = 5, 3
 EMBED_BATCH = 256  # words a batch in embed_vocab
 SERVE_BUCKETS, SERVE_BEAM = (1, 8, B), 3
@@ -810,6 +827,142 @@ def phase_kernels() -> dict:
             "wide": [vs_sdpa(r) for r in k1 + k2 if r["shape"][-1] > 128]}
 
 
+def _msdeform_inputs(q: int, dtype, g):
+    """Random inputs of one deformable layer's sampling at B: (value, off,
+    logits) in `dtype`, ref fp32."""
+    import torch
+    S, L = sum(h * w for h, w in DEFORM_LEVELS), len(DEFORM_LEVELS)
+    dev = torch.device("cuda")
+    value = torch.randn(B, S, DEFORM_H, DEFORM_DH, device=dev, generator=g)
+    ref = torch.rand(B, q, L, 2, device=dev, generator=g)
+    off = torch.randn(B, q, DEFORM_H, L, DEFORM_P, 2, device=dev,
+                      generator=g)
+    logits = torch.randn(B, q, DEFORM_H, L * DEFORM_P, device=dev,
+                         generator=g)
+    return [t.to(dtype) for t in (value, off, logits)], ref
+
+
+def _deform_predict(vocab_path: Path, dtype: str) -> dict:
+    """One Deformable GPV predict at B in `dtype` after a warm one: its
+    wall ms, its kernel launches by variant, its boxes checked."""
+    import torch
+    from gpv_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    eng = make_engine(vocab_path, dtype, "cuda", DEFORM_OVERRIDES)
+    images, queries = _batch(7, B)
+    eng.predict(images, queries)
+    torch.cuda.synchronize()
+    before = dict(ms_deform_attn.variant_launches)
+    t = time.perf_counter()
+    rows = eng.predict(images, queries)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    launches = {v: n - before[v]
+                for v, n in ms_deform_attn.variant_launches.items()}
+    _check_boxes(rows, DEFORM_Q)
+    want = {v: 0 for v in launches}
+    want["bf16" if dtype == "bfloat16" else "fp32"] = 2 * DEFORM_LAYERS
+    if launches != want:
+        fail(f"msdeform predict ({dtype}): launches {launches}, expected "
+             f"{want} (one a deformable layer)")
+    del eng
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches_by_variant": {"ms_deform_attn": launches}}
+
+
+def phase_msdeform(vocab_path: Path) -> dict:
+    """The deformable sampling kernel against `ms_deform_attn_plain` in
+    fp32 on the same (rounded) inputs, at the tolerances of
+    tests/test_torch_port_msdeform_card.py: 1e-4 of the largest value (the
+    locations rounded another way), plus 2^-8 of the largest output in
+    bf16 (the output's rounding). Timed beside the plain version and
+    through the op; the bound is the operation's own bytes (value,
+    offsets, logits, reference points read once, the output written
+    once) at the card's memory rate, or its multiply-adds (4 corners of 2
+    and the weighting, a sample and channel) at the peak. Then a
+    Deformable predict in each dtype (`_deform_predict`)."""
+    import torch
+    from gpv_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                  ms_deform_attn_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [tuple(hw) for hw in DEFORM_LEVELS]
+    flat = [x for hw in shapes for x in hw]
+    S = sum(h * w for h, w in shapes)
+    cases = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for name, q in (("encoder", S), ("decoder", DEFORM_Q)):
+                (value, off, logits), ref = _msdeform_inputs(q, dtype, g)
+                got = ms_deform_attn(value, shapes, ref, off, logits)
+                want = ms_deform_attn_plain(value.float(), shapes, ref,
+                                            off.float(), logits.float())
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                tol = 1e-4 * value.float().abs().max().item()
+                if dtype == torch.bfloat16:
+                    tol += 2.0 ** -8 * want.abs().max().item()
+                if not err <= tol:
+                    fail(f"msdeform {name} {dname}: max abs err {err} > "
+                         f"{tol}")
+                calls = {
+                    "": lambda: ms_deform_attn(value, shapes, ref, off,
+                                               logits),
+                    "plain_": lambda: ms_deform_attn_plain(
+                        value, shapes, ref, off, logits)}
+                rec = {"case": name, "dtype": dname,
+                       "shape": [B, S, q, DEFORM_H, DEFORM_DH,
+                                 len(shapes), DEFORM_P],
+                       "variant": "bf16" if dtype == torch.bfloat16
+                       else "fp32", "max_abs_err": err, "tol": tol,
+                       **_timings(calls),
+                       "op_ms": time_ms(lambda: torch.ops.gpv.ms_deform_attn(
+                           value, flat, ref, off, logits))}
+                nbytes = (value.numel() + off.numel() + logits.numel()
+                          + got.numel()) * value.element_size() \
+                    + ref.numel() * ref.element_size()
+                samples = B * q * DEFORM_H * len(shapes) * DEFORM_P
+                rec.update(_bound(nbytes, samples * DEFORM_DH * (4 * 2 + 2),
+                                  dname))
+                cases.append(rec)
+                del value, off, logits, ref, got, want
+                torch.cuda.empty_cache()
+    predict = {dtype: _deform_predict(vocab_path, dtype)
+               for dtype in ("bfloat16", "float32")}
+    return {"phase": "msdeform", "cases": cases, "predict": predict}
+
+
+def msdeform_entries(rec: dict) -> list:
+    """The `kernels` line's entries of the deformable sampling kernel, one
+    a route: one Deformable predict's launches (measured) and its device
+    ms and bound (each layer's case times its layers: 6 encoder and 6
+    decoder)."""
+    keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "op_ms",
+            "bound_ms", "bytes_ms", "ops_ms")
+    out = []
+    for dname, variant in (("bfloat16", "bf16"), ("float32", "fp32")):
+        recs = [r for r in rec["cases"] if r["dtype"] == dname]
+        tot = {k: DEFORM_LAYERS * sum(r[k] for r in recs) for k in keys}
+        tot["bound_by"] = ("bytes" if tot.pop("bytes_ms")
+                           >= tot.pop("ops_ms") else "operations")
+        run = rec["predict"][dname]
+        out.append({
+            "name": f"ms_deform_attn[{variant}]", "route": "cuda",
+            "source": "gpv_tpu_torch/csrc/ms_deform_attn.cu",
+            "replaces": None,  # the JAX package has no deformable attention
+            "launches": run["launches_by_variant"]["ms_deform_attn"][
+                variant], **tot,
+            "library_ms": None, "library_device_ms": None,  # none offered
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "predict_ms": run["ms"],
+            "per": f"one Deformable predict: B={B}, {variant}, "
+                   f"{DEFORM_LAYERS} encoder and {DEFORM_LAYERS} decoder "
+                   "layers"})
+    return out
+
+
 def vs_sdpa(rec: dict) -> dict:
     """One `kernels` case in short: device us a launch of the kernel, SDPA
     (K2: its two calls) and the plain version, the bound, the kernel's
@@ -980,10 +1133,10 @@ def make_engine(vocab_path: Path, dtype: str, device: str,
          f"device={device}", *overrides]))
 
 
-def _check_boxes(rows) -> None:
+def _check_boxes(rows, n: int = 100) -> None:
     for r in rows:
         boxes, rel = r["boxes"], r["relevance"]
-        if boxes.shape != (100, 4) or rel.shape != (100,):
+        if boxes.shape != (n, 4) or rel.shape != (n,):
             fail(f"shapes boxes {boxes.shape} relevance {rel.shape}")
         if not (np.isfinite(boxes).all() and (boxes >= 0).all()
                 and (boxes <= 1).all()):
@@ -4473,14 +4626,16 @@ def phase_stem_s2d(eng, vocab_path: Path, checked: set):
     return rec, ({"launches_by_variant": var}, counts)
 
 
-def kernels_line(kern: dict, runs: dict, fp32_runs: dict) -> dict:
+def kernels_line(kern: dict, runs: dict, fp32_runs: dict,
+                 msdeform: dict) -> dict:
     """One entry per kernel of the paths. Its top-level numbers are one
     predict's (the slice run in bf16, `e2e`'s timed predict in fp32): each
     shape's number in that dtype times its launches in that run, summed
     over the shapes that kernel serves; `paths` holds the same for each
     measured run (predict, predict_beam, embed_vocab, the whole serve run,
     the eval phase's gated runs). runs / fp32_runs: path -> (its phase
-    record, {Case: launches}) of the bf16 / fp32 runs."""
+    record, {Case: launches}) of the bf16 / fp32 runs; msdeform: the
+    `msdeform` phase's record (`msdeform_entries`)."""
     keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
             "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
 
@@ -4541,7 +4696,7 @@ def kernels_line(kern: dict, runs: dict, fp32_runs: dict) -> dict:
                         **sl, "per": f"one predict: B={B}, {dtype}, "
                         f"{path_runs['predict'][0]['decode_steps']} decode "
                         "steps", "paths": paths})
-    return {"kernels": entries}
+    return {"kernels": entries + msdeform_entries(msdeform)}
 
 
 def main() -> None:
@@ -4572,6 +4727,9 @@ def main() -> None:
     kern = records[-1]
     with tempfile.TemporaryDirectory() as tmp:
         vocab_path = write_vocab(Path(tmp))
+        deform = phase_msdeform(vocab_path)
+        records.append(deform)
+        emit(deform)
         t0 = time.perf_counter()
         eng = make_engine(vocab_path, "bfloat16", "cuda")
         sl, sl_counts, prof = phase_slice(eng, time.perf_counter() - t0)
@@ -4640,7 +4798,7 @@ def main() -> None:
         "infer_dp": (idp["bf16"], idp_counts), "stem_s2d": st_run,
         "remat": (rm["remat"], rm_counts), **ddp_runs, **tp_runs,
         "wide_heads_predict": wide_bf16},
-        {"predict": (e2e["fp32_predict"], e2e_counts), **wide_runs})
+        {"predict": (e2e["fp32_predict"], e2e_counts), **wide_runs}, deform)
     records.append(line)
     seconds = time.perf_counter() - t_start
     if args.report:

@@ -36,6 +36,18 @@ from ..ops.roi_align import roi_align_mean_pooled
 POSITION_EMBEDDINGS = ("sine", "v2", "learned", "v3")
 
 
+def downsample_valid(image_valid: torch.Tensor, h: int,
+                     w: int) -> torch.Tensor:
+    """Nearest downsample of a (B, H, W) validity mask to (B, h, w)
+    (reference backbone.py:77), index arithmetic in fp32 as in the JAX
+    package."""
+    H, W = image_valid.shape[1:]
+    dev = image_valid.device
+    ys = (torch.arange(h, device=dev, dtype=torch.float32) * (H / h)).long()
+    xs = (torch.arange(w, device=dev, dtype=torch.float32) * (W / w)).long()
+    return image_valid[:, ys][:, :, xs]
+
+
 class _Body(nn.Module):
     """Holds the trunk as `body`, so its names read `backbone.0.body.*`."""
 
@@ -89,7 +101,7 @@ class DETR(nn.Module):
         aux_pred_relevance_logits (L-1,B,Q,K+1) and aux_pred_boxes
         (L-1,B,Q,4) when the aux losses are on in training.
         """
-        B, H, W, _ = images.shape
+        B = images.shape[0]
         dtype = self.input_proj.weight.dtype
         # NHWC -> NCHW view: the memory stays channels-last for cuDNN
         feats = self.trunk(images.to(dtype).permute(0, 3, 1, 2))
@@ -98,13 +110,7 @@ class DETR(nn.Module):
             feat_valid = torch.ones(B, h, w, dtype=torch.bool,
                                     device=images.device)
         else:
-            # nearest downsample of the validity mask (reference
-            # backbone.py:77), index arithmetic in fp32 as in the JAX package
-            ys = (torch.arange(h, device=images.device, dtype=torch.float32)
-                  * (H / h)).long()
-            xs = (torch.arange(w, device=images.device, dtype=torch.float32)
-                  * (W / w)).long()
-            feat_valid = image_valid[:, ys][:, :, xs]
+            feat_valid = downsample_valid(image_valid, h, w)
         if len(self.backbone) > 1:
             pos = self.backbone[1](B, h, w)
         else:

@@ -23,7 +23,11 @@ select: `answer_head:
 linear` (a Linear classifier in place of the vocab-embedding one),
 `roi_head: False`, `relevance_conditioning: False`, the learned DETR
 position embedding, any `backbone_layers` and the space-to-depth stem
-(`model.detr.stem_s2d`, `ops.stem_s2d`). `remat` (`tpu.remat`) recomputes
+(`model.detr.stem_s2d`, `ops.stem_s2d`), and the detector
+(`model.detector`: `detr`, the default, or `deformable_detr`, Deformable
+DETR with its `model.deformable_detr` node, `models.deformable_detr`;
+either returns the same outputs, so the rest of GPV reads 100 or 300
+boxes alike). `remat` (`tpu.remat`) recomputes
 the backbone's stages, DETR's layers and each co-attention layer in the
 backward (`nn.layers.remat`). `shard_params` makes a whole model one
 rank's share of it under tensor parallelism.
@@ -43,7 +47,10 @@ from ..ops.posenc import sine_position_encoding_1d
 from ..parallel.sharding_rules import (ShardingRules, make_param_shardings,
                                        shard_tensor)
 from ..utils.profiling import span
+from .deformable_detr import DeformableDETR
 from .detr import DETR, POSITION_EMBEDDINGS
+
+DETECTORS = {"detr": DETR, "deformable_detr": DeformableDETR}
 
 
 class _AnswerHead(nn.Module):
@@ -88,7 +95,7 @@ class GPV(nn.Module):
                  roi_head: bool = True, bert_layers: int = 12,
                  bert_hidden: int = 768, bert_heads: int = 12,
                  bert_vocab_size: int = 30522, bert_max_len: int = 512,
-                 remat: bool = False):
+                 remat: bool = False, detector: str = "detr"):
         super().__init__()
         detr_cfg = dict(detr_cfg or {})
         self.remat = remat
@@ -99,7 +106,8 @@ class GPV(nn.Module):
         self.mask_query_pads = mask_query_pads
         self.linear_answer_head = answer_head == "linear"
         self.bert_max_len = bert_max_len
-        self.detr = DETR(roi_head=roi_head, remat=remat, **detr_cfg)
+        self.detr = DETECTORS[detector](roi_head=roi_head, remat=remat,
+                                        **detr_cfg)
         # query states (+ the 2048-d RoI features)
         self.detr_joiner = nn.Linear(
             detr_cfg.get("hidden_dim", 256) + (2048 if roi_head else 0),
@@ -296,7 +304,13 @@ def shard_params(model: GPV, mg) -> ShardingRules:
     each leaf the rules shard (`parallel.sharding_rules.
     make_param_shardings`) keeps this rank's slice, the rest stay whole,
     and every sharded block runs over `mg`. The parameters stay the same
-    objects, so build the optimizer after. Returns the rules."""
+    objects, so build the optimizer after. Returns the rules. The
+    Deformable DETR detector has no sharding rules and is refused."""
+    if isinstance(model.detr, DeformableDETR):
+        raise NotImplementedError(
+            "tensor parallelism over the Deformable DETR detector is not "
+            "supported (no sharding rules for its deformable attention); "
+            "use tpu.mesh.model=1")
     rules = make_param_shardings(model, mg.size)
     for name, p in model.named_parameters():
         spec = rules.specs.get(name)
@@ -357,7 +371,12 @@ def _check_co_att(cfg):
 def build_gpv(cfg, vocab_size: int, remat: bool = False) -> GPV:
     """Build from the `model` config node (configs/exp/gpv.yaml schema),
     with the checks and messages of `gpv_tpu.models.gpv.build_gpv`;
-    `remat` is `tpu.remat`."""
+    `remat` is `tpu.remat`. `model.detector` chooses the detector
+    (`DETECTORS`); any other name raises at once."""
+    detector = str(cfg.get("detector") or "detr")
+    if detector not in DETECTORS:
+        raise ValueError(f"model.detector={detector!r} is not a detector of "
+                         f"the port (one of {sorted(DETECTORS)})")
     if cfg.detr.get("masks"):
         raise ValueError(
             "model.detr.masks=True (DETR segmentation head) is not part of "
@@ -406,6 +425,8 @@ def build_gpv(cfg, vocab_size: int, remat: bool = False) -> GPV:
             int(x) for x in cfg.detr.backbone_layers)
     else:
         detr_cfg["backbone_layers"] = _BACKBONE_LAYERS[backbone]
+    if detector == "deformable_detr":
+        detr_cfg = _deformable_cfg(cfg, detr_cfg)
     bert_cfg = cfg.get("bert") or {}
     co_att_intermediate, co_att_extra = _check_co_att(cfg)
     if cfg.co_att.get("visualization"):
@@ -462,4 +483,36 @@ def build_gpv(cfg, vocab_size: int, remat: bool = False) -> GPV:
         bert_heads=int(bert_cfg.get("heads", 12)),
         bert_vocab_size=int(bert_cfg.get("vocab_size", 30522)),
         bert_max_len=int(bert_cfg.get("max_len", 512)),
-        remat=remat)
+        remat=remat, detector=detector)
+
+
+def _deformable_cfg(cfg, detr_cfg: dict) -> dict:
+    """DeformableDETR's arguments: the widths of `model.detr` and the
+    levels and points of `model.deformable_detr` (Deformable DETR's
+    `main.py` names). DETR's options that the detector does not have
+    raise, as do its box refinement and two-stage variants."""
+    node = cfg.get("deformable_detr") or {}
+    for key in ("with_box_refine", "two_stage"):
+        if node.get(key):
+            raise ValueError(f"model.deformable_detr.{key}=True is not "
+                             "supported: the port builds the plain "
+                             "Deformable DETR")
+    for key, why in (("dilation", "DC5"), ("pre_norm", "pre-norm layers")):
+        if detr_cfg[key]:
+            raise ValueError(f"model.detr.{key}=True ({why}) is not part of "
+                             "Deformable DETR")
+    if detr_cfg["position_embedding"] not in ("sine", "v2"):
+        raise ValueError("model.detector=deformable_detr takes the sine "
+                         "position embedding (model.detr.position_embedding"
+                         f"={detr_cfg['position_embedding']!r})")
+    if detr_cfg["aux_loss"] and not detr_cfg["last_layer_only"]:
+        raise ValueError("model.detector=deformable_detr returns the last "
+                         "decoder layer's predictions only; set "
+                         "model.detr.aux_loss=False or last_layer_only=True")
+    keep = ("num_queries", "num_classes", "hidden_dim", "nheads",
+            "num_encoder_layers", "num_decoder_layers", "dim_feedforward",
+            "dropout", "stem_s2d", "backbone_layers")
+    return dict({k: detr_cfg[k] for k in keep},
+                num_feature_levels=int(node.get("num_feature_levels", 4)),
+                enc_n_points=int(node.get("enc_n_points", 4)),
+                dec_n_points=int(node.get("dec_n_points", 4)))

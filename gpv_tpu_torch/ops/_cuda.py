@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 # csrc/<name>.cu -> lib<name>_<hash>.so
-SOURCES = ("attention", "attention_tile", "attention_decode")
+SOURCES = ("attention", "attention_tile", "attention_decode",
+           "ms_deform_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -27,9 +27,14 @@ def sine_position_embedding_2d(valid_mask: torch.Tensor,
                                num_pos_feats: int = 128,
                                temperature: float = 10000.0,
                                normalize: bool = True,
-                               scale: float | None = None) -> torch.Tensor:
+                               scale: float | None = None,
+                               offset: float = 0.0) -> torch.Tensor:
     """valid_mask: (B, H, W) bool, True on VALID pixels.
-    Returns (B, H, W, 2 * num_pos_feats) fp32, [y-features, x-features]."""
+    Returns (B, H, W, 2 * num_pos_feats) fp32, [y-features, x-features].
+    `offset` is subtracted from the cumulative counts before they are
+    normalised: 0 in DETR, 0.5 in Deformable DETR (its
+    `PositionEmbeddingSine`), which puts each position at its pixel's
+    centre."""
     if scale is None:
         scale = 2.0 * math.pi
     not_mask = valid_mask.float()
@@ -37,8 +42,8 @@ def sine_position_embedding_2d(valid_mask: torch.Tensor,
     x_embed = not_mask.cumsum(2)
     if normalize:
         eps = 1e-6
-        y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
-        x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
+        y_embed = (y_embed - offset) / (y_embed[:, -1:, :] + eps) * scale
+        x_embed = (x_embed - offset) / (x_embed[:, :, -1:] + eps) * scale
     dim_t = torch.arange(num_pos_feats, dtype=torch.float32,
                          device=valid_mask.device)
     dim_t = temperature ** (2.0 * torch.floor(dim_t / 2.0) / num_pos_feats)

@@ -200,10 +200,15 @@ def initialize_distributed(tpu_cfg, device=None,
     print(f"gpv_tpu_torch: rank {cluster.rank} of {cluster.world} joins "
           f"tcp://{cluster.address} over {backend} on {dev} ({why})",
           flush=True)
+    node = _node(tpu_cfg, "distributed")
+    # `timeout_min`: how long a collective may wait before the group fails
+    # (torch's default without it)
+    kw = ({"timeout": datetime.timedelta(minutes=float(node["timeout_min"]))}
+          if node.get("timeout_min") else {})
     dist.init_process_group(backend, init_method=f"tcp://{cluster.address}",
-                            world_size=cluster.world, rank=cluster.rank)
-    minutes = float(_node(tpu_cfg, "distributed").get(
-        "barrier_timeout_min", BARRIER_TIMEOUT_MIN) or BARRIER_TIMEOUT_MIN)
+                            world_size=cluster.world, rank=cluster.rank, **kw)
+    minutes = float(node.get("barrier_timeout_min", BARRIER_TIMEOUT_MIN)
+                    or BARRIER_TIMEOUT_MIN)
     _barrier_group = dist.new_group(
         backend="gloo", timeout=datetime.timedelta(minutes=minutes))
     _groups = _make_groups(mesh, cluster.rank)

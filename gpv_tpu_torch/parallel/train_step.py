@@ -31,6 +31,10 @@ loss over the global batch; the criterion gives each rank its part of it
 times the world size (global normalisers), so DDP's gradient mean is the
 global loss's gradient, microbatch by microbatch. Every microbatch but the
 last runs under `no_sync`, so the accumulated gradient is all-reduced once.
+The all-reduce is DDP's default one, made through a communication hook
+(`allreduce_hook`) that counts each bucket it enqueues in `COUNTERS`
+(`ddp.allreduce_calls`, `ddp.allreduce_bytes`) inside the span
+`train.ddp.hook`.
 Names (frozen parameters, the clip's groups, the optimizer's groups) are
 resolved on the inner module, whose names are the reference's; the
 returned losses are the mean over ranks, the global batch's.
@@ -53,6 +57,7 @@ over the group (`tensor_parallel.check_replicated`).
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Dict
 
@@ -60,6 +65,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
 from torch.nn.parallel import DistributedDataParallel
 
 from ..losses.criterion import LossConfig, gpv_criterion
@@ -69,6 +75,23 @@ from ..train.optimizer import clip_detr_grads, frozen_names
 from ..utils.profiling import span
 from . import mesh
 from .tensor_parallel import sync_replicated_grads
+
+
+# the buckets DDP's all-reduce enqueued, and their bytes (`allreduce_hook`)
+COUNTERS = {"ddp.allreduce_calls": 0, "ddp.allreduce_bytes": 0}
+_counter_lock = threading.Lock()
+
+
+def allreduce_hook(process_group, bucket):
+    """DDP's default all-reduce of a gradient bucket (the mean over the
+    group), counted in `COUNTERS`; its enqueue is the span
+    `train.ddp.hook`."""
+    with span("train.ddp.hook"):
+        buf = bucket.buffer()
+        with _counter_lock:
+            COUNTERS["ddp.allreduce_calls"] += 1
+            COUNTERS["ddp.allreduce_bytes"] += buf.numel() * buf.element_size()
+        return default_hooks.allreduce_hook(process_group, bucket)
 
 
 @dataclass
@@ -155,6 +178,7 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig,
             process_group=group, broadcast_buffers=False,
             find_unused_parameters=not getattr(
                 model, "relevance_conditioning", True))
+        forward.register_comm_hook(group, allreduce_hook)
 
     def step(state: TrainState, batch):
         device = next(model.parameters()).device

@@ -238,10 +238,11 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and persistent buffer of `model` from a seeded
     generator: weight matrices and conv kernels N(0, 1/fan_in), biases 0,
     LayerNorm scales 1, embeddings and the GPV tokens N(0, 0.1^2), frozen-BN
-    statistics near identity. The same seed gives the same weights whatever
-    the model's device. A space-to-depth stem takes the 7x7 kernel the
-    plain stem would draw, rewritten (`ops.stem_s2d`), so both stems give
-    one function for one seed."""
+    statistics near identity (Deformable DETR's GroupNorms as the
+    LayerNorms, its level embedding as a weight matrix). The same seed
+    gives the same weights whatever the model's device. A space-to-depth
+    stem takes the 7x7 kernel the plain stem would draw, rewritten
+    (`ops.stem_s2d`), so both stems give one function for one seed."""
     g = torch.Generator().manual_seed(seed)
 
     def randn(shape, std):
@@ -257,7 +258,7 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
         if isinstance(owner, FrozenBatchNorm):
             val = (near_one(shape) if leaf in ("weight", "running_var")
                    else randn(shape, 0.1))
-        elif isinstance(owner, nn.LayerNorm):
+        elif isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
             val = torch.ones(shape) if leaf == "weight" else torch.zeros(shape)
         elif leaf.endswith("bias"):
             val = torch.zeros(shape)

@@ -1,0 +1,139 @@
+"""The multi-scale deformable attention kernel (`csrc/ms_deform_attn.cu`,
+`ops.ms_deform_attn`) on the card against its plain version in fp32, at
+the published widths of Deformable DETR in GPV-1 (hidden 256, 8 heads of
+32, 4 levels x 4 points; 480x640 images: levels 60x80, 30x40, 15x20 and
+8x10, S = 6380 rows):
+
+- the encoder's call (Q = S) and the decoder's (Q = 300), the bf16 and
+  the fp32 route, and a call on odd level sizes with padded images and
+  points thrown far off the map;
+- each route counted on its own `variant_launches` entry, once a call;
+- a call with a gradient raises (the kernel is forward-only), training's
+  layer takes the plain op, and a traced program's op launches the
+  kernel;
+- anything but a head dim of 32 refused by the kernel's C entry.
+
+Tolerances, against the plain version on the same (bf16-rounded) inputs
+in fp32:
+- fp32 route: 1e-4 of the largest value. Both compute the locations in
+  fp32, but `grid_sample` unnormalises 2 * loc - 1 where the kernel scales
+  loc: the same pixel coordinate rounded differently, by up to an ulp at
+  80 pixels (7.6e-6), which moves a bilinear weight as much; the sums of
+  64 corner products in another order add a few ulps more.
+- bf16 route: 2^-8 of the largest output beside that: the output is
+  written in bf16 (a relative rounding of 2^-9) from the same fp32 sum.
+
+Card only: every test is marked `cuda` and skips without a CUDA device.
+The file imports neither JAX nor the JAX package:
+
+    python -m pytest --noconftest -m cuda \\
+        tests/test_torch_port_msdeform_card.py
+"""
+import pytest
+import torch
+
+from gpv_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                              ms_deform_attn_plain)
+
+pytestmark = pytest.mark.cuda
+
+LEVELS = [(60, 80), (30, 40), (15, 20), (8, 10)]
+ODD = [(37, 53), (19, 27), (10, 14), (5, 7)]
+H, DH, P = 8, 32, 4
+CASES = {"encoder": (2, None, LEVELS, 1.0, False),
+         "decoder": (4, 300, LEVELS, 1.0, False),
+         "odd_padded_far": (3, 211, ODD, 20.0, True)}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(case, dtype, device):
+    B, Q, shapes, spread, padded = CASES[case]
+    S = sum(h * w for h, w in shapes)
+    Q = S if Q is None else Q
+    L = len(shapes)
+    g = torch.Generator(device=device).manual_seed(17)
+    value = torch.randn(B, S, H, DH, generator=g, device=device)
+    if padded:  # zeroed rows, as a padded image's value is
+        value[1, S // 2:] = 0
+    ref = torch.rand(B, Q, L, 2, generator=g, device=device)
+    if padded:  # reference points scaled into a valid extent
+        ref[1] *= torch.tensor([0.6, 0.8], device=device)
+    off = spread * torch.randn(B, Q, H, L, P, 2, generator=g, device=device)
+    logits = torch.randn(B, Q, H, L * P, generator=g, device=device)
+    return ([t.to(dtype) for t in (value, off, logits)], ref.contiguous(),
+            shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_the_plain_version(card, case, dtype):
+    (value, off, logits), ref, shapes = _inputs(case, dtype, card)
+    variant = "bf16" if dtype == torch.bfloat16 else "fp32"
+    before = dict(ms_deform_attn.variant_launches)
+    with torch.no_grad():
+        got = ms_deform_attn(value, shapes, ref, off, logits)
+        want = ms_deform_attn_plain(value.float(), shapes, ref, off.float(),
+                                    logits.float())
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert ms_deform_attn.variant_launches[variant] == before[variant] + 1
+    scale = value.float().abs().max().item()
+    tol = 1e-4 * scale
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -8 * want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol, (case, variant, err, tol)
+    assert torch.isfinite(got.float()).all()
+
+
+def test_a_call_with_grad_raises_and_training_takes_the_plain_op(card):
+    from gpv_tpu_torch.nn.deformable_transformer import MSDeformAttn
+    (value, off, logits), ref, shapes = _inputs("decoder", torch.float32,
+                                                card)
+    value.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ms_deform_attn(value, shapes, ref, off, logits)
+    layer = MSDeformAttn(H * DH, len(shapes), H, P).to(card)
+    B, Q = ref.shape[:2]
+    S = value.shape[1]
+    query = torch.randn(B, Q, H * DH, device=card)
+    before = dict(ms_deform_attn.variant_launches)
+    out = layer(query, ref, torch.randn(B, S, H * DH, device=card), shapes,
+                None, deterministic=False)
+    out.sum().backward()
+    assert ms_deform_attn.variant_launches == before
+    assert layer.value_proj.weight.grad.abs().sum() > 0
+
+
+def test_a_traced_program_launches_the_kernel(card):
+    (value, off, logits), ref, shapes = _inputs("decoder", torch.bfloat16,
+                                                card)
+
+    class Sample(torch.nn.Module):
+        def forward(self, value, ref, off, logits):
+            return ms_deform_attn(value, shapes, ref, off, logits)
+
+    prog = torch.export.export(Sample(), (value, ref, off, logits))
+    before = ms_deform_attn.variant_launches["bf16"]
+    with torch.no_grad():
+        got = prog.module()(value, ref, off, logits)
+        want = ms_deform_attn(value, shapes, ref, off, logits)
+    assert ms_deform_attn.variant_launches["bf16"] == before + 2
+    assert torch.equal(got, want)
+
+
+def test_the_kernel_refuses_another_head_dim(card):
+    (value, off, logits), ref, shapes = _inputs("decoder", torch.float32,
+                                                card)
+    B, S = value.shape[:2]
+    wide = torch.randn(B, S, H // 2, 2 * DH, device=card)
+    with torch.no_grad(), pytest.raises(ValueError, match="head dim 64"):
+        ms_deform_attn(wide, shapes, ref, off[:, :, :H // 2].contiguous(),
+                       logits[:, :, :H // 2].contiguous())

@@ -283,11 +283,26 @@ def test_bound_of_the_detr_encoder(dtype, bound_us, by):
     assert CHIP_SMOKE.PEAK_FLOPS == {"bfloat16": 989e12, "float32": 67e12}
 
 
+def test_bound_of_a_deformable_encoder_layer():
+    """`_bound` of one deformable encoder layer's sampling at B 20 (S = Q =
+    6380 rows, 8 heads of 32, 4 levels x 4 points), in bf16: the value,
+    offsets, logits and output at 2 B, the reference points at 4 B: 0.233
+    GB, bound by its bytes at 69.5 us; its 5.2 GFLOP take 5.3 us."""
+    b, s, h, dh, l, p = 20, 6380, 8, 32, 4, 4
+    nbytes = 2 * b * s * (2 * h * dh + h * l * p * 3) + 4 * b * s * l * 2
+    rec = CHIP_SMOKE._bound(nbytes, b * s * h * l * p * dh * 10.0,
+                            "bfloat16")
+    assert rec["bound_by"] == "bytes"
+    assert 1e3 * rec["bound_ms"] == pytest.approx(69.475, rel=1e-3)
+
+
 def test_kernels_line_lists_the_fp32_kernels():
     """`chip_smoke.kernels_line` gives every kernel of the paths an entry:
     the three bf16 ones counted on the bf16 predict, the three fp32 ones
     (attention.cu) on the fp32 predict, each shape's per-launch numbers
-    (all 1 here) summed over that run's launches."""
+    (all 1 here) summed over that run's launches; and the deformable
+    sampling kernel's two routes, each on its Deformable predict (6
+    encoder and 6 decoder layers)."""
     keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
             "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
     one = dict.fromkeys(keys, 1.0)
@@ -306,7 +321,15 @@ def test_kernels_line_lists_the_fp32_kernels():
                       "decode_steps": 19}, counts)},
         {"predict": ({"launches_by_variant":
                       CHIP_SMOKE.by_variant(counts, "float32"),
-                      "decode_steps": 19}, counts)})
+                      "decode_steps": 19}, counts)},
+        {"cases": [{"case": c, "dtype": d, "max_abs_err": 0.0,
+                    **dict.fromkeys(keys + ("op_ms",), 1.0)}
+                   for c in ("encoder", "decoder")
+                   for d in ("float32", "bfloat16")],
+         "predict": {d: {"ms": 1.0, "launches_by_variant": {
+             "ms_deform_attn": {"bf16": 12 * (d == "bfloat16"),
+                                "fp32": 12 * (d == "float32")}}}
+             for d in ("float32", "bfloat16")}})
     got = {e["name"]: (e["source"].rsplit("/", 1)[1], e["replaces"],
                        e["launches"], e["device_ms"], e["library_ms"])
            for e in line["kernels"]}
@@ -328,7 +351,9 @@ def test_kernels_line_lists_the_fp32_kernels():
                                          114.0, 114.0),
         "fused_biattention[fp32_tile]": ("attention.cu",
                                          "gpv_tpu/ops/attention.py:147", 3,
-                                         3.0, None)}
+                                         3.0, None),
+        "ms_deform_attn[bf16]": ("ms_deform_attn.cu", None, 12, 12.0, None),
+        "ms_deform_attn[fp32]": ("ms_deform_attn.cu", None, 12, 12.0, None)}
     fp32 = [e for e in line["kernels"] if "fp32" in e["name"]]
     assert all(e["route"] == "cuda" and "fp32" in e["per"] for e in fp32)
 
