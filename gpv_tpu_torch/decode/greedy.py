@@ -29,12 +29,10 @@ its memory pool: none of the pool's blocks is allocated between calls,
 while a pool dropped with its graph stays reserved until the allocator
 runs short or its cache is emptied, and each call would reserve anew.
 
-The capture runs on the caller's current stream when that is not the
-default stream (which cannot be captured), so the caller must not share
-that stream with another thread during the call; `GPVEngine` gives each
-calling thread streams of its own. On the default stream the capture
-forks onto a stream of the calling thread's own, whose cuBLAS workspace
-(one per stream and thread, 33 MiB on the H100) it then keeps.
+The capture runs on the caller's current stream, or forks from the
+default stream onto one of the calling thread's own (`utils.cuda_graph`),
+so the caller must not share that stream with another thread during the
+call; `GPVEngine` gives each calling thread streams of its own.
 
 Counters, in the style of the kernels' `launches`:
 `greedy_decode.captures`, `greedy_decode.replays` and
@@ -49,11 +47,11 @@ from typing import Optional
 import torch
 
 from ..models.gpv import GPV
-from ..ops.attention import add_counts, count_into, load_kernels
+from ..ops.attention import add_counts
+from ..utils.cuda_graph import capture, capture_stream
 from ..utils.profiling import span
 
 _stats_lock = threading.Lock()
-_own = threading.local()   # .streams: {device index: the thread's stream}
 _pool_of: dict = {}        # capture stream -> its last graph (its pool)
 
 
@@ -177,43 +175,14 @@ def _device_loop(model, mem_state, mem_valid, caches, tok, tokens,
     return steps
 
 
-def _own_stream(device: torch.device) -> torch.cuda.Stream:
-    """The calling thread's stream on `device`, made at its first use."""
-    streams = getattr(_own, "streams", None)
-    if streams is None:
-        streams = _own.streams = {}
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    stream = streams.get(index)
-    if stream is None:
-        stream = streams[index] = torch.cuda.Stream(device)
-    return stream
-
-
 def _capture(step, device: torch.device):
-    """`step` captured as a CUDA graph; returns its replay, which also
-    counts the K1 launches the graph runs (`ops.attention.count_into`).
-    Captured with `capture_begin`/`capture_end` and not the
-    `torch.cuda.graph` context, which synchronises the card, collects
-    garbage and empties the allocator's cache on each entry; in
-    "thread_local" mode, so another thread keeps launching meanwhile."""
-    load_kernels()
-    cur = torch.cuda.current_stream(device)
-    cap = cur if cur != torch.cuda.default_stream(device) \
-        else _own_stream(device)
-    if cap != cur:
-        cap.wait_stream(cur)
+    """`step` captured as a CUDA graph (`utils.cuda_graph.capture`) into
+    the pool of the last graph captured on its stream; returns its replay,
+    which also counts the K1 launches the graph runs."""
+    cap = capture_stream(device)
     held = _pool_of.get(cap.cuda_stream)
-    graph, tally = torch.cuda.CUDAGraph(), {}
-    with torch.cuda.stream(cap), count_into(tally):
-        graph.capture_begin(pool=None if held is None else held.pool(),
-                            capture_error_mode="thread_local")
-        try:
-            step()
-        finally:
-            graph.capture_end()
-    if cap != cur:
-        cur.wait_stream(cap)
+    graph, tally, _ = capture(step, device,
+                              None if held is None else held.pool())
     _pool_of[cap.cuda_stream] = graph
     with _stats_lock:
         greedy_decode.captures += 1

@@ -43,10 +43,12 @@ from ..nn.bert import BertEncoder
 from ..nn.coattention import CoAttentionLayer
 from ..nn.layers import remat as remat_region
 from ..nn.text_decoder import TextDecoder
+from ..ops.attention import _traced
 from ..ops.posenc import sine_position_encoding_1d
 from ..parallel.sharding_rules import (ShardingRules, make_param_shardings,
                                        shard_tensor)
 from ..utils.profiling import span
+from . import encode_graph
 from .deformable_detr import DeformableDETR
 from .detr import DETR, POSITION_EMBEDDINGS
 
@@ -158,8 +160,27 @@ class GPV(nn.Module):
         """images (B,H,W,3) normalised, query_ids (B,Tl). `query_enc`
         (B,Tl,768), when given, is an `encode_queries` output and BERT is
         skipped. Returns (memory (B,Q+Tl,D), mem_valid (B,Q+Tl) or None,
-        outputs). Its stages are the spans `encode.detr`, `encode.bert` and
-        `encode.coattention` (`utils.profiling`)."""
+        outputs), fresh tensors on every call.
+
+        On a CUDA device without a gradient the call replays a CUDA graph
+        of the body (`_encode`) kept per input key, from the key's second
+        call on (`models.encode_graph`, which says when a call stays
+        eager); counters `GPV.encode.captures`, `.replays` and
+        `.eager_calls`."""
+        inputs = (images, query_ids, image_valid, query_valid)
+        if encode_graph.graphable(self, images.device, query_enc,
+                                  _traced(images)):
+            out = encode_graph.encode(self, GPV.encode, inputs, train)
+            if out is not None:
+                return out
+        encode_graph.count(GPV.encode, "eager_calls")
+        return self._encode(*inputs, train, query_enc)
+
+    def _encode(self, images, query_ids, image_valid=None, query_valid=None,
+                train: bool = False, query_enc=None):
+        """`encode`'s body, launched from the host. Its stages are the
+        spans `encode.detr`, `encode.bert` and `encode.coattention`
+        (`utils.profiling`)."""
         with span("encode.detr"):
             outputs = self.detr(images, image_valid, train)
             vl_hs = self.detr_joiner(outputs.pop("detr_hs"))  # (B,Q,D)
@@ -196,6 +217,10 @@ class GPV(nn.Module):
                                                   device=memory.device),
                                        fusion_valid], dim=1)
         return memory, mem_valid, outputs
+
+    def _apply(self, fn, recurse=True):
+        encode_graph.drop(self)   # its graphs read the weights' old places
+        return super()._apply(fn, recurse)
 
     def condition_on_relevance(self, relevance_logits, fused_hs):
         if not self.relevance_conditioning:
@@ -283,6 +308,11 @@ class GPV(nn.Module):
     def init_text_cache(self, batch: int, device):
         return self.text_decoder.init_cache(batch, self.max_text_len,
                                             self.dtype, device)
+
+
+GPV.encode.captures = 0
+GPV.encode.replays = 0
+GPV.encode.eager_calls = 0
 
 
 # the block that holds each sharded leaf: (module attribute, the first
