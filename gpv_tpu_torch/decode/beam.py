@@ -16,11 +16,12 @@ promises no order for ties, a stable descending sort does.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
-from ..models.gpv import GPV
+if TYPE_CHECKING:
+    from ..models.gpv import GPV
 
 NEG_INF = -1e9
 
@@ -61,8 +62,9 @@ def beam_decode(model: GPV, memory: torch.Tensor,
     seqs = torch.zeros(B, K, T1, dtype=torch.int32, device=dev)
     # row offset of each sample's beams in the B·K batch
     base = (torch.arange(B, device=dev) * K)[:, None]
+    pos = torch.zeros((), dtype=torch.long, device=dev)   # t on the device
     for t in range(T1):
-        logits = model.text_step(tok, mem_state, mem_valid, caches, t,
+        logits = model.text_step(tok, mem_state, mem_valid, caches, pos,
                                  beam_group=K)            # (B·K, V)
         if vocab_mask is not None:
             logits = logits + vocab_mask
@@ -83,4 +85,5 @@ def beam_decode(model: GPV, memory: torch.Tensor,
         seqs[:, :, t] = new_tok.to(torch.int32)
         tok = new_tok.view(B * K)
         seq_log_prob = best_scores
+        pos.add_(1)
     return seqs, seq_log_prob

@@ -6,52 +6,52 @@ Reference greedy loop (`exp/gpv/models/gpv.py:178-196`): start from
 `max_text_len - 1` steps. The reference re-runs the decoder on the whole
 prefix every step; with causal masking that equals one KV-cached token per
 step, which is what runs here. Its spans (`utils.profiling`) are
-`decode.prepare` (the memory's keys and values, the cache), `decode.step`
-(one iteration), inside it `decode.stop_wait` (the host's per-step wait on
-the card) and, in the first step of a graphed call, `decode.capture`.
+`decode.prepare` (the memory's keys and values, the cache, the logits),
+`decode.step` (one iteration), inside it `decode.stop_wait` (the host's
+per-step wait on the card) and, in the first step of a graphed call,
+`decode.capture`.
 
-A step is about fifty small launches, and issuing them from Python costs
+`greedy_loop` is the one loop, over the model's step (`greedy_decode`)
+or a serving bundle's step program (`export.ExportedEngine`). Its state
+lives on the device: the step reads its position `t` from a 0-d tensor
+and ends by writing the next token, the token and logits buffers, the
+stop flags and `t + 1` there, so a step needs nothing from the host. A
+step is about fifty small launches, and issuing them from Python costs
 the host far more than they cost the card. So on a CUDA device, with the
-text decoder not sharded (`_graphable`), a call captures one step as a
-CUDA graph in its first step and replays it for every step: the step
-reads its position `t` from a 0-d tensor on the device and ends by
-writing the next token, the stop flags and `t + 1` there, so a replay
-needs nothing from the host. Every other call (the CPU, a tensor-parallel
-decoder, whose row-parallel FFN issues collectives) runs the same steps
-as a host loop. Both give the same tokens, logits and step count.
+text decoder not sharded (`_graphable`), `greedy_decode` captures the
+step as a CUDA graph in its first step (on the caller's stream,
+`ops.cuda_graph`) and replays it for every step; every other call (the
+CPU, a tensor-parallel decoder, whose row-parallel FFN issues
+collectives, a bundle) runs the same step eagerly.
 
 A graph is captured per call and never replayed after it: it reads the
 call's caches and buffers, which a graph kept per batch shape would hold
 alive under the next call's encode (the memory's cross-attention K/V
-alone is about 22 MB at B=20). What is kept is the last graph captured on
-each stream, never replayed again, so that the next capture there takes
-its memory pool: none of the pool's blocks is allocated between calls,
-while a pool dropped with its graph stays reserved until the allocator
-runs short or its cache is emptied, and each call would reserve anew.
+alone is about 22 MB at B=20). The pool rule: the last graph captured on
+each stream is kept, never replayed again, so that the next capture there
+takes its memory pool; none of the pool's blocks is allocated between
+calls, while a pool dropped with its graph stays reserved until the
+allocator runs short or its cache is emptied, and each call would reserve
+anew.
 
-The capture runs on the caller's current stream, or forks from the
-default stream onto one of the calling thread's own (`utils.cuda_graph`),
-so the caller must not share that stream with another thread during the
-call; `GPVEngine` gives each calling thread streams of its own.
-
-Counters, in the style of the kernels' `launches`:
+Counters, in the style of the kernels' `launches` (`ops._cuda.count`):
 `greedy_decode.captures`, `greedy_decode.replays` and
 `greedy_decode.eager_steps`; `replays / (replays + eager_steps)` is the
-share of decode steps that ran graphed.
+share of `greedy_decode`'s steps that ran graphed.
 """
 from __future__ import annotations
 
-import threading
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from ..models.gpv import GPV
-from ..ops.attention import add_counts
-from ..utils.cuda_graph import capture, capture_stream
+from ..ops import _cuda
+from ..ops.cuda_graph import capture, capture_stream
 from ..utils.profiling import span
 
-_stats_lock = threading.Lock()
+if TYPE_CHECKING:
+    from ..models.gpv import GPV
+
 _pool_of: dict = {}        # capture stream -> its last graph (its pool)
 
 
@@ -90,22 +90,18 @@ def greedy_decode(model: GPV, memory: torch.Tensor,
       steps: the number of decode steps run.
     """
     B, dev = memory.shape[0], memory.device
-    T1 = model.max_text_len - 1
     with span("decode.prepare"):
         mem_state = model.precompute_text_memory(memory)
         caches = model.init_text_cache(B, dev)
-        tok = torch.full((B,), cls_id, dtype=torch.long, device=dev)
-        tokens = torch.full((B, T1), cls_id if stop_id is None else stop_id,
-                            dtype=torch.int32, device=dev)
-        logits_buf = torch.zeros(B, T1, model.vocab_size, device=dev)
-        stopped = torch.zeros(B, dtype=torch.bool, device=dev)
-    state = (model, mem_state, mem_valid, caches, tok, tokens, logits_buf,
-             stopped, vocab_mask, stop_id)
-    if _graphable(model, dev):
-        steps = _device_loop(*state, capture=_capture)
-    else:
-        steps = _host_loop(*state)
-    return tokens, logits_buf, steps
+        logits = torch.zeros(B, model.max_text_len - 1, model.vocab_size,
+                             device=dev)
+    graphed = _graphable(model, dev)
+    tokens, steps = greedy_loop(
+        lambda tok, t: model.text_step(tok, mem_state, mem_valid, caches, t),
+        logits, cls_id, vocab_mask, stop_id, _capture if graphed else None)
+    if not graphed:
+        _cuda.count(greedy_decode, "eager_steps", steps)
+    return tokens, logits, steps
 
 
 greedy_decode.captures = 0
@@ -113,83 +109,66 @@ greedy_decode.replays = 0
 greedy_decode.eager_steps = 0
 
 
-def _host_loop(model, mem_state, mem_valid, caches, tok, tokens, logits_buf,
-               stopped, vocab_mask, stop_id) -> int:
-    """The steps as launches issued from the host, `t` a Python int."""
-    steps = 0
-    for t in range(tokens.shape[1]):
-        with span("decode.step"):
-            steps += 1
-            logits = model.text_step(tok, mem_state, mem_valid, caches, t)
-            if vocab_mask is not None:
-                logits = logits + vocab_mask
-            tok = logits.argmax(-1)
-            tokens[:, t] = tok
-            logits_buf[:, t] = logits
-            if stop_id is not None:
-                stopped |= tok == stop_id
-                with span("decode.stop_wait"):
-                    done = bool(stopped.all())
-                if done:
-                    break
-    with _stats_lock:
-        greedy_decode.eager_steps += steps
-    return steps
-
-
-def _device_loop(model, mem_state, mem_valid, caches, tok, tokens,
-                 logits_buf, stopped, vocab_mask, stop_id, capture) -> int:
-    """The steps as one step whose state lives on the device: `capture(
-    step, device)` returns what runs it (on the card, a graph's replay)."""
-    dev = tok.device
+def greedy_loop(step_logits, logits: torch.Tensor, cls_id: int,
+                vocab_mask: Optional[torch.Tensor] = None,
+                stop_id: Optional[int] = None, capture_step=None):
+    """The greedy loop (module docstring) over `step_logits(tok, t)`, which
+    returns the (B, V) fp32 logits of the (B,) int64 tokens `tok` at the
+    0-d int64 position `t`, both on the device. Writes each step's logits
+    (mask applied) into `logits` (B, T-1, V), and returns (token ids (B,
+    T-1) int32, the steps run), `stop_id` as in `greedy_decode`.
+    `capture_step(step, device)`, when given, returns what runs the step
+    (on the card, a graph's replay); without it the step runs eagerly."""
+    B, T1, dev = logits.shape[0], logits.shape[1], logits.device
+    tok = torch.full((B,), cls_id, dtype=torch.long, device=dev)
+    tokens = torch.full((B, T1), cls_id if stop_id is None else stop_id,
+                        dtype=torch.int32, device=dev)
+    stopped = torch.zeros(B, dtype=torch.bool, device=dev)
     t = torch.zeros((), dtype=torch.long, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
 
     def step():
-        logits = model.text_step(tok, mem_state, mem_valid, caches, t)
+        out = step_logits(tok, t)
         if vocab_mask is not None:
-            logits = logits + vocab_mask
-        nxt = logits.argmax(-1)
+            out = out + vocab_mask
+        nxt = out.argmax(-1)
         at = t.view(1)
         tokens.index_copy_(1, at, nxt[:, None].to(tokens.dtype))
-        logits_buf.index_copy_(1, at, logits[:, None])
+        logits.index_copy_(1, at, out[:, None])
         tok.copy_(nxt)
         if stop_id is not None:
             stopped.logical_or_(nxt == stop_id)
             torch.all(stopped, out=done)
         t.add_(1)
 
-    steps, run = 0, None
-    for _ in range(tokens.shape[1]):
+    steps, run = 0, step if capture_step is None else None
+    for _ in range(T1):
         with span("decode.step"):
             steps += 1
             if run is None:
                 with span("decode.capture"):
-                    run = capture(step, dev)
+                    run = capture_step(step, dev)
             run()
             if stop_id is not None:
                 with span("decode.stop_wait"):
                     stop = bool(done)
                 if stop:
                     break
-    return steps
+    return tokens, steps
 
 
 def _capture(step, device: torch.device):
-    """`step` captured as a CUDA graph (`utils.cuda_graph.capture`) into
-    the pool of the last graph captured on its stream; returns its replay,
-    which also counts the K1 launches the graph runs."""
+    """`step` captured as a CUDA graph (`ops.cuda_graph.capture`) into the
+    pool of the last graph captured on its stream; returns its replay,
+    which also counts the replays."""
     cap = capture_stream(device)
     held = _pool_of.get(cap.cuda_stream)
-    graph, tally, _ = capture(step, device,
-                              None if held is None else held.pool())
+    graph = capture(step, device,
+                    None if held is None else held.graph.pool())
     _pool_of[cap.cuda_stream] = graph
-    with _stats_lock:
-        greedy_decode.captures += 1
+    _cuda.count(greedy_decode, "captures")
 
     def replay():
         graph.replay()
-        add_counts(tally)
-        with _stats_lock:
-            greedy_decode.replays += 1
+        _cuda.count(greedy_decode, "replays")
     return replay

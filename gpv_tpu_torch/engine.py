@@ -23,12 +23,10 @@ A list may repeat a device (its shards then share one replica). With one
 device the engine is the plain one-device engine.
 
 Every call runs on CUDA streams of the calling thread's own, one a shard
-(made at the thread's first call), after the work the caller had queued
-on its current stream: the greedy decode captures its step as a CUDA
-graph on the stream it runs on (`decode.greedy`), and a capture would
-take in another thread's launches on that stream. A one-device engine's
-call does all of its work on the one stream, whose cuBLAS workspace is
-then the thread's only one.
+(`ops.cuda_graph.own_stream`, slot k for shard k), after the work the
+caller had queued on its current stream: the decode and the encode
+capture CUDA graphs on the stream they run on (`ops.cuda_graph`). A
+one-device engine's call does all of its work on the one stream.
 """
 from __future__ import annotations
 
@@ -44,6 +42,7 @@ import torch
 from .decode.beam import beam_decode
 from .decode.greedy import greedy_decode
 from .models.gpv import GPV, build_gpv
+from .ops.cuda_graph import own_stream
 from .ops.fold_bn import fold_frozen_bn
 from .ops.image import normalize_image
 from .ops.stem_s2d import apply_stem_s2d
@@ -124,16 +123,6 @@ class GPVEngine:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
 
-    def _streams(self) -> list:
-        """The calling thread's stream for each shard (None on the CPU),
-        made at its first call (module docstring)."""
-        streams = getattr(self._local, "streams", None)
-        if streams is None:
-            streams = self._local.streams = [
-                torch.cuda.Stream(d) if d.type == "cuda" else None
-                for d in self.devices]
-        return streams
-
     @property
     def last_decode_steps(self) -> int:
         """Decode steps of the calling thread's last `predict*` call: the
@@ -176,15 +165,14 @@ class GPVEngine:
         rows; also the shards' decode steps (the `steps` each `run`
         returns last). `rows`: arrays (or None) with n leading rows."""
         D = len(self.devices)
-        streams = self._streams()
-        for d, stream in zip(self.devices, streams):
-            if stream is not None:
-                stream.wait_stream(torch.cuda.current_stream(d))
+        streams = {k: own_stream(d, k) for k, d in enumerate(self.devices)
+                   if d.type == "cuda"}
+        for k, stream in streams.items():
+            stream.wait_stream(torch.cuda.current_stream(self.devices[k]))
 
         def shard(k, *part):
-            ctx = (torch.cuda.stream(streams[k]) if streams[k] is not None
-                   else contextlib.nullcontext())
-            with ctx:
+            with (torch.cuda.stream(streams[k]) if k in streams
+                  else contextlib.nullcontext()):
                 return run(k, *part)
         if D == 1:
             *out, steps = shard(0, *rows)

@@ -20,13 +20,14 @@ without the model code (counterpart of `gpv_tpu/export.py`).
 contract. It imports no model code (`gpv_tpu_torch.models`, `nn`,
 `weights`, `infer`): only the attention ops (`gpv::fused_attention`,
 `gpv::fused_biattention`, which the programs call), `torch.export.load`,
-the vocabulary and the tokenizer. It runs the greedy loop on the host,
-with `decode/greedy.py`'s early stop and the vocab mask added to the
-logits there, so one set of programs serves masked and unmasked requests
-and a predict launches the kernels as often as `GPVEngine.predict` does
-for the same steps. This differs from the JAX bundle, which exports the
-whole `while_loop` twice a bucket (masked and unmasked): the early stop
-depends on the data, which a traced program cannot branch on.
+the engine's greedy loop (`decode.greedy.greedy_loop`, run eagerly over
+the step program, with its early stop and the vocab mask added to the
+logits), the vocabulary and the tokenizer. So one set of programs serves
+masked and unmasked requests, and a predict launches the kernels as
+often as `GPVEngine.predict` does for the same steps. This differs from
+the JAX bundle, which exports the whole `while_loop` twice a bucket
+(masked and unmasked): the early stop depends on the data, which a
+traced program cannot branch on.
 
 Programs replay the traced graph operator by operator (no compilation);
 they are tied to the device they were exported on.
@@ -42,6 +43,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from .decode.greedy import greedy_loop
 
 MANIFEST = "manifest.json"
 WEIGHTS = "weights.pt"
@@ -226,8 +229,6 @@ class ExportedEngine:
             for name, p in m["programs"].items()}
         self._cache_layers = int(m["cache"]["layers"])
         self._cache_shape = tuple(m["cache"]["shape"])
-        self._positions = [torch.tensor(t, device=self.device)
-                           for t in range(self._cache_shape[0] - 1)]
         self._local = threading.local()
 
     @property
@@ -243,32 +244,20 @@ class ExportedEngine:
                          f"{self.batch_sizes[-1]}")
 
     def _greedy(self, B: int, state: dict, vocab_mask):
-        """`decode/greedy.py`'s loop over the step program: (B, T-1) ids."""
+        """The engine's greedy loop over the step program: (B, T-1) ids."""
         step, w = self._programs["step", B], self._weights["step"]
         dev = self.device
         caches = tuple(
             (torch.zeros(B, *self._cache_shape, dtype=self.dtype, device=dev),
              torch.zeros(B, *self._cache_shape, dtype=self.dtype, device=dev))
             for _ in range(self._cache_layers))
-        stop = self.vocab.stop_id
-        tok = torch.full((B,), self.vocab.cls_id, dtype=torch.long,
-                         device=dev)
-        tokens = torch.full((B, len(self._positions)), stop,
-                            dtype=torch.int32, device=dev)
-        stopped = torch.zeros(B, dtype=torch.bool, device=dev)
-        steps = 0
-        for t, pos in enumerate(self._positions):
-            steps += 1
-            logits = step(w, tok, pos, state["mem_kvs"], state["classifier"],
-                          state["mem_valid"], caches)
-            if vocab_mask is not None:
-                logits = logits + vocab_mask
-            tok = logits.argmax(-1)
-            tokens[:, t] = tok
-            stopped |= tok == stop
-            if bool(stopped.all()):
-                break
-        self._local.steps = steps
+        logits = torch.zeros(B, self._cache_shape[0] - 1, len(self.vocab),
+                             device=dev)
+        tokens, self._local.steps = greedy_loop(
+            lambda tok, t: step(w, tok, t, state["mem_kvs"],
+                                state["classifier"], state["mem_valid"],
+                                caches),
+            logits, self.vocab.cls_id, vocab_mask, self.vocab.stop_id)
         return tokens
 
     def predict(self, images_uint8, queries: List[str],

@@ -14,7 +14,7 @@ the body makes and runs):
   cuBLAS's handles and the kernels' builds, and a shape seen once never
   pays for a capture;
 - the second call with a key captures the body (`GPV._encode`) on static
-  input buffers (`utils.cuda_graph.capture`, the launches of the
+  input buffers (`ops.cuda_graph.capture`, the launches of the
   hand-written kernels counted into the graph's tally) and replays it;
 - every later call copies its inputs into the buffers, replays, and
   returns fresh copies of the outputs, so a result a caller keeps is
@@ -27,21 +27,22 @@ first. The graphs read the weights where they were at the capture, so
 model whose modules or parameters are replaced otherwise after a
 capture has to be dropped by its owner.
 
-The encode graphs of one device share one private memory pool, so the
-serving buckets do not each reserve their own activations: a capture
-takes the pool of a graph of the device still alive (a pool whose graphs
-are all gone may not be captured into again), else a new one. Graphs of
-one pool may hand each other's blocks on, so their replays never overlap: a
-replay holds its device's lock over copy-in, replay and copy-out, and
-its stream waits on the event the previous replay recorded after its
-copy-out. Replays may come from any thread and stream (the server warms
-up on its main thread and its workers replay on their own streams).
+The pool rule: the encode graphs of one device share one private memory
+pool, so the serving buckets do not each reserve their own activations:
+a capture takes the pool of a graph of the device still alive (a pool
+whose graphs are all gone may not be captured into again), else a new
+one. Graphs of one pool may hand each other's blocks on, so their
+replays never overlap: a replay holds its device's lock over copy-in,
+replay and copy-out, and its stream waits on the event the previous
+replay recorded after its copy-out. Replays may come from any thread and
+stream (the server warms up on its main thread and its workers replay on
+their own streams).
 
-Counters, as in `decode.greedy`: `GPV.encode.captures`,
-`GPV.encode.replays` and `GPV.encode.eager_calls`; `replays / (replays +
-eager_calls)` is the share of encode calls that ran graphed. Spans:
-`encode.capture` (the capture, in the call that captures) and
-`encode.replay` (copy-in, replay, copy-out).
+Counters, as in `decode.greedy` (`ops._cuda.count`):
+`GPV.encode.captures`, `GPV.encode.replays` and `GPV.encode.eager_calls`;
+`replays / (replays + eager_calls)` is the share of encode calls that ran
+graphed. Spans: `encode.capture` (the capture, in the call that
+captures) and `encode.replay` (copy-in, replay, copy-out).
 """
 from __future__ import annotations
 
@@ -53,8 +54,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.attention import add_counts
-from ..utils.cuda_graph import capture
+from ..ops import _cuda
+from ..ops.cuda_graph import capture
 from ..utils.profiling import span
 
 MAX_GRAPHS = 4   # keys a model keeps graphs of on a device
@@ -70,19 +71,7 @@ class _Device:
     def __init__(self):
         self.lock = threading.Lock()
         self.done = torch.cuda.Event()   # after the last replay's copy-out
-        self.live = weakref.WeakSet()    # its _Graphs: their pool
-
-
-class _Graph:
-    """One key's graph, its static input buffers (None for a None mask),
-    the outputs it writes ((memory, mem_valid, outputs)) and the
-    hand-written kernels' launches a replay runs."""
-
-    __slots__ = ("graph", "inputs", "outputs", "tally", "__weakref__")
-
-    def __init__(self, graph, inputs: tuple, outputs: tuple, tally: dict):
-        self.graph, self.inputs = graph, inputs
-        self.outputs, self.tally = outputs, tally
+        self.live = weakref.WeakSet()    # its graphs: their pool
 
 
 class _Model:
@@ -94,7 +83,7 @@ class _Model:
         self.hooks = tuple(table for m in model.modules()
                            for table in (m._forward_hooks,
                                          m._forward_pre_hooks))
-        self.graphs: dict = {}   # _Device -> OrderedDict key -> _Graph
+        self.graphs: dict = {}   # _Device -> OrderedDict key -> Graph
         self.seen: dict = {}     # _Device -> OrderedDict key -> None
 
 
@@ -120,12 +109,6 @@ def _device(device: torch.device) -> _Device:
     return dev
 
 
-def count(counters, name: str) -> None:
-    """One more on the counter `name` of `counters`, under a lock."""
-    with _lock:
-        setattr(counters, name, getattr(counters, name) + 1)
-
-
 def _hooked(model: nn.Module) -> bool:
     """Whether a forward hook or pre-hook would run in the model's forward
     (on any of its modules, or a global one): a replay would skip it."""
@@ -137,7 +120,7 @@ def _hooked(model: nn.Module) -> bool:
 def graphable(model, device: torch.device, query_enc, traced: bool) -> bool:
     """Whether an encode call replays a graph (module docstring): inputs on
     `device`, `query_enc` as given, `traced` whether torch.export or
-    torch.compile traces the call (`ops.attention._traced`)."""
+    torch.compile traces the call (`ops._cuda.traced`)."""
     return (device.type == "cuda" and not traced and query_enc is None
             and not torch.is_grad_enabled() and model.tp is None
             and not _hooked(model))
@@ -176,38 +159,38 @@ def encode(model, counters, inputs: tuple, train: bool) -> Optional[tuple]:
             del seen[k]
             with span("encode.capture"):
                 graph = _capture(model, inputs, train, dev)
-            count(counters, "captures")
+            _cuda.count(counters, "captures")
             graphs[k] = graph
             if len(graphs) > MAX_GRAPHS:
                 dev.done.synchronize()   # no replay of it is in flight
                 graphs.popitem(last=False)
         with span("encode.replay"):
             out = _replay(graph, inputs, dev)
-    count(counters, "replays")
+    _cuda.count(counters, "replays")
     return out
 
 
-def _capture(model, inputs: tuple, train: bool, dev: _Device) -> _Graph:
+def _capture(model, inputs: tuple, train: bool, dev: _Device):
+    """The body captured on static input buffers (None for a None mask);
+    the graph's outputs are (the buffers, the body's outputs)."""
     static = tuple(None if t is None else torch.empty_like(t)
                    for t in inputs)
     alive = next(iter(dev.live), None)   # held: its pool stays in use
-    graph, tally, out = capture(lambda: model._encode(*static, train),
-                                inputs[0].device,
-                                None if alive is None else alive.graph.pool())
-    entry = _Graph(graph, static, out, tally)
-    dev.live.add(entry)
-    return entry
+    graph = capture(lambda: (static, model._encode(*static, train)),
+                    inputs[0].device,
+                    None if alive is None else alive.graph.pool())
+    dev.live.add(graph)
+    return graph
 
 
-def _replay(graph: _Graph, inputs: tuple, dev: _Device) -> tuple:
+def _replay(graph, inputs: tuple, dev: _Device) -> tuple:
+    static, (memory, mem_valid, outputs) = graph.outputs
     stream = torch.cuda.current_stream(inputs[0].device)
     stream.wait_event(dev.done)
-    for buf, t in zip(graph.inputs, inputs):
+    for buf, t in zip(static, inputs):
         if buf is not None:
             buf.copy_(t)
-    graph.graph.replay()
-    add_counts(graph.tally)
-    memory, mem_valid, outputs = graph.outputs
+    graph.replay()
     out = (memory.clone(), None if mem_valid is None else mem_valid.clone(),
            {name: t.clone() for name, t in outputs.items()})
     dev.done.record(stream)

@@ -43,7 +43,7 @@ from ..nn.bert import BertEncoder
 from ..nn.coattention import CoAttentionLayer
 from ..nn.layers import remat as remat_region
 from ..nn.text_decoder import TextDecoder
-from ..ops.attention import _traced
+from ..ops import _cuda
 from ..ops.posenc import sine_position_encoding_1d
 from ..parallel.sharding_rules import (ShardingRules, make_param_shardings,
                                        shard_tensor)
@@ -169,11 +169,11 @@ class GPV(nn.Module):
         `.eager_calls`."""
         inputs = (images, query_ids, image_valid, query_valid)
         if encode_graph.graphable(self, images.device, query_enc,
-                                  _traced(images)):
+                                  _cuda.traced(images)):
             out = encode_graph.encode(self, GPV.encode, inputs, train)
             if out is not None:
                 return out
-        encode_graph.count(GPV.encode, "eager_calls")
+        _cuda.count(GPV.encode, "eager_calls")
         return self._encode(*inputs, train, query_enc)
 
     def _encode(self, images, query_ids, image_valid=None, query_valid=None,
@@ -285,12 +285,12 @@ class GPV(nn.Module):
         return (self.text_decoder.precompute_memory(memory),
                 self.answer_classifier())
 
-    def text_step(self, token_t, mem_state, mem_valid, caches, t: int,
-                  beam_group: int = 1):
+    def text_step(self, token_t, mem_state, mem_valid, caches,
+                  t: torch.Tensor, beam_group: int = 1):
         """(B,) ids at position t -> (B,V) fp32 logits; caches in place.
-        `t` is an int, or a 0-d int64 tensor on the device (an exported
-        step, a step captured as a CUDA graph): then nothing of the step
-        reads it on the host.
+        `t` is a 0-d int64 tensor on the device, so nothing of the step
+        reads it on the host: one exported step program, or one step
+        captured as a CUDA graph, serves every position.
 
         beam_group K > 1: token_t and the caches hold B·K sample-major beam
         rows while mem_state/mem_valid stay untiled at (B, ·)
@@ -298,9 +298,8 @@ class GPV(nn.Module):
         mem_kvs, classifier = mem_state
         x_t = self.embed_answer_tokens(token_t[:, None])      # (B,1,D)
         if self.text_pos_enc:
-            pe = (self.pos_enc_table.index_select(0, t.view(1))
-                  if isinstance(t, torch.Tensor) else self.pos_enc_table[t])
-            x_t = x_t + pe.to(x_t.dtype)
+            x_t = x_t + self.pos_enc_table.index_select(0, t.view(1)).to(
+                x_t.dtype)
         y = self.text_decoder.step(x_t, mem_kvs, mem_valid, caches, t,
                                    beam_group)
         return self.answer_logits_head(y[:, 0], classifier)

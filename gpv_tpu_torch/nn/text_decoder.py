@@ -66,12 +66,12 @@ class TextDecoderLayer(nn.Module):
         """Cross-attention K/V, once per decode: (B,Tm,H,Dh) x2."""
         return self.multihead_attn.project_kv(memory, memory)
 
-    def step(self, x_t, mem_kv, mem_valid, cache_k, cache_v, t: int,
-             pos_valid, beam_group: int = 1):
-        """One token: x_t (B,1,D) at position t (an int, or a 0-d int64
-        tensor when the step is traced for export, so one program serves
-        every t); cache_k/v (B,S,H,Dh) are written at t in place;
-        pos_valid (B,S) = arange(S) <= t.
+    def step(self, x_t, mem_kv, mem_valid, cache_k, cache_v,
+             t: torch.Tensor, pos_valid, beam_group: int = 1):
+        """One token: x_t (B,1,D) at position t, a 0-d int64 tensor on the
+        device (one exported or graphed step serves every t); cache_k/v
+        (B,S,H,Dh) are written at t in place; pos_valid (B,S) =
+        arange(S) <= t.
 
         beam_group K > 1 marks x_t as B = B'·K sample-major beam rows whose
         mem_kv/mem_valid stay untiled at (B', ·): the K beams of a sample
@@ -81,12 +81,8 @@ class TextDecoderLayer(nn.Module):
         Returns y_t (B,1,D)."""
         qh = self.self_attn.project_q(x_t)
         kh_t, vh_t = self.self_attn.project_kv(x_t, x_t)
-        if isinstance(t, torch.Tensor):  # an exported step's 0-d input
-            cache_k.index_copy_(1, t.view(1), kh_t)
-            cache_v.index_copy_(1, t.view(1), vh_t)
-        else:
-            cache_k[:, t] = kh_t[:, 0]
-            cache_v[:, t] = vh_t[:, 0]
+        cache_k.index_copy_(1, t.view(1), kh_t)
+        cache_v.index_copy_(1, t.view(1), vh_t)
         x = self.norm1(x_t + self.self_attn.attend(qh, cache_k, cache_v,
                                                    pos_valid))
         mem_k, mem_v = mem_kv
@@ -126,10 +122,10 @@ class TextDecoder(nn.Module):
                       torch.zeros(shape, dtype=dtype, device=device))
                      for _ in self.layers)
 
-    def step(self, x_t, mem_kvs, mem_valid, caches, t: int,
+    def step(self, x_t, mem_kvs, mem_valid, caches, t: torch.Tensor,
              beam_group: int = 1):
         """One token through all layers; the caches are updated in place.
-        `beam_group` as in `TextDecoderLayer.step`. Returns y_t (B,1,D)."""
+        `t`, `beam_group` as in `TextDecoderLayer.step`. Returns y_t."""
         S = caches[0][0].shape[1]
         pos_valid = (torch.arange(S, device=x_t.device) <= t).expand(
             x_t.shape[0], S).contiguous()

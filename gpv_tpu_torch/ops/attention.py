@@ -58,9 +58,6 @@ no autograd formula is registered.
 """
 from __future__ import annotations
 
-import contextlib
-import ctypes
-import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -69,7 +66,6 @@ from . import _cuda
 
 NEG = -1e9
 _DTYPES = (torch.float32, torch.bfloat16)
-_P, _I = ctypes.c_void_p, ctypes.c_int
 ALIGN = 16  # bytes: the kernels copy 16-byte chunks
 
 
@@ -239,35 +235,6 @@ def _plan(dtype, Tq: int, Tk: int, Dh: int, both: bool = False) -> Plan:
                 0, cols, n)
 
 
-_SIGNATURES = {  # source -> {function: argtypes}; each returns cudaError_t
-    "attention": {"gpv_attn_fp32_init": [],
-                  "gpv_attn_fp32": [_P] * 5 + [_I] * 11 + [_P],
-                  "gpv_attn_fp32_bi": [_P] * 10 + [_I] * 10 + [_P]},
-    "attention_tile": {"gpv_attn_tile_init": [],
-                       "gpv_attn_tile": [_P] * 5 + [_I] * 10 + [_P],
-                       "gpv_attn_tile_bi": [_P] * 10 + [_I] * 9 + [_P]},
-    "attention_decode": {"gpv_attn_decode_init": [],
-                         "gpv_attn_decode": [_P] * 5 + [_I] * 8 + [_P]},
-}
-_ready: dict = {}
-_count_lock = threading.Lock()
-
-
-def _lib(source: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<source>.cu, its functions typed and its
-    `*_init` (the kernels' shared-memory limits) run once."""
-    lib = _ready.get(source)
-    if lib is None:
-        lib = _cuda.load(source)
-        for fn, argtypes in _SIGNATURES[source].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _I
-            if fn.endswith("_init"):
-                _raise_on(fn, getattr(lib, fn)())
-        _ready[source] = lib
-    return lib
-
-
 def _raise_on(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name} kernel: cudaError_t {err}")
@@ -320,61 +287,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _count(wrapper, variant: str) -> None:
-    """One launch of `variant` on `wrapper`'s counters, under a lock: the
-    serving workers launch from several threads. While the calling thread
-    captures a CUDA graph (`count_into`) nothing runs, and the launch goes
-    to the capture's tally instead."""
-    tally = getattr(_capturing, "tally", None)
-    if tally is not None:
-        key = (wrapper, variant)
-        tally[key] = tally.get(key, 0) + 1
-        return
-    with _count_lock:
-        wrapper.launches += 1
-        wrapper.variant_launches[variant] += 1
-
-
-_capturing = threading.local()
-
-
-@contextlib.contextmanager
-def count_into(tally: dict):
-    """Count the launches the calling thread makes inside the block into
-    `tally` ({(wrapper, variant): launches}) and not on the wrappers'
-    counters: the block captures a CUDA graph, which runs no kernel. Each
-    replay of the graph then adds the tally (`add_counts`), so the counters
-    hold the kernels that ran. The other threads count as usual."""
-    saved = getattr(_capturing, "tally", None)
-    _capturing.tally = tally
-    try:
-        yield
-    finally:
-        _capturing.tally = saved
-
-
-def add_counts(tally: dict) -> None:
-    """Add a capture's tally (`count_into`) to the wrappers' counters: one
-    replay of its graph."""
-    with _count_lock:
-        for (wrapper, variant), n in tally.items():
-            wrapper.launches += n
-            wrapper.variant_launches[variant] += n
-
-
-def load_kernels() -> None:
-    """Load every kernel library (building it at first use) and set its
-    kernels' limits, here and not inside a CUDA graph capture."""
-    for source in _SIGNATURES:
-        _lib(source)
-
-
-def _traced(t: torch.Tensor) -> bool:
-    """True while torch.export or torch.compile traces the caller (the
-    tensors are fake, or dynamo runs): the call must become an op node."""
-    return torch.compiler.is_compiling() or type(t) is not torch.Tensor
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: Optional[torch.Tensor] = None,
                     causal: bool = False) -> torch.Tensor:
@@ -382,7 +294,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid) or None, causal (query i sees keys j <= i). Returns (B,Tq,H,Dh)
     in q's dtype. CPU tensors take `attend_plain`; traced code the op
     `gpv::fused_attention`."""
-    if _traced(q):
+    if _cuda.traced(q):
         return torch.ops.gpv.fused_attention(q, k, v, key_valid, causal)
     if q.device.type == "cpu":
         return attend_plain(q, k, v, key_valid, causal)
@@ -406,19 +318,19 @@ def _launch_attention(q, k, v, key_valid, causal) -> torch.Tensor:
             out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if plan.variant.startswith("fp32"):
-        err = _lib("attention").gpv_attn_fp32(
+        err = _cuda.load("attention").gpv_attn_fp32(
             *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.rows, plan.warps,
             plan.key_tile, plan.cols, plan.smem_bytes, stream)
     elif plan.variant == "tile":
-        err = _lib("attention_tile").gpv_attn_tile(
+        err = _cuda.load("attention_tile").gpv_attn_tile(
             *ptrs, B, Tq, Tk, H, Dh, int(causal), plan.warps, plan.key_tile,
             plan.cols, plan.smem_bytes, stream)
     else:
-        err = _lib("attention_decode").gpv_attn_decode(
+        err = _cuda.load("attention_decode").gpv_attn_decode(
             *ptrs, B, Tk, H, Dh, int(causal), plan.warps, plan.cols,
             plan.smem_bytes, stream)
     _raise_on(f"fused_attention ({plan.variant})", err)
-    _count(fused_attention, plan.variant)
+    _cuda.count_launch(fused_attention, plan.variant)
     return out
 
 
@@ -435,7 +347,7 @@ def fused_biattention(q1, k1, v1, q2, k2, v2,
     Returns ctx1 = softmax(q2 k1^T + m1) v1 (B,T2,H,Dh) and
     ctx2 = softmax(q1 k2^T + m2) v2 (B,T1,H,Dh). CPU tensors take
     `biattend_plain`; traced code the op `gpv::fused_biattention`."""
-    if _traced(q1):
+    if _cuda.traced(q1):
         return torch.ops.gpv.fused_biattention(q1, k1, v1, q2, k2, v2,
                                                valid1, valid2)
     if q1.device.type == "cpu":
@@ -463,15 +375,15 @@ def _launch_biattention(q1, k1, v1, q2, k2, v2, valid1, valid2):
             ctx1.data_ptr(), ctx2.data_ptr())
     stream = torch.cuda.current_stream(q1.device).cuda_stream
     if plan.variant == "fp32_tile":
-        err = _lib("attention").gpv_attn_fp32_bi(
+        err = _cuda.load("attention").gpv_attn_fp32_bi(
             *ptrs, B, T1, T2, H, Dh, plan.rows, plan.warps, plan.key_tile,
             plan.cols, plan.smem_bytes, stream)
     else:
-        err = _lib("attention_tile").gpv_attn_tile_bi(
+        err = _cuda.load("attention_tile").gpv_attn_tile_bi(
             *ptrs, B, T1, T2, H, Dh, plan.warps, plan.key_tile, plan.cols,
             plan.smem_bytes, stream)
     _raise_on(f"fused_biattention ({plan.variant})", err)
-    _count(fused_biattention, plan.variant)
+    _cuda.count_launch(fused_biattention, plan.variant)
     return ctx1, ctx2
 
 

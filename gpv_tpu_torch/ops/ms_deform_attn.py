@@ -48,11 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .attention import _count, _traced
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
 INVALID_VALUE = 1  # cudaErrorInvalidValue: the C entry's refusal
-_lib = None
 
 
 def _locations(shapes, ref, off):
@@ -86,17 +83,6 @@ def ms_deform_attn_plain(value: torch.Tensor, shapes: Sequence[Tuple[int,
     a = attn.transpose(1, 2).reshape(B * H, 1, Q, L * P)
     out = (s * a).sum(-1).view(B, H * Dh, Q).transpose(1, 2)
     return out.to(value.dtype).contiguous()
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = _cuda.load("ms_deform_attn")
-        lib.gpv_msdeform.argtypes = [_P] * 5 + [_I] * 7 + [
-            ctypes.POINTER(ctypes.c_int), _I, _P]
-        lib.gpv_msdeform.restype = _I
-        _lib = lib
-    return _lib
 
 
 def _check(value, shapes, ref, off, logits) -> None:
@@ -141,7 +127,7 @@ def _launch(value, shapes, ref, off, logits) -> torch.Tensor:
     out = torch.empty(B, Q, H * Dh, dtype=value.dtype, device=value.device)
     flat = (ctypes.c_int * (2 * L))(*[int(x) for hw in shapes for x in hw])
     bf16 = value.dtype == torch.bfloat16
-    err = _load().gpv_msdeform(
+    err = _cuda.load("ms_deform_attn").gpv_msdeform(
         value.data_ptr(), ref.data_ptr(), off.data_ptr(), logits.data_ptr(),
         out.data_ptr(), B, S, Q, H, Dh, L, P, flat, int(bf16),
         torch.cuda.current_stream(value.device).cuda_stream)
@@ -155,7 +141,7 @@ def _launch(value, shapes, ref, off, logits) -> torch.Tensor:
     if err:
         raise RuntimeError(f"ms_deform_attn ({variant}) kernel: "
                            f"cudaError_t {err}")
-    _count(ms_deform_attn, variant)
+    _cuda.count_launch(ms_deform_attn, variant)
     return out
 
 
@@ -166,7 +152,7 @@ def ms_deform_attn(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
     version on CPU tensors, the op `gpv::ms_deform_attn` in traced
     code."""
     shapes = [(int(h), int(w)) for h, w in shapes]
-    if _traced(value):
+    if _cuda.traced(value):
         return torch.ops.gpv.ms_deform_attn(
             value, [x for hw in shapes for x in hw], ref, off, logits)
     if value.device.type == "cpu":

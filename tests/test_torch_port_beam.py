@@ -66,12 +66,12 @@ def test_beam_group_step(pair, encoded, K):
         tiled = pm.init_text_cache(B * K, "cpu")
         got, rep = [], []
         for t in range(3):
-            tok = torch.from_numpy(toks[t])
-            got.append(pm.text_step(tok, state, valid_t, grouped, t,
+            tok, pos = torch.from_numpy(toks[t]), torch.tensor(t)
+            got.append(pm.text_step(tok, state, valid_t, grouped, pos,
                                     beam_group=K))
             rep.append(pm.text_step(tok, state_rep,
                                     valid_t.repeat_interleave(K, 0), tiled,
-                                    t))
+                                    pos))
     j_state = jm.apply(v, jnp.asarray(memory),
                        method=JaxGPV.precompute_text_memory)
     j_caches = jm.apply(v, B * K, method=JaxGPV.init_text_cache)

@@ -1,21 +1,18 @@
-"""The greedy decode's graphed path (`gpv_tpu_torch.decode.greedy`) on the
-CPU, where nothing is captured: which calls take the host loop and what
+"""The greedy decode's one loop (`gpv_tpu_torch.decode.greedy`) on the
+CPU, where nothing is captured: which calls run the step eagerly and what
 they count, the step with its position as a 0-d tensor on the device
-against the step with an int, the device-resident loop (the step a graph
-captures, run here without capture) against the host loop, and the K1
-launch counters while a thread captures.
+against the teacher-forced decode, and the loop run through a stand-in
+capture (what a replay runs) against the same loop run eagerly.
 
 The graph itself runs on the card only:
-tests/test_torch_port_decode_graph_card.py."""
-import threading
-
+tests/test_torch_port_decode_graph_card.py; the counters while a thread
+captures: tests/test_torch_port_cuda_graph.py."""
 import pytest
 import torch
 
 from gpv_tpu_torch.decode import greedy
 from gpv_tpu_torch.decode.greedy import greedy_decode
 from gpv_tpu_torch.models.gpv import GPV
-from gpv_tpu_torch.ops import attention as A
 from gpv_tpu_torch.parallel.tensor_parallel import ModelGroup
 from gpv_tpu_torch.weights import init_random
 
@@ -63,25 +60,30 @@ def _counters():
             greedy_decode.eager_steps)
 
 
-def _device_decode(model, memory, mem_valid, cls_id, vocab_mask=None,
-                   stop_id=None):
-    """`greedy_decode`'s device-resident loop with the step run as it is
-    instead of captured (what a replay runs)."""
+def _captured_decode(model, memory, mem_valid, cls_id, vocab_mask=None,
+                     stop_id=None):
+    """`greedy_decode`'s loop with the step run through a stand-in capture
+    (which runs the step it is given, as a replay runs what was captured),
+    and how often the stand-in was called."""
+    captured = []
+
+    def capture_step(step, device):
+        captured.append(device)
+        return step
+
     with torch.inference_mode():
         mem_state = model.precompute_text_memory(memory)
-        T1, n = model.max_text_len - 1, memory.shape[0]
-        tokens = torch.full((n, T1), cls_id if stop_id is None else stop_id,
-                            dtype=torch.int32)
-        logits = torch.zeros(n, T1, model.vocab_size)
-        steps = greedy._device_loop(
-            model, mem_state, mem_valid, model.init_text_cache(n, "cpu"),
-            torch.full((n,), cls_id, dtype=torch.long), tokens, logits,
-            torch.zeros(n, dtype=torch.bool), vocab_mask, stop_id,
-            capture=lambda step, device: step)
-    return tokens, logits, steps
+        caches = model.init_text_cache(memory.shape[0], "cpu")
+        logits = torch.zeros(memory.shape[0], model.max_text_len - 1,
+                             model.vocab_size)
+        tokens, steps = greedy.greedy_loop(
+            lambda tok, t: model.text_step(tok, mem_state, mem_valid,
+                                           caches, t),
+            logits, cls_id, vocab_mask, stop_id, capture_step)
+    return tokens, logits, steps, captured
 
 
-def test_cpu_call_takes_the_host_loop_and_counts_its_steps(model):
+def test_cpu_call_takes_the_eager_loop_and_counts_its_steps(model):
     memory, valid = _memory()
     before = _counters()
     _, _, steps = greedy_decode(model, memory, valid, cls_id=1)
@@ -90,7 +92,7 @@ def test_cpu_call_takes_the_host_loop_and_counts_its_steps(model):
 
 
 @pytest.mark.parametrize("attr", ["self_attn", "multihead_attn", "ffn"])
-def test_a_sharded_decoder_takes_the_host_loop(model, attr):
+def test_a_sharded_decoder_takes_the_eager_loop(model, attr):
     cuda = torch.device("cuda")
     assert greedy._graphable(model, cuda)
     assert not greedy._graphable(model, torch.device("cpu"))
@@ -108,21 +110,22 @@ def test_a_sharded_decoder_takes_the_host_loop(model, attr):
 
 @pytest.mark.parametrize("text_pos_enc", [False, True])
 def test_text_step_takes_its_position_as_a_device_scalar(text_pos_enc):
+    """Each step at the 0-d position t gives the logits of the
+    teacher-forced decode of the same tokens at t."""
     model = _model(text_pos_enc)
     memory, valid = _memory(1)
-    tok = torch.tensor([1, 4, 9])
+    ids = torch.tensor([[1, 4, 9, 2, 7, 7, 3, 5], [1, 0, 0, 6, 8, 1, 2, 3],
+                        [1, 9, 5, 5, 4, 0, 6, 2]])[:, :T - 1]
     with torch.inference_mode():
+        want = model.decode_text(model.embed_answer_tokens(ids), memory,
+                                 valid)
         mem_state = model.precompute_text_memory(memory)
-        c_int = model.init_text_cache(B, "cpu")
-        c_dev = model.init_text_cache(B, "cpu")
-        for t in range(T - 1):
-            a = model.text_step(tok, mem_state, valid, c_int, t)
-            b = model.text_step(tok, mem_state, valid, c_dev,
-                                torch.tensor(t))
-            assert torch.equal(a, b), t
-            tok = a.argmax(-1)
-    for (ki, vi), (kd, vd) in zip(c_int, c_dev):
-        assert torch.equal(ki, kd) and torch.equal(vi, vd)
+        caches = model.init_text_cache(B, "cpu")
+        t = torch.zeros((), dtype=torch.long)
+        for i in range(T - 1):
+            got = model.text_step(ids[:, i], mem_state, valid, caches, t)
+            torch.testing.assert_close(got, want[:, i], rtol=0, atol=1e-5)
+            t.add_(1)
 
 
 def _stop_ids(model, memory, valid, mask):
@@ -142,7 +145,7 @@ def _stop_ids(model, memory, valid, mask):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("stop", ["none", "early", "never"])
-def test_device_loop_equals_host_loop(model, masked, stop):
+def test_captured_loop_equals_eager_loop(model, masked, stop):
     memory, valid = _memory(1)
     mask = None
     if masked:
@@ -152,90 +155,11 @@ def test_device_loop_equals_host_loop(model, masked, stop):
     stop_id = {"none": None, "early": early, "never": never}[stop]
     want = greedy_decode(model, memory, valid, 1, mask, stop_id=stop_id)
     before = _counters()
-    got = _device_decode(model, memory, valid, 1, mask, stop_id)
+    *got, captured = _captured_decode(model, memory, valid, 1, mask,
+                                      stop_id)
     assert _counters() == before
+    assert captured == [torch.device("cpu")]
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
     assert got[2] == want[2]
     assert got[2] < T - 1 if stop == "early" else got[2] == T - 1
-
-
-def test_launches_counted_while_capturing_go_to_the_capture_tally():
-    fa = A.fused_attention
-    launches, decode = fa.launches, fa.variant_launches["decode"]
-    tally, other = {}, threading.Event()
-
-    def elsewhere():  # another thread counts as usual meanwhile
-        A._count(fa, "decode")
-        other.set()
-
-    with A.count_into(tally):
-        A._count(fa, "decode")
-        A._count(fa, "tile")
-        worker = threading.Thread(target=elsewhere)
-        worker.start()
-        worker.join(timeout=30)
-        A._count(fa, "decode")
-    assert other.is_set()
-    assert tally == {(fa, "decode"): 2, (fa, "tile"): 1}
-    assert (fa.launches, fa.variant_launches["decode"]) == (
-        launches + 1, decode + 1)
-    A.add_counts(tally)
-    A.add_counts(tally)
-    assert (fa.launches, fa.variant_launches["decode"]) == (
-        launches + 7, decode + 5)
-    fa.launches = launches
-    fa.variant_launches["decode"] = decode
-    fa.variant_launches["tile"] -= 2
-
-
-def test_counters_lose_no_update_across_threads(model):
-    """Threads decoding at once on the host, and threads counting K1
-    launches into capture tallies and replaying them beside threads that
-    count directly, with the interpreter switching threads often: every
-    count lands once."""
-    import sys
-    fa = A.fused_attention
-    memory, valid = _memory(3)
-    eager, launches = greedy_decode.eager_steps, fa.launches
-    decode, n, errors = fa.variant_launches["decode"], 200, []
-
-    def capture_and_replay():
-        tally = {}
-        with A.count_into(tally):
-            A._count(fa, "decode")
-        for _ in range(n):
-            A.add_counts(tally)
-
-    def count_directly():
-        for _ in range(n):
-            A._count(fa, "decode")
-
-    def decode_on_host():
-        for _ in range(3):
-            greedy_decode(model, memory, valid, cls_id=1)
-
-    def guarded(fn):
-        def run():
-            try:
-                fn()
-            except Exception as e:  # reported by the assert below
-                errors.append(e)
-        return run
-
-    work = [capture_and_replay, count_directly, decode_on_host] * 4
-    threads = [threading.Thread(target=guarded(fn)) for fn in work]
-    saved = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=120)
-    finally:
-        sys.setswitchinterval(saved)
-    assert not errors and not any(t.is_alive() for t in threads)
-    assert greedy_decode.eager_steps == eager + 4 * 3 * (T - 1)
-    assert fa.launches == launches + 8 * n
-    assert fa.variant_launches["decode"] == decode + 8 * n
-    fa.launches, fa.variant_launches["decode"] = launches, decode

@@ -2,7 +2,7 @@
 card, at the released GPV's widths (hidden 768, text decoder 3 x 8 heads,
 20 text positions) with a 10000-word answer vocabulary, in bf16:
 
-- the graphed decode against the host loop at B = 1, 8 and 20, with and
+- the graphed decode against the eager loop at B = 1, 8 and 20, with and
   without a vocab mask, with no stop id, a stop id that ends the decode
   early and one no row emits: tokens, logits and steps identical;
 - the first decode of the process is graphed (nothing warmed before it);
@@ -11,7 +11,7 @@ card, at the released GPV's widths (hidden 768, text decoder 3 x 8 heads,
   `GPVEngine`;
 - K1's counted launches over a graphed call equal to the `decode`
   kernels in a torch.profiler trace of it;
-- a `GPVEngine.predict` of 20 480x640 images: answers equal to the host
+- a `GPVEngine.predict` of 20 480x640 images: answers equal to the eager
   loop's, the allocator's peak over encode and decode no higher, and the
   memory reserved unchanged over further calls (each capture takes the
   last one's pool).
@@ -55,8 +55,8 @@ def engine():
 
 
 @contextlib.contextmanager
-def host_loop():
-    """Every decode in the block takes the host loop, as a call that
+def eager_loop():
+    """Every decode in the block runs its step eagerly, as a call that
     cannot be graphed does."""
     saved = greedy._graphable
     greedy._graphable = lambda *a: False
@@ -93,11 +93,11 @@ def _decode(model, memory, valid, mask, stop_id):
 
 def _stop_ids(model, B, seed, mask):
     """Memory, its validity, a stop id that every row emits before the
-    last step and one that no row emits, from host-loop decodes with
+    last step and one that no row emits, from eager decodes with
     rows alike in ever fewer groups."""
     for groups in (None, 4, 2, 1):
         memory, valid = _memory(B, seed, groups)
-        with host_loop():
+        with eager_loop():
             tok, _, _ = _decode(model, memory, valid, mask, None)
         first = {}
         for i in torch.unique(tok).tolist():
@@ -118,7 +118,7 @@ def test_first_decode_of_the_process_is_graphed(engine):
     got = _decode(model, memory, valid, None, None)
     assert greedy_decode.captures == captures + 1
     assert greedy_decode.replays == replays + got[2] == replays + 19
-    with host_loop():
+    with eager_loop():
         want = _decode(model, memory, valid, None, None)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
@@ -127,7 +127,7 @@ def test_first_decode_of_the_process_is_graphed(engine):
 @pytest.mark.parametrize("B", [1, 8, 20])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("stop", ["none", "early", "never"])
-def test_graphed_decode_equals_the_host_loop(engine, B, masked, stop):
+def test_graphed_decode_equals_the_eager_loop(engine, B, masked, stop):
     model = engine.model
     mask = _mask() if masked else None
     memory, valid, early, never = _stop_ids(model, B, 10 + B, mask)
@@ -138,7 +138,7 @@ def test_graphed_decode_equals_the_host_loop(engine, B, masked, stop):
     after = (greedy_decode.captures, greedy_decode.replays,
              greedy_decode.eager_steps)
     assert after == (before[0] + 1, before[1] + got[2], before[2])
-    with host_loop():
+    with eager_loop():
         want = _decode(model, memory, valid, mask, stop_id)
     assert got[2] == want[2]
     assert torch.equal(got[0], want[0])
@@ -178,7 +178,7 @@ def test_two_threads_decode_at_once(engine):
         t.join(timeout=300)
     assert not errors, errors
     for k, ((memory, valid), _) in enumerate(cases):
-        with host_loop():
+        with eager_loop():
             tok, logits, steps = _decode(model, memory, valid, _mask(),
                                          None)
         for got in results[k]:
@@ -228,7 +228,7 @@ def test_engine_predict_memory_and_answers(engine):
     reserved = torch.cuda.memory_reserved()
     graphed += [call() for _ in range(3)]
     assert torch.cuda.memory_reserved() == reserved
-    with host_loop():
+    with eager_loop():
         eager = [call() for _ in range(2)]
     assert graphed[-1][0] == eager[-1][0]
     assert graphed[-1][1] <= eager[-1][1], (graphed[-1][1], eager[-1][1])

@@ -10,13 +10,11 @@
   DETR and the Deformable DETR detector;
 - the keys' bookkeeping with the card's capture and replay stood in for:
   eager first, captured second, replayed after, at most `MAX_GRAPHS`
-  graphs, dropped by `.to()`;
-- the counters across threads, and the hand-written kernels' launches
-  counted while a thread captures.
+  graphs, dropped by `.to()`.
 
 The graph itself runs on the card only:
-tests/test_torch_port_encode_graph_card.py."""
-import sys
+tests/test_torch_port_encode_graph_card.py; the counters across threads
+and while a thread captures: tests/test_torch_port_cuda_graph.py."""
 import threading
 import types
 
@@ -26,9 +24,7 @@ from torch import nn
 
 from gpv_tpu_torch.models import encode_graph
 from gpv_tpu_torch.models.gpv import GPV
-from gpv_tpu_torch.ops import attention as A
-from gpv_tpu_torch.ops.attention import _traced
-from gpv_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+from gpv_tpu_torch.ops._cuda import traced
 from gpv_tpu_torch.parallel.tensor_parallel import ModelGroup
 from gpv_tpu_torch.weights import init_random
 
@@ -117,12 +113,12 @@ def test_no_graph_under_torch_export(model):
     class Probe(nn.Module):
         def forward(self, x):
             seen.append(encode_graph.graphable(model, CUDA, None,
-                                               _traced(x)))
+                                               traced(x)))
             return x + 1
 
     x = torch.ones(3)
     with torch.no_grad():
-        assert encode_graph.graphable(model, CUDA, None, _traced(x))
+        assert encode_graph.graphable(model, CUDA, None, traced(x))
         torch.export.export(Probe(), (x,))
     assert seen and not any(seen)
 
@@ -278,95 +274,3 @@ def test_to_drops_the_graphs(stand_in):
         model.encode(*inputs)          # eager again, then captured again
         model.encode(*inputs)
     assert len(stand_in) == 2
-
-
-# ------------------------------------------------------------ counting
-
-def test_counters_lose_no_update_across_threads(stand_in):
-    """Threads encoding eager on the CPU, threads taking the graphed path
-    (stood in) over a few keys, and threads counting replays directly,
-    with the interpreter switching threads often: every count lands
-    once, and each key is captured once."""
-    model = _model()
-    keys = [_inputs(masks=False, batch=b) for b in (1, 2, 3)]
-    n, errors = 40, []
-    before = _counters()
-
-    def eager():
-        with torch.inference_mode():
-            for _ in range(3):
-                model._encode(*keys[0])
-                encode_graph.count(GPV.encode, "eager_calls")
-
-    def graphed():
-        with torch.inference_mode():
-            for inputs in keys * 2:
-                model.encode(*inputs)
-
-    def count_directly():
-        for _ in range(n):
-            encode_graph.count(GPV.encode, "replays")
-
-    def guarded(fn):
-        def run():
-            try:
-                fn()
-            except Exception as e:  # reported by the assert below
-                errors.append(e)
-        return run
-
-    work = [eager, graphed, count_directly] * 4
-    threads = [threading.Thread(target=guarded(fn)) for fn in work]
-    saved = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-    finally:
-        sys.setswitchinterval(saved)
-    assert not errors and not any(t.is_alive() for t in threads)
-    captures, replays, eager_calls = (a - b for a, b in
-                                      zip(_counters(), before))
-    assert captures == len(keys) == len(stand_in)
-    # 4 graphed threads x 6 calls: 3 first sights, the rest replays
-    assert eager_calls == 4 * 3 + len(keys)
-    assert replays == 4 * n + 4 * 2 * len(keys) - len(keys)
-
-
-def test_encode_launches_counted_while_capturing_go_to_the_tally():
-    """K1's and K2's tile variants and the deformable sampling, the
-    hand-written kernels of an encode, count into a capture's tally in the
-    capturing thread and on their counters elsewhere; each replay adds the
-    tally."""
-    fa, fb, md = A.fused_attention, A.fused_biattention, ms_deform_attn
-    saved = {fn: (fn.launches, dict(fn.variant_launches))
-             for fn in (fa, fb, md)}
-    tally, other = {}, threading.Event()
-
-    def elsewhere():
-        A._count(md, "bf16")
-        other.set()
-
-    try:
-        with A.count_into(tally):
-            A._count(fa, "tile")
-            A._count(fb, "tile")
-            A._count(md, "bf16")
-            A._count(md, "bf16")
-            worker = threading.Thread(target=elsewhere)
-            worker.start()
-            worker.join(timeout=30)
-        assert other.is_set() and not worker.is_alive()
-        assert tally == {(fa, "tile"): 1, (fb, "tile"): 1, (md, "bf16"): 2}
-        assert fa.launches == saved[fa][0] and fb.launches == saved[fb][0]
-        assert md.launches == saved[md][0] + 1
-        A.add_counts(tally)
-        A.add_counts(tally)
-        assert fa.variant_launches["tile"] == saved[fa][1]["tile"] + 2
-        assert fb.variant_launches["tile"] == saved[fb][1]["tile"] + 2
-        assert md.variant_launches["bf16"] == saved[md][1]["bf16"] + 5
-    finally:
-        for fn, (launches, variants) in saved.items():
-            fn.launches, fn.variant_launches = launches, variants

@@ -31,8 +31,11 @@ from gpv_tpu.text.wordpiece import WordPieceTokenizer as JaxTok
 from gpv_tpu.utils.config import load_config as jax_load_config
 
 from gpv_tpu_torch.cli import export_serving
+from gpv_tpu_torch.decode.greedy import greedy_decode
+from gpv_tpu_torch.engine import encode_sorted
 from gpv_tpu_torch.export import ExportedEngine, export_engine
 from gpv_tpu_torch.infer.build import build_engine
+from gpv_tpu_torch.ops import _cuda
 from gpv_tpu_torch.ops import attention as A
 from gpv_tpu_torch.utils.config import load_config
 from gpv_tpu_torch.weights import state_dict_from_jax
@@ -129,8 +132,8 @@ def test_fake_kernels_give_the_output_shapes():
         c1, c2 = torch.ops.gpv.fused_biattention(a, a, a, b, b, b, None,
                                                  None)
         assert c1.shape == b.shape and c2.shape == a.shape
-        assert A._traced(q)  # a fake tensor routes the wrapper to the op
-    assert not A._traced(torch.empty(1))
+        assert _cuda.traced(q)  # a fake tensor routes the wrapper to the op
+    assert not _cuda.traced(torch.empty(1))
 
 
 # ------------------------------------------------------------ bundles
@@ -166,6 +169,42 @@ def test_bundle_applies_the_vocab_mask(bundle, bridge):
     got = exported.predict(images, QUERIES[:2], mask)
     _same(got, engine.predict(images, QUERIES[:2], mask))
     assert exported.last_decode_steps == engine.last_decode_steps
+
+
+@pytest.mark.parametrize("stop", ["none", "early", "never"])
+def test_bundle_decodes_as_greedy_decode(bundle, bridge, monkeypatch, stop):
+    """The bundle runs the engine's greedy loop over its step program: its
+    tokens and steps equal `greedy_decode`'s on the engine's model, with
+    no stop id, one every row emits before the last step and one no row
+    emits (a vocab mask leaves few words, so that rows repeat them)."""
+    engine, exported = bridge[2], bundle[2]
+    n, vocab = len(QUERIES), engine.vocab
+    mask = torch.full((len(vocab),), -10000.0)
+    mask[[5, 6, 7]] = 0.0
+    qids, qvalid = engine.tokenizer.batch_encode(QUERIES,
+                                                 engine.max_query_len)
+    images = torch.from_numpy(_images(n, seed=13))
+    qids, qvalid = torch.from_numpy(qids).long(), torch.from_numpy(qvalid)
+    with torch.inference_mode():
+        memory, mem_valid, _, _ = encode_sorted(engine.model, images, qids,
+                                                qvalid)
+        free, _, _ = greedy_decode(engine.model, memory, mem_valid,
+                                   vocab.cls_id, mask)
+        first = {i: int((free == i).int().argmax(1).max()) for i in (5, 6, 7)
+                 if bool((free == i).any(1).all())}
+        early = min(first, key=first.get)
+        assert first[early] < free.shape[1] - 1
+        stop_id = {"none": None, "early": early, "never": 8}[stop]
+        want, _, steps = greedy_decode(engine.model, memory, mem_valid,
+                                       vocab.cls_id, mask, stop_id)
+        state = exported._programs["encode", n](
+            exported._weights["encode"], images, qids, qvalid)
+        monkeypatch.setattr(exported.vocab, "stop_id", stop_id)
+        got = exported._greedy(n, state, mask)
+    assert torch.equal(got, want)
+    assert exported.last_decode_steps == steps
+    assert steps < free.shape[1] if stop == "early" else \
+        steps == free.shape[1]
 
 
 def test_bundle_refuses_oversize_batches_and_other_sizes(bundle):

@@ -31,6 +31,7 @@ with TF32 off.
 import pytest
 import torch
 
+from gpv_tpu_torch.ops import _cuda
 from gpv_tpu_torch.ops import attention as port_attn
 
 
@@ -423,7 +424,7 @@ def test_a_launch_given_too_little_shared_memory_is_refused():
     q = torch.randn(1, 20, 1, 768, device="cuda").to(torch.bfloat16)
     plan = port_attn._plan(torch.bfloat16, 20, 20, 768)
     out = torch.empty_like(q)
-    lib = port_attn._lib("attention_tile")
+    lib = _cuda.load("attention_tile")
     stream = torch.cuda.current_stream().cuda_stream
     args = (q.data_ptr(), q.data_ptr(), q.data_ptr(), None, out.data_ptr(),
             1, 20, 20, 1, 768, 0, plan.warps, plan.key_tile, plan.cols)

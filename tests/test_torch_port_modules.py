@@ -238,6 +238,6 @@ def test_text_decoder_teacher_forced_and_stepwise():
             y, jcache = jm.apply(v, jnp.asarray(tgt[:, t:t + 1]), jkv, mvj,
                                  jcache, t, method=JTextDec.step)
             got = pm.step(torch.from_numpy(tgt[:, t:t + 1]), pkv, mvt,
-                          pcache, t)
+                          pcache, torch.tensor(t))
             close(got, y, 1e-4)
             close(got, ref[:, t:t + 1], 1e-4)

@@ -129,6 +129,37 @@ def test_only_the_converter_imports_gpv_tpu():
     assert both == ["convert_orbax_checkpoint.py"]
 
 
+def _port_imports(path: Path):
+    """The modules of the port that `path` imports, relative imports
+    resolved, with each name a `from` import takes (it may be a module)."""
+    package = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = (list(package[:len(package) + 1 - node.level])
+                    if node.level else [])
+            module = ".".join(base + ([node.module] if node.module else []))
+            yield module
+            yield from (f"{module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("files, below", [
+    ("utils/*.py", "gpv_tpu_torch.ops"),
+    ("ops/ms_deform_attn.py", "gpv_tpu_torch.ops.attention")])
+def test_the_kernel_runtime_sits_below_its_users(files, below):
+    """The kernels' runtime (`ops/_cuda.py`: building, loading, launch
+    counting; `ops/cuda_graph.py`: captures and streams) is below what
+    uses it: no utility imports the kernel wrappers or their runtime, and
+    one kernel wrapper imports nothing of another."""
+    paths = sorted((ROOT / "gpv_tpu_torch").glob(files))
+    assert paths
+    for path in paths:
+        for name in _port_imports(path):
+            assert name != below and not name.startswith(below + "."), \
+                f"{path.relative_to(ROOT)} imports {name}"
+
+
 def test_kernel_sources_ship_as_package_data():
     """Every source that `_cuda` compiles exists and is matched by the
     package-data globs, so an installed package can still build it."""
@@ -231,7 +262,8 @@ def test_launch_counts_lose_no_update_across_threads():
     try:
         w.launches, w.variant_launches = 0, dict.fromkeys(saved[1], 0)
         threads = [threading.Thread(
-            target=lambda: [A._count(w, "tile") for _ in range(500)])
+            target=lambda: [_cuda.count_launch(w, "tile")
+                            for _ in range(500)])
             for _ in range(16)]
         for t in threads:
             t.start()
