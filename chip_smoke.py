@@ -878,10 +878,11 @@ def phase_msdeform(vocab_path: Path) -> dict:
     through the op; the bound is the operation's own bytes (value,
     offsets, logits, reference points read once, the output written
     once) at the card's memory rate, or its multiply-adds (4 corners of 2
-    and the weighting, a sample and channel) at the peak. Then a
-    Deformable predict in each dtype (`_deform_predict`)."""
+    and the weighting, a sample and channel) at the peak; each case keeps
+    its launch's plan (`_plan`: tile, threads, shared memory, blocks).
+    Then a Deformable predict in each dtype (`_deform_predict`)."""
     import torch
-    from gpv_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+    from gpv_tpu_torch.ops.ms_deform_attn import (_plan, ms_deform_attn,
                                                   ms_deform_attn_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -916,7 +917,10 @@ def phase_msdeform(vocab_path: Path) -> dict:
                        "shape": [B, S, q, DEFORM_H, DEFORM_DH,
                                  len(shapes), DEFORM_P],
                        "variant": "bf16" if dtype == torch.bfloat16
-                       else "fp32", "max_abs_err": err, "tol": tol,
+                       else "fp32",
+                       "plan": _plan(B, q, S, DEFORM_H, len(shapes),
+                                     DEFORM_P, dtype)._asdict(),
+                       "max_abs_err": err, "tol": tol,
                        **_timings(calls),
                        "op_ms": time_ms(lambda: torch.ops.gpv.ms_deform_attn(
                            value, flat, ref, off, logits))}

@@ -42,8 +42,9 @@ SIGNATURES = {
                        "gpv_attn_tile_bi": [_P] * 10 + [_I] * 9 + [_P]},
     "attention_decode": {"gpv_attn_decode_init": [],
                          "gpv_attn_decode": [_P] * 5 + [_I] * 8 + [_P]},
-    "ms_deform_attn": {"gpv_msdeform": [_P] * 5 + [_I] * 7 + [
-        ctypes.POINTER(ctypes.c_int), _I, _P]},
+    "ms_deform_attn": {"gpv_msdeform_init": [],
+                       "gpv_msdeform": [_P] * 5 + [_I] * 7 + [
+                           ctypes.POINTER(ctypes.c_int)] + [_I] * 4 + [_P]},
 }
 # csrc/<name>.cu -> lib<name>_<hash>.so
 SOURCES = tuple(SIGNATURES)
@@ -147,8 +148,8 @@ def load(name: str) -> ctypes.CDLL:
 
 def load_kernels() -> None:
     """Load every library that sets its kernels' limits when it is loaded
-    (an `*_init`: K1's and K2's), building it at first use, here and not
-    inside a CUDA graph capture."""
+    (an `*_init`: K1's, K2's, the deformable sampling's), building it at
+    first use, here and not inside a CUDA graph capture."""
     for name, fns in SIGNATURES.items():
         if any(fn.endswith("_init") for fn in fns):
             load(name)

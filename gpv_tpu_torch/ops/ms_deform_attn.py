@@ -28,10 +28,11 @@ input requires a gradient (the kernel is forward-only: training calls
 `ms_deform_attn_plain` itself, as `nn.layers.attend_train` stands for
 K1); a CPU tensor takes the plain version. The kernel takes a head dim
 of 32 (Deformable DETR's 256 wide, 8 heads), at most 4 levels and 32
-samples a head; its C entry refuses anything else, and the wrapper
-raises on that. `ms_deform_attn.variant_launches` counts the kernel's
-launches by variant, as the attention wrappers' counters do (inside a
-CUDA graph's capture, into the capture's tally).
+samples a head; the wrapper raises on anything else, and so does the
+kernel's C entry. A launch's tile of queries, threads and shared memory
+come from the pure `_plan`. `ms_deform_attn.variant_launches` counts the
+kernel's launches by variant, as the attention wrappers' counters do
+(inside a CUDA graph's capture, into the capture's tally).
 
 The wrapper is also the torch op `gpv::ms_deform_attn`
 (`torch.library.custom_op`: the CUDA kernel is the launch, the CPU
@@ -42,7 +43,7 @@ on the card. As for K1 and K2, only traced code goes through the op.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +51,61 @@ import torch.nn.functional as F
 from . import _cuda
 
 INVALID_VALUE = 1  # cudaErrorInvalidValue: the C entry's refusal
+# what the kernel takes (`kDh`, `kMaxLevels`, `kMaxSamples`)
+DH, MAX_LEVELS, MAX_SAMPLES = 32, 4, 32
+TAKES = ("the kernel takes head dim 32, at most 4 levels and 32 samples a "
+         "head, and levels that hold the value's rows")
+CHUNK = 16          # bytes a thread gathers at once: 8 bf16 or 4 fp32
+SLOT_BYTES = 32     # shared memory a sample: 4 value rows, 4 weights
+MAX_TILE = 8        # queries a block at most
+MAX_THREADS = 256   # a block's threads at most (`kMaxThreads`)
+MIN_BLOCKS = 264    # two blocks for each of the H100's 132 SMs
+MAX_SMEM = 232448   # shared memory an H100 block may use (`kMaxSmem`)
+
+
+class Plan(NamedTuple):
+    """One launch: block k samples queries [t * tile, (t + 1) * tile) of
+    image k // tiles (t = k % tiles, tiles = ceil(Q / tile)), the grid
+    image by image."""
+    tile: int        # queries of one image a block, all heads
+    threads: int
+    smem_bytes: int  # SLOT_BYTES a (sample, head, query), tile + 1 queries
+    blocks: int
+
+
+def _plan(B: int, Q: int, S: int, H: int, L: int, P: int, dtype) -> Plan:
+    """The launch for B images of Q queries over S value rows, H heads, L
+    levels of P points (csrc/ms_deform_attn.cu, which refuses a launch
+    given less shared memory). One rule for every shape: the largest tile
+    up to MAX_TILE that still gives MIN_BLOCKS blocks and fits the
+    shared memory; a thread a 16-byte chunk of a head, MAX_THREADS at
+    most (a block walks the rest)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ms_deform_attn: dtype {dtype} not supported "
+                        "(float32 or bfloat16)")
+    if not (1 <= L <= MAX_LEVELS and P >= 1 and L * P <= MAX_SAMPLES
+            and H >= 1 and S >= 1):
+        raise ValueError(f"ms_deform_attn: {H} heads, {L} levels x {P} "
+                         f"points over {S} value rows; {TAKES}")
+    if S * H * DH * dtype.itemsize // CHUNK > 2 ** 31 - 1:
+        raise ValueError(f"ms_deform_attn: {S} value rows of {H} heads "
+                         "outgrow the kernel's 32-bit row offsets")
+
+    def smem(tile):  # a slot a (sample, head, query), one spare a tile
+        return L * P * H * (tile + 1) * SLOT_BYTES
+
+    if smem(1) > MAX_SMEM:
+        raise ValueError(f"ms_deform_attn: {H} heads x {L * P} samples "
+                         f"take {smem(1)} bytes of shared memory at one "
+                         f"query a block, above the {MAX_SMEM} a block may "
+                         "use")
+    tile = MAX_TILE
+    while tile > 1 and (B * -(-Q // tile) < MIN_BLOCKS
+                        or smem(tile) > MAX_SMEM):
+        tile //= 2
+    chunks = tile * H * DH * dtype.itemsize // CHUNK  # a thread's each
+    return Plan(tile, min(MAX_THREADS, -(-chunks // 32) * 32), smem(tile),
+                B * -(-Q // tile))
 
 
 def _locations(shapes, ref, off):
@@ -120,24 +176,35 @@ def _check(value, shapes, ref, off, logits) -> None:
 
 
 def _launch(value, shapes, ref, off, logits) -> torch.Tensor:
-    """The kernel on CUDA tensors: check, launch, count."""
+    """The kernel on CUDA tensors: check, plan, launch, count."""
     _check(value, shapes, ref, off, logits)
     B, S, H, Dh = value.shape
     Q, L, P = off.shape[1], off.shape[3], off.shape[4]
+    bf16 = value.dtype == torch.bfloat16
+    variant = "bf16" if bf16 else "fp32"
+    refusal = (f"ms_deform_attn ({variant}): head dim {Dh}, levels "
+               f"{list(shapes)} ({L} x {P} points) over {S} value rows; "
+               f"{TAKES}")
+    if Dh != DH or sum(h * w for h, w in shapes) != S:
+        raise ValueError(refusal)
+    plan = _plan(B, Q, S, H, L, P, value.dtype)
+    for key, t, align in (("value", value, CHUNK),
+                          ("off", off, 2 * off.element_size())):
+        if t.data_ptr() % align:
+            raise ValueError(f"ms_deform_attn: {key} starts "
+                             f"{t.data_ptr() % align} bytes past a "
+                             f"{align}-byte boundary; the kernel reads it in "
+                             f"{align}-byte pieces (a view into another "
+                             "tensor's storage may not be aligned)")
     out = torch.empty(B, Q, H * Dh, dtype=value.dtype, device=value.device)
     flat = (ctypes.c_int * (2 * L))(*[int(x) for hw in shapes for x in hw])
-    bf16 = value.dtype == torch.bfloat16
     err = _cuda.load("ms_deform_attn").gpv_msdeform(
         value.data_ptr(), ref.data_ptr(), off.data_ptr(), logits.data_ptr(),
-        out.data_ptr(), B, S, Q, H, Dh, L, P, flat, int(bf16),
+        out.data_ptr(), B, S, Q, H, Dh, L, P, flat, int(bf16), plan.tile,
+        plan.threads, plan.smem_bytes,
         torch.cuda.current_stream(value.device).cuda_stream)
-    variant = "bf16" if bf16 else "fp32"
     if err == INVALID_VALUE:
-        raise ValueError(
-            f"ms_deform_attn ({variant}): head dim {Dh}, levels "
-            f"{list(shapes)} ({L} x {P} points) over {S} value rows; the "
-            "kernel takes head dim 32, at most 4 levels and 32 samples a "
-            "head, and levels that hold the value's rows")
+        raise ValueError(refusal)
     if err:
         raise RuntimeError(f"ms_deform_attn ({variant}) kernel: "
                            f"cudaError_t {err}")

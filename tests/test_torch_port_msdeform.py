@@ -17,13 +17,20 @@
   (`gpvbench/drivers/predict_msdeform.py`) on the port's bf16 layers:
   sound, and with the sampling's value and weights in float8;
 - `build_gpv` refusing an unknown detector, and the Deformable variants
-  the port does not build, at once.
+  the port does not build, at once;
+- the kernel's launch plan (`_plan`) at the encoder's and the decoder's
+  shapes, B 1 to 20, both routes: within a block's shared memory, every
+  (b, q) in exactly one block; the wrapper's refusals and their
+  messages; every `__global__` of `csrc/ms_deform_attn.cu` named by a
+  variant of the benchmark's `kernels/msdeform-gpv.json`, which its trace
+  check matches the kernels by.
 
 The JAX package has no deformable attention, so the yardstick here is the
 benchmark's plain reference, which imports nothing of the program.
 """
 import json
 import math
+import re
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +44,7 @@ import gpv_tpu_torch.nn.deformable_transformer as deformable_transformer
 from gpv_tpu_torch.nn.deformable_transformer import (encoder_reference_points,
                                                      valid_ratios)
 from gpv_tpu_torch.ops.image import normalize_image
+from gpv_tpu_torch.ops import ms_deform_attn as msd
 from gpv_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
                                               ms_deform_attn_plain)
 from gpv_tpu_torch.text.vocab import AnswerVocab
@@ -381,3 +389,96 @@ def test_init_random_sets_group_norms_as_layer_norms():
 def test_build_gpv_refuses_what_it_does_not_build(over, match):
     with pytest.raises(ValueError, match=match):
         build_gpv(node(merge(tiny_model(), over)), VOCAB)
+
+
+# ---- the kernel's launch plan, refusals and names ----
+
+CELL_LEVELS = [(60, 80), (30, 40), (15, 20), (8, 10)]
+CELL_S = sum(h * w for h, w in CELL_LEVELS)   # 6380
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("Q", [CELL_S, 300], ids=["encoder", "decoder"])
+@pytest.mark.parametrize("B", range(1, 21))
+def test_plan_fits_and_covers_every_query_once(B, Q, dtype):
+    H, L, P = 8, 4, 4
+    plan = msd._plan(B, Q, CELL_S, H, L, P, dtype)
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.smem_bytes == L * P * H * (plan.tile + 1) * msd.SLOT_BYTES
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= msd.MAX_THREADS
+    assert 1 <= plan.tile <= msd.MAX_TILE
+    # the kernel's mapping: block k, tile k % tiles of image k // tiles
+    tiles = -(-Q // plan.tile)
+    assert plan.blocks == B * tiles
+    seen = np.zeros((B, Q), dtype=np.int64)
+    for k in range(plan.blocks):
+        b, t = divmod(k, tiles)
+        seen[b, t * plan.tile:min(Q, (t + 1) * plan.tile)] += 1
+    assert (seen == 1).all()
+    if plan.tile < msd.MAX_TILE:   # a smaller tile only to fill the card
+        assert B * -(-Q // (2 * plan.tile)) < msd.MIN_BLOCKS
+
+
+@pytest.mark.parametrize("L,P", [(5, 1), (4, 9), (1, 33), (1, 0), (0, 4)])
+def test_plan_refuses_what_the_kernel_does_not_take(L, P):
+    with pytest.raises(ValueError, match="at most 4 levels and 32 samples "
+                                         "a head"):
+        msd._plan(20, 300, CELL_S, 8, L, P, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        msd._plan(20, 300, CELL_S, 8, 4, 4, torch.float16)
+
+
+@pytest.mark.parametrize("dh,levels,match", [
+    (64, CELL_LEVELS[:2], r"\(fp32\): head dim 64, levels \[\(60, 80\), "
+                          r"\(30, 40\)\] \(2 x 2 points\) over 6000 value "
+                          r"rows; the kernel takes head dim 32"),
+    (32, [(60, 80), (30, 41)], r"over 6000 value rows; the kernel takes head "
+                               r"dim 32, at most 4 levels and 32 samples a "
+                               r"head, and levels that hold the value's rows"),
+])
+def test_wrapper_refusals_keep_their_messages(dh, levels, match):
+    """Refused before the kernel is built or loaded, with the message the C
+    entry's refusal raises."""
+    B, Q, H, S = 1, 3, 2, 6000
+    value = torch.zeros(B, S, H, dh)
+    off = torch.zeros(B, Q, H, len(levels), 2, 2)
+    logits = torch.zeros(B, Q, H, 2 * len(levels))
+    ref = torch.zeros(B, Q, len(levels), 2)
+    with pytest.raises(ValueError, match=match):
+        msd._launch(value, levels, ref, off, logits)
+
+
+@pytest.mark.parametrize("key,dtype,skew", [("value", torch.float32, 4),
+                                            ("off", torch.bfloat16, 2)])
+def test_wrapper_refuses_what_the_kernel_cannot_read_in_pieces(key, dtype,
+                                                               skew):
+    """The gathers read the value in 16-byte pieces and the offsets in
+    pairs: a view that starts one element past its storage's start is
+    refused before the kernel is built or loaded."""
+    B, Q, H, L, P = 1, 3, 8, 2, 2
+    levels = CELL_LEVELS[:L]
+    S = sum(h * w for h, w in levels)
+    shapes = {"value": (B, S, H, 32), "off": (B, Q, H, L, P, 2)}
+    args = {k: torch.zeros(shape, dtype=dtype) for k, shape in shapes.items()}
+    args[key] = torch.zeros(math.prod(shapes[key]) + 1,
+                            dtype=dtype)[1:].view(shapes[key])
+    logits = torch.zeros(B, Q, H, L * P, dtype=dtype)
+    ref = torch.zeros(B, Q, L, 2)
+    with pytest.raises(ValueError, match=f"{key} starts {skew} bytes past"):
+        msd._launch(args["value"], levels, ref, args["off"], logits)
+
+
+def test_every_kernel_is_named_by_a_variant_of_the_trace_check():
+    src = (ROOT / "gpv_tpu_torch" / "csrc" / "ms_deform_attn.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", src)
+    assert len(names) == src.count("__global__") >= 2
+    data = json.loads((ROOT / "gpvbench" / "kernels" /
+                       "msdeform-gpv.json").read_text())
+    fragments = [f for frags in data["variants"].values() for f in frags]
+    for name in names:
+        assert any(f in name for f in fragments), name
+    assert set(msd.ms_deform_attn.variant_launches) == {
+        v.split(".", 1)[1] for v in data["variants"]}
+
